@@ -1,0 +1,114 @@
+"""Weights carried across from the JAX package's parameter trees.
+
+The JAX trees stack layers on a leading axis and store dense weights
+``[in, out]`` (``opadpo_tpu/models/llama.py:init_params``,
+``clip.py:init_params``); torch ``Linear`` stores ``[out, in]``, one module
+per layer.  The trees arrive with numpy leaves (``np.asarray`` of each JAX
+array, bf16 included), so this module needs neither JAX nor the JAX package.
+
+Quantized base weights (``{"q", "scale"}`` or ``{"q4", "scale"}`` leaves)
+wait for the slice that ports the quantized matmul kernels.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from opadpo_torch.device import resolve_device
+from opadpo_torch.models.llava import Llava, LlavaConfig, empty_model
+
+
+def _np(leaf) -> np.ndarray:
+    if isinstance(leaf, dict):
+        raise NotImplementedError(
+            "quantized base weights: ROADMAP slice 3 (quantized base weights)")
+    return np.asarray(leaf, dtype=np.float32)
+
+
+def _copy(dst: torch.Tensor, leaf, transpose: bool = False) -> None:
+    arr = _np(leaf)
+    if transpose:
+        arr = arr.T
+    if tuple(arr.shape) != tuple(dst.shape):
+        raise ValueError(f"shape {arr.shape} for a {tuple(dst.shape)} slot")
+    dst.copy_(torch.tensor(arr))
+
+
+@torch.no_grad()
+def llava_from_jax(params_np: dict, cfg: LlavaConfig,
+                   device="cuda") -> Llava:
+    """JAX LLaVA params (stacked layers, numpy leaves) -> ``Llava`` on
+    ``device``, weights in ``cfg``'s dtypes (norms stay f32)."""
+    model = empty_model(cfg, resolve_device(device))
+
+    vp, vis = params_np["vision"], model.vision
+    _copy(vis.patch_embed.weight, vp["patch_embed"], transpose=True)
+    _copy(vis.class_embed, vp["class_embed"])
+    _copy(vis.pos_embed, vp["pos_embed"])
+    _copy(vis.pre_norm.weight, vp["pre_norm"]["scale"])
+    _copy(vis.pre_norm.bias, vp["pre_norm"]["bias"])
+    vl = {k: _np(v) for k, v in vp["layers"].items()}
+    for i, blk in enumerate(vis.layers):
+        for ln in ("ln1", "ln2"):
+            _copy(getattr(blk, ln).weight, vl[f"{ln}_scale"][i])
+            _copy(getattr(blk, ln).bias, vl[f"{ln}_bias"][i])
+        for w, bias in (("wq", "bq"), ("wk", "bk"), ("wv", "bv"),
+                        ("wo", "bo"), ("fc1", "b_fc1"), ("fc2", "b_fc2")):
+            _copy(getattr(blk, w).weight, vl[w][i], transpose=True)
+            _copy(getattr(blk, w).bias, vl[bias][i])
+
+    pp, proj = params_np["projector"], model.projector
+    _copy(proj.fc1.weight, pp["fc1"], transpose=True)
+    _copy(proj.fc1.bias, pp["b1"])
+    _copy(proj.fc2.weight, pp["fc2"], transpose=True)
+    _copy(proj.fc2.bias, pp["b2"])
+
+    lp, lm = params_np["llama"], model.llama
+    _copy(lm.embed, lp["embed"])
+    _copy(lm.final_norm, lp["final_norm"])
+    _copy(lm.lm_head.weight, lp["lm_head"], transpose=True)
+    ll = {k: _np(v) for k, v in lp["layers"].items()}
+    for i, layer in enumerate(lm.layers):
+        _copy(layer.attn_norm, ll["attn_norm"][i])
+        _copy(layer.mlp_norm, ll["mlp_norm"][i])
+        for w in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+            _copy(getattr(layer, w).weight, ll[w][i], transpose=True)
+    return model
+
+
+def _torch_dtype(leaf) -> torch.dtype:
+    name = str(np.asarray(leaf).dtype)
+    return {"bfloat16": torch.bfloat16, "float16": torch.float16,
+            "float32": torch.float32}[name]
+
+
+def _entry(a, b, dtype, device) -> dict:
+    """JAX ``{"a": [in, r], "b": [r, out]}`` -> Linear layout
+    ``{"a": [r, in], "b": [out, r]}``."""
+    def t(x):
+        return torch.tensor(_np(x).T, device=device, dtype=dtype)
+    return {"a": t(a), "b": t(b)}
+
+
+def lora_from_jax(lora_np: dict, device="cuda") -> dict:
+    """JAX adapter tree (stacked ``layers`` entries, optional ``lm_head``,
+    ``vision`` and ``projector`` parts) -> the port's adapter tree, with
+    ``layers`` as a per-layer list.  Factor dtypes are kept."""
+    dev = resolve_device(device)
+    out: dict = {}
+    for part, sub in lora_np.items():
+        conv: dict = {}
+        for name, node in sub.items():
+            if name == "layers":
+                n = next(iter(node.values()))["a"].shape[0]
+                conv["layers"] = [
+                    {w: _entry(_np(e["a"])[i], _np(e["b"])[i],
+                               _torch_dtype(e["a"]), dev)
+                     for w, e in node.items()}
+                    for i in range(n)]
+            else:
+                conv[name] = _entry(node["a"], node["b"],
+                                    _torch_dtype(node["a"]), dev)
+        out[part] = conv
+    return out

@@ -1,0 +1,279 @@
+// Flash attention forward for Hopper (sm_90a), bf16 in, f32 softmax.
+//
+// Replaces opadpo_tpu/ops/attention.py:_fwd_kernel (launched by
+// _flash_fwd): one CTA per (batch, head, 64-row query tile) walks the KV
+// tiles, staging each 64-key K and V tile in shared memory, and keeps the
+// online softmax (running max m, sum l, output accumulator) in f32.
+//
+// Semantics follow the JAX kernel and mha_reference exactly:
+// - the key mask arrives as an additive f32 bias (0 valid / -1e30 masked);
+//   the causal rule is col <= row, and causally hidden keys score the
+//   finite -1e30, never -inf;
+// - m starts at -inf, and o = acc / l_safe, lse = m + log(l_safe) with
+//   l_safe = (l == 0 ? 1 : l) and lse = -1e30 where l == 0;
+// - causal tiles past the diagonal are skipped; but a query tile holding a
+//   row that saw no valid key walks on to the last tile, so that row comes
+//   out uniform over all S keys, as mha_reference gives it (left-padded
+//   serving batches have such rows).
+// Keys at or past S are excluded (-inf), so no padding of S or D is needed,
+// and q, k, v are read straight from the [B, S, H, D] layout by strides.
+//
+// What bounds it: causal LLaMA prefill does ~4*S^2*D/2 flops per (b, h)
+// against S*D*2*4 bytes, so at S=703, D=128 it is compute-bound on the
+// tensor cores.  This first version uses WMMA (mma.sync, bf16 -> f32) with
+// plain 16-byte loads and one K/V tile in flight; TMA, wgmma and
+// double-buffering are left for a later pass.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <mma.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int BQ = 64;          // query rows per CTA, 16 per warp
+constexpr int BK = 64;          // keys per KV tile
+constexpr int NWARPS = 4;
+constexpr int NTHREADS = NWARPS * 32;
+constexpr float kMask = -1e30f;
+
+template <int D>
+struct Layout {
+  static constexpr int LDQ = D + 8;    // bf16 row stride of Q/K/V tiles
+  static constexpr int LDP = BK + 8;   // bf16 row stride of P
+  static constexpr int LDS = (D > BK ? D : BK) + 4;  // f32 warp scratch
+  static constexpr size_t q_bytes = size_t(BQ) * LDQ * 2;
+  static constexpr size_t kv_bytes = size_t(BK) * LDQ * 2;
+  static constexpr size_t p_bytes = size_t(BQ) * LDP * 2;
+  static constexpr size_t s_bytes = size_t(NWARPS) * 16 * LDS * 4;
+  static constexpr size_t bias_bytes = size_t(BK) * 4;
+  static constexpr size_t total =
+      q_bytes + 2 * kv_bytes + p_bytes + s_bytes + bias_bytes;
+};
+
+// rows [row0, row0 + 64) of one (b, h) slice into shared memory; rows at or
+// past n_rows are zero
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          int64_t row_stride, int row0,
+                                          int n_rows, int tid) {
+  constexpr int VPR = D / 8;           // 16-byte vectors per row
+  for (int idx = tid; idx < 64 * VPR; idx += NTHREADS) {
+    const int r = idx / VPR;
+    const int c = (idx % VPR) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n_rows)
+      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride + c);
+    *reinterpret_cast<uint4*>(dst + r * Layout<D>::LDQ + c) = val;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const float* __restrict__ kbias,
+                 bf16* __restrict__ o, float* __restrict__ lse, int S, int H,
+                 int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
+                 int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
+                 int64_t v_sh, int causal, float scale) {
+  using L = Layout<D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + L::q_bytes);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + L::q_bytes + L::kv_bytes);
+  bf16* Ps = reinterpret_cast<bf16*>(smem + L::q_bytes + 2 * L::kv_bytes);
+  float* Ss = reinterpret_cast<float*>(smem + L::q_bytes + 2 * L::kv_bytes +
+                                       L::p_bytes);
+  float* Bs = reinterpret_cast<float*>(smem + L::q_bytes + 2 * L::kv_bytes +
+                                       L::p_bytes + L::s_bytes);
+
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  const bf16* qb = q + b * q_sb + h * q_sh;
+  const bf16* kb = k + b * k_sb + h * k_sh;
+  const bf16* vb = v + b * v_sb + h * v_sh;
+  load_tile<D>(Qs, qb, q_ss, q0, S, tid);
+
+  // each lane owns half of one query row: 32 score columns, D/2 outputs
+  const int r_loc = lane >> 1;
+  const int half = lane & 1;
+  const int row = q0 + warp * 16 + r_loc;
+  float* Sw = Ss + warp * 16 * L::LDS;
+  float m = -INFINITY;
+  float l = 0.f;
+  float acc[D / 2];
+#pragma unroll
+  for (int c = 0; c < D / 2; ++c) acc[c] = 0.f;
+
+  const int nkv = (S + BK - 1) / BK;
+  int bound = causal ? min(nkv, (q0 + BQ + BK - 1) / BK) : nkv;
+
+  for (int j = 0;; ++j) {
+    if (j == bound) {
+      // a row with no valid key so far scores -1e30 everywhere: walk on so
+      // it averages over every key, as the reference does
+      if (bound < nkv &&
+          __syncthreads_or(row < S && m <= 0.5f * kMask))
+        bound = nkv;
+      if (j == bound) break;
+    }
+    const int k0 = j * BK;
+    __syncthreads();                   // previous tile fully consumed
+    load_tile<D>(Ks, kb, k_ss, k0, S, tid);
+    load_tile<D>(Vs, vb, v_ss, k0, S, tid);
+    if (tid < BK) {
+      const int c = k0 + tid;
+      Bs[tid] = c < S ? (kbias ? kbias[int64_t(b) * S + c] : 0.f) : -INFINITY;
+    }
+    __syncthreads();
+
+    // scores for this warp's 16 rows x 64 keys
+    {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc[BK / 16];
+#pragma unroll
+      for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(sacc[n], 0.f);
+#pragma unroll
+      for (int kk = 0; kk < D; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
+        wmma::load_matrix_sync(af, Qs + warp * 16 * L::LDQ + kk, L::LDQ);
+#pragma unroll
+        for (int n = 0; n < BK / 16; ++n) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
+              bfr;
+          wmma::load_matrix_sync(bfr, Ks + n * 16 * L::LDQ + kk, L::LDQ);
+          wmma::mma_sync(sacc[n], af, bfr, sacc[n]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < BK / 16; ++n)
+        wmma::store_matrix_sync(Sw + n * 16, sacc[n], L::LDS,
+                                wmma::mem_row_major);
+    }
+    __syncwarp();
+
+    // online softmax over this lane's 32 columns
+    const float* srow = Sw + r_loc * L::LDS + half * 32;
+    float mx = -INFINITY;
+#pragma unroll 8
+    for (int c = 0; c < 32; ++c) {
+      const int cl = half * 32 + c;
+      const int col = k0 + cl;
+      float s;
+      if (col >= S) s = -INFINITY;
+      else if (causal && col > row) s = kMask;
+      else s = srow[c] * scale + Bs[cl];
+      mx = fmaxf(mx, s);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    const float m_new = fmaxf(m, mx);
+    const float alpha = expf(m - m_new);
+    float psum = 0.f;
+    bf16* prow = Ps + (warp * 16 + r_loc) * L::LDP + half * 32;
+#pragma unroll 8
+    for (int c = 0; c < 32; ++c) {
+      const int cl = half * 32 + c;
+      const int col = k0 + cl;
+      float s;
+      if (col >= S) s = -INFINITY;
+      else if (causal && col > row) s = kMask;
+      else s = srow[c] * scale + Bs[cl];
+      const float p = expf(s - m_new);
+      psum += p;
+      prow[c] = __float2bfloat16(p);
+    }
+    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+    l = alpha * l + psum;
+    m = m_new;
+    __syncwarp();
+
+    // P @ V for this warp's rows, one 16-column output block at a time
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> pv;
+      wmma::fill_fragment(pv, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
+        wmma::load_matrix_sync(pf, Ps + warp * 16 * L::LDP + kk, L::LDP);
+        wmma::load_matrix_sync(vf, Vs + kk * L::LDQ + n * 16, L::LDQ);
+        wmma::mma_sync(pv, pf, vf, pv);
+      }
+      wmma::store_matrix_sync(Sw + n * 16, pv, L::LDS, wmma::mem_row_major);
+    }
+    __syncwarp();
+    const float* pvrow = Sw + r_loc * L::LDS + half * (D / 2);
+#pragma unroll
+    for (int c = 0; c < D / 2; ++c) acc[c] = acc[c] * alpha + pvrow[c];
+    __syncwarp();
+  }
+
+  if (row < S) {
+    const float l_safe = (l == 0.f) ? 1.f : l;
+    bf16* orow = o + ((int64_t(b) * S + row) * H + h) * D + half * (D / 2);
+#pragma unroll
+    for (int c = 0; c < D / 2; c += 8) {
+      __align__(16) bf16 pack[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) pack[e] = __float2bfloat16(acc[c + e] / l_safe);
+      *reinterpret_cast<uint4*>(orow + c) = *reinterpret_cast<uint4*>(pack);
+    }
+    if (half == 0)
+      lse[(int64_t(b) * H + h) * S + row] =
+          (l == 0.f) ? kMask : m + logf(l_safe);
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const float* kbias,
+           void* o, float* lse, int B, int S, int H, const int64_t* st,
+           int causal, float scale, cudaStream_t stream) {
+  static bool configured = false;
+  const size_t smem = Layout<D>::total;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(smem));
+    if (e != cudaSuccess) return int(e);
+    configured = true;
+  }
+  dim3 grid((S + BQ - 1) / BQ, H, B);
+  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), kbias, static_cast<bf16*>(o), lse, S, H,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
+      scale);
+  return int(cudaGetLastError());
+}
+
+}  // namespace
+
+// q, k, v: bf16 [B, S, H, D] with element strides (b, s, h) given in
+// `strides` (9 values: q then k then v), unit stride on D; kbias: f32
+// [B, S] additive key bias or NULL; o: bf16 [B, S, H, D] contiguous;
+// lse: f32 [B, H, S] contiguous.  Returns the cudaError_t of the launch.
+extern "C" int opadpo_flash_fwd_bf16(const void* q, const void* k,
+                                     const void* v, const void* kbias,
+                                     void* o, void* lse, int B, int S, int H,
+                                     int D, const int64_t* strides,
+                                     int causal, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* kb = static_cast<const float*>(kbias);
+  float* ls = static_cast<float*>(lse);
+  if (D == 128)
+    return launch<128>(q, k, v, kb, o, ls, B, S, H, strides, causal, scale, st);
+  if (D == 64)
+    return launch<64>(q, k, v, kb, o, ls, B, S, H, strides, causal, scale, st);
+  if (D == 32)
+    return launch<32>(q, k, v, kb, o, ls, B, S, H, strides, causal, scale, st);
+  return int(cudaErrorInvalidValue);
+}

@@ -1,0 +1,178 @@
+"""LLaVA-1.5 assembly, serving subset: port of ``opadpo_tpu/models/llava.py``.
+
+CLIP tower -> mm_projector -> LLaMA decoder, with the 576 projected patches
+spliced in at each row's ``IMAGE_TOKEN_INDEX``: for output position p and
+splice point q,
+
+    p < q          -> text token p
+    q <= p < q+P   -> image patch p-q
+    p >= q+P       -> text token p-(P-1)
+
+RoPE positions are ``max(cumsum(mask) - 1, 0)`` of the spliced mask.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from opadpo_torch.constants import IMAGE_TOKEN_INDEX
+from opadpo_torch.device import resolve_device
+from opadpo_torch.models import clip as clip_model
+from opadpo_torch.models import llama as llama_model
+from opadpo_torch.models import projector as projector_model
+from opadpo_torch.models.lora import tree_get
+
+
+@dataclasses.dataclass(frozen=True)
+class LlavaConfig:
+    llama: llama_model.LlamaConfig
+    vision: clip_model.ClipVisionConfig
+    projector: projector_model.ProjectorConfig
+    # visual-token pruning is not ported; anything but None is rejected
+    visual_tokens: Optional[int] = None
+
+    @staticmethod
+    def llava_7b() -> "LlavaConfig":
+        lm = llama_model.LlamaConfig.llava_7b()
+        vis = clip_model.ClipVisionConfig()
+        return LlavaConfig(lm, vis, projector_model.ProjectorConfig(
+            in_dim=vis.hidden_size, out_dim=lm.hidden_size))
+
+    @staticmethod
+    def tiny(vocab_size: int = 512) -> "LlavaConfig":
+        lm = llama_model.LlamaConfig.tiny(vocab_size)
+        vis = clip_model.ClipVisionConfig.tiny()
+        return LlavaConfig(lm, vis, projector_model.ProjectorConfig(
+            in_dim=vis.hidden_size, out_dim=lm.hidden_size))
+
+    @property
+    def num_patches(self) -> int:
+        return self.vision.num_patches
+
+
+class Llava(nn.Module):
+    def __init__(self, cfg: LlavaConfig):
+        super().__init__()
+        if cfg.visual_tokens is not None:
+            raise NotImplementedError(
+                "visual_tokens pruning is not ported (ROADMAP, modules "
+                "without kernels)")
+        self.cfg = cfg
+        self.vision = clip_model.ClipVisionTower(cfg.vision)
+        self.projector = projector_model.Projector(cfg.projector)
+        self.llama = llama_model.LlamaModel(cfg.llama)
+
+
+def empty_model(cfg: LlavaConfig, device="cuda") -> Llava:
+    """Uninitialised, frozen model on ``device`` (built on the meta device
+    first, so no host memory or init work is spent on the weights)."""
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = Llava(cfg)
+    return model.to_empty(device=dev).requires_grad_(False)
+
+
+@torch.no_grad()
+def init_params(cfg: LlavaConfig, generator: torch.Generator,
+                device="cuda") -> Llava:
+    """Random model as ``opadpo_tpu.models.llava.init_params`` makes it:
+    weights and embeddings N(0, 0.02) in the model dtype, norm scales 1 and
+    biases 0 in their own dtypes.  Draws come from ``generator``, which must
+    live on ``device``; weights are made on the device itself."""
+    model = empty_model(cfg, device)
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        is_norm = "norm" in name or ".ln" in name
+        if leaf == "bias":
+            p.zero_()
+        elif is_norm:
+            p.fill_(1.0)
+        else:
+            p.copy_(torch.randn(p.shape, generator=generator,
+                                device=p.device, dtype=torch.float32) * 0.02)
+    return model
+
+
+def encode_images(model: Llava, images: torch.Tensor, lora=None,
+                  lora_scaling: float = 1.0) -> torch.Tensor:
+    """[B, H, W, 3] -> projected patch features [B, P, D]."""
+    feats = model.vision(images, lora=tree_get(lora, "vision"),
+                         lora_scaling=lora_scaling)
+    return model.projector(feats, lora=tree_get(lora, "projector"),
+                           lora_scaling=lora_scaling)
+
+
+def splice_positions(input_ids: torch.Tensor) -> torch.Tensor:
+    """Index of the (first) image token per row, [B]."""
+    return torch.argmax((input_ids == IMAGE_TOKEN_INDEX).to(torch.int32),
+                        dim=1)
+
+
+def _gather_indices(splice_pos: torch.Tensor, text_len: int,
+                    num_patches: int):
+    """(is_image, text_idx, image_idx), each [B, text_len - 1 + P]."""
+    s_out = text_len - 1 + num_patches
+    p = torch.arange(s_out, device=splice_pos.device)[None, :]
+    q = splice_pos[:, None]
+    is_image = (p >= q) & (p < q + num_patches)
+    text_idx = torch.clamp(torch.where(p < q, p, p - (num_patches - 1)),
+                           0, text_len - 1)
+    image_idx = torch.clamp(p - q, 0, num_patches - 1)
+    return is_image, text_idx, image_idx
+
+
+def splice_sequence(text_embeds: torch.Tensor, image_feats: torch.Tensor,
+                    text_mask: torch.Tensor, splice_pos: torch.Tensor):
+    """-> (embeds [B, S, D], key_mask [B, S] int)."""
+    b, l, d = text_embeds.shape
+    p = image_feats.shape[1]
+    is_image, text_idx, image_idx = _gather_indices(splice_pos, l, p)
+    gath_text = torch.gather(text_embeds, 1,
+                             text_idx[..., None].expand(-1, -1, d))
+    gath_img = torch.gather(image_feats, 1,
+                            image_idx[..., None].expand(-1, -1, d))
+    embeds = torch.where(is_image[..., None], gath_img, gath_text)
+    tmask = torch.gather(text_mask.to(torch.int64), 1, text_idx)
+    key_mask = torch.where(is_image, torch.ones_like(tmask), tmask)
+    return embeds, key_mask
+
+
+def prefill_unrolled(model: Llava, input_ids: torch.Tensor,
+                     text_mask: torch.Tensor, images: torch.Tensor,
+                     lora=None, lora_scaling: float = 1.0,
+                     quantize_kv: bool = False) -> dict:
+    """Prompt pass -> dict(kv_list, last_logits [B, V] f32, key_mask
+    [B, Sp], next_position [B]).  With ``quantize_kv`` the prompt KV comes
+    back as int8 head-major dicts (``llama.quantize_prompt_kv``)."""
+    image_feats = encode_images(model, images, lora, lora_scaling)
+    text_embeds = llama_model.embed_tokens(model.llama, input_ids)
+    embeds, key_mask = splice_sequence(
+        text_embeds, image_feats.to(text_embeds.dtype), text_mask,
+        splice_positions(input_ids))
+    positions = torch.clamp(torch.cumsum(key_mask, dim=1) - 1, min=0)
+    logits, kv_list = llama_model.forward_prefill_unrolled(
+        model.llama, embeds, key_mask, positions,
+        lora=tree_get(lora, "llama"), lora_scaling=lora_scaling)
+    if quantize_kv:
+        kv_list = llama_model.quantize_prompt_kv_list(kv_list)
+    return {"kv_list": kv_list, "last_logits": logits, "key_mask": key_mask,
+            "next_position": positions[:, -1] + 1}
+
+
+def decode_step_unrolled(model: Llava, token_ids: torch.Tensor,
+                         prompt_kv_list: list, prompt_mask: torch.Tensor,
+                         suffix_list: list, step: int,
+                         positions: torch.Tensor, lora=None,
+                         lora_scaling: float = 1.0,
+                         sp_used: Optional[int] = None):
+    """One sampled token [B] through the decoder -> (logits [B, V],
+    suffix_list)."""
+    embeds = llama_model.embed_tokens(model.llama, token_ids[:, None])
+    return llama_model.decode_forward_unrolled(
+        model.llama, embeds, prompt_kv_list, prompt_mask, suffix_list, step,
+        positions, lora=tree_get(lora, "llama"), lora_scaling=lora_scaling,
+        sp_used=sp_used)

@@ -1,0 +1,203 @@
+"""HTTP batch-inference server: port of ``opadpo_tpu/serve.py``
+(``InferenceWorker``, ``make_handler``) and of ``build_prompt`` from
+``opadpo_tpu/eval/model_vqa.py``.
+
+POST /v1/generate  {"prompt": "...", "image_b64": "...",
+                    "max_new_tokens": N}   # N caps THIS request
+GET  /healthz
+
+One device-owning thread micro-batches queued requests onto the
+``Sampler``.  Each batch has the fixed shape ``max_batch`` (unused rows get
+zero images), its prompts left-padded to ``qlen = max(128, ceil64(longest))``;
+the batch decodes to the server's ``max_new_tokens`` and each row is cut to
+its own request's budget.  Sampling (greedy by default) is per server.
+
+The worker runs on the GPU unless it is given ``device="cpu"``.  The CLI
+``main()`` waits for the HF/PEFT loader of the next slice.
+"""
+
+from __future__ import annotations
+
+import base64
+import json
+import queue
+import threading
+import time
+import traceback
+from http.server import BaseHTTPRequestHandler
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from opadpo_torch.constants import DEFAULT_IMAGE_TOKEN
+from opadpo_torch.data import conversation as conversation_lib
+from opadpo_torch.data.image_processing import black_image, preprocess_images
+from opadpo_torch.data.tokenization import tokenizer_image_token
+from opadpo_torch.device import resolve_device
+from opadpo_torch.engine.sampler import Sampler, truncate_after_tokens
+from opadpo_torch.engine.serving_config import make_serving_sampling
+
+SHORT_EVAL_SUFFIX = "\nAnswer the question using a single word or phrase."
+
+
+def build_prompt(question: str, short_eval: bool = False) -> str:
+    q = question
+    if DEFAULT_IMAGE_TOKEN not in q:
+        q = DEFAULT_IMAGE_TOKEN + "\n" + q
+    if short_eval:
+        q = q + SHORT_EVAL_SUFFIX
+    conv = conversation_lib.default_conversation.copy()
+    conv.append_message(conv.roles[0], q)
+    conv.append_message(conv.roles[1], None)
+    return conv.get_prompt()
+
+
+class InferenceWorker:
+    """Single device-owning thread; micro-batches queued requests."""
+
+    def __init__(self, model, cfg, tokenizer, lora=None,
+                 lora_scaling: float = 1.0, max_batch: int = 8,
+                 max_new_tokens: int = 512, batch_window_s: float = 0.02,
+                 kv_bits: int = 16, head_bits: int = 16,
+                 decode_chunk: int = 0, temperature: float = 0.0,
+                 top_k: int = 0, top_p: float = 1.0, spec_k: int = 0,
+                 device: str = "cuda"):
+        dev = resolve_device(device)
+        p_dev = next(model.parameters()).device
+        if p_dev.type != dev.type:
+            raise ValueError(f"model weights are on {p_dev}, worker asked "
+                             f"for {dev}")
+        self.device = p_dev
+        self.model = model
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.lora = lora
+        self.max_batch = max_batch
+        self.batch_window_s = batch_window_s
+        self.queue: "queue.Queue" = queue.Queue()
+        self.sampling = make_serving_sampling(
+            greedy=(temperature == 0.0),
+            temperature=max(temperature, 1e-4), top_k=top_k, top_p=top_p,
+            max_new_tokens=max_new_tokens,
+            eos_token_id=tokenizer.eos_token_id,
+            pad_token_id=tokenizer.pad_token_id)
+        self.sampler = Sampler(self.sampling, lora_scaling=lora_scaling,
+                               kv_bits=kv_bits, head_bits=head_bits,
+                               chunk=decode_chunk, spec_k=spec_k)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(0)
+        threading.Thread(target=self._loop, daemon=True).start()
+
+    def submit(self, request: Dict) -> Dict:
+        done = threading.Event()
+        slot = {"request": request, "done": done, "response": None}
+        self.queue.put(slot)
+        done.wait()
+        return slot["response"]
+
+    def _loop(self):
+        # inference mode is thread-local: this thread enters it itself
+        with torch.inference_mode():
+            while True:
+                slots = [self.queue.get()]
+                t0 = time.time()
+                while (len(slots) < self.max_batch
+                       and time.time() - t0 < self.batch_window_s):
+                    try:
+                        slots.append(
+                            self.queue.get(timeout=self.batch_window_s))
+                    except queue.Empty:
+                        break
+                try:
+                    self._run_batch(slots)
+                except Exception as e:   # keep serving; report per request
+                    traceback.print_exc()
+                    for s in slots:
+                        s["response"] = {"error": str(e)}
+                        s["done"].set()
+
+    def _pixels(self, slots: List[Dict], size: int) -> np.ndarray:
+        out = np.zeros((self.max_batch, size, size, 3), np.float32)
+        coded = [(i, base64.b64decode(s["request"]["image_b64"]))
+                 for i, s in enumerate(slots) if s["request"].get("image_b64")]
+        if coded:
+            decoded = preprocess_images([c for _, c in coded], size=size)
+            for (i, _), px in zip(coded, decoded):
+                out[i] = px
+        for i, s in enumerate(slots):
+            if not s["request"].get("image_b64"):
+                out[i] = black_image(size)
+        return out
+
+    def _run_batch(self, slots: List[Dict]):
+        img_size = self.cfg.vision.image_size
+        b = self.max_batch                      # fixed shape
+        rows = [np.asarray(tokenizer_image_token(
+            build_prompt(s["request"].get("prompt", "")), self.tokenizer),
+            np.int64) for s in slots]
+        images = self._pixels(slots, img_size)
+
+        longest = max(len(r) for r in rows)
+        qlen = max(128, -(-longest // 64) * 64)
+        queries = np.zeros((b, qlen), np.int64)
+        mask = np.zeros((b, qlen), np.int64)
+        for i, r in enumerate(rows):
+            r = r[-qlen:]
+            queries[i, -len(r):] = r
+            mask[i, -len(r):] = 1
+
+        dev = self.device
+        t0 = time.time()
+        tokens = self.sampler.generate(
+            self.model, torch.from_numpy(queries).to(dev),
+            torch.from_numpy(mask).to(dev), torch.from_numpy(images).to(dev),
+            self.generator, lora=self.lora).cpu().numpy()
+        tokens = truncate_after_tokens(tokens, self.tokenizer.eos_token_id,
+                                       self.tokenizer.pad_token_id)
+        texts = []
+        for i, s in enumerate(slots):
+            mn = s["request"].get("max_new_tokens")
+            row = tokens[i][:mn] if mn else tokens[i]
+            texts.append(self.tokenizer.decode(row, skip_special_tokens=True))
+        dt = time.time() - t0
+        for i, s in enumerate(slots):
+            s["response"] = {"text": texts[i].strip(),
+                             "latency_s": round(dt, 3),
+                             "batch_size": len(slots)}
+            s["done"].set()
+
+
+def make_handler(worker: InferenceWorker):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def _send(self, code: int, payload: Dict):
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._send(200, {"status": "ok"})
+            else:
+                self._send(404, {"error": "not found"})
+
+        def do_POST(self):
+            if self.path != "/v1/generate":
+                self._send(404, {"error": "not found"})
+                return
+            length = int(self.headers.get("Content-Length", 0))
+            try:
+                req = json.loads(self.rfile.read(length))
+            except json.JSONDecodeError as e:
+                self._send(400, {"error": str(e)})
+                return
+            resp = worker.submit(req)
+            self._send(200 if "error" not in resp else 500, resp)
+
+    return Handler
