@@ -5,19 +5,36 @@
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: both CUDA kernels from ``opadpo_torch/csrc`` with nvcc;
-  3. the flash forward kernel against its plain version at the serving
-     shapes (LLaMA prefill [8, 703, 32, 128] causal, CLIP [8, 577, 16, 64]
-     bidirectional), left-padded key masks and one fully masked row;
-  4. the int8 decode-attention kernel against its plain version at
+  2. build: the four CUDA sources of ``opadpo_torch/csrc``, one nvcc each,
+     all at once;
+  3. the flash forward kernel (#1) against its plain version at the
+     serving shapes (LLaMA prefill [8, 703, 32, 128] causal, CLIP
+     [8, 577, 16, 64] bidirectional) and the training response stream
+     (896 queries over 703 + 896 keys), left-padded key masks and one
+     fully masked row;
+  4. the flash backward kernels, dQ (#2) and dK/dV (#3), against the plain
+     backward at the training shapes ([2, 703, 32, 128] causal prefix, the
+     response stream at [6, 896 over 1599, 32, 128]);
+  5. the head-layout kernels, scatter (#4, RoPE) and gather (#5, inverse
+     RoPE), against their plain versions at [2, 703, 4096] and
+     [6, 896, 4096];
+  6. the int8 decode-attention kernel (#6) against its plain version at
      [8, 32, 768, 128], s_used 768 and 640;
-  5. a small-input reference: the tiny LLaVA's prefill and one int8 decode
-     step on the GPU (kernels) against the same weights on the CPU (plain);
-  6. the main path: LLaVA-1.5-7B at full width (random bf16 weights from a
-     seed) behind the HTTP server, 9 concurrent requests, greedy, int8 KV;
-     the kernels' launch counters must show that every prefill and decode
-     step went through them;
-  7. one JSON line of the kernels' numbers, the card line, and last
+  7. small-input references, the GPU (kernels) against the same weights on
+     the CPU (plain): the tiny LLaVA's prefill and one int8 decode step,
+     and one tiny OPA-DPO step (rollout, loss, LoRA gradients, AdamW);
+  8. the serving path: LLaVA-1.5-7B at full width (random bf16 weights
+     from a seed) behind the HTTP server, 9 concurrent requests, greedy,
+     int8 KV; the launch counters must show that every prefill and decode
+     step went through the kernels;
+  9. the training path, on the same 7B weights: ``rollout_score`` once,
+     then 3 ``dpo_train_step``s at the reference recipe (per-device batch
+     2, K = 3 responses of 896 tokens after a 128-token query, LoRA r 256,
+     CoPO random, AncPO, AdamW lr 1e-6 with 5 warmup steps, clip 1.0);
+     every loss and stat finite, the adapter moved by the last step, and
+     the launch counters of kernels #1-#5 equal to the counts derived from
+     the configuration;
+  10. one JSON line of the kernels' numbers, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA GPU and the repository around it: anywhere else it exits
@@ -129,21 +146,45 @@ def phase_build():
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {src}: {line.strip()}")
-    _build.load("flash_fwd.cu")
-    _build.load("decode_attention.cu")
+    for src in _build.SOURCES:
+        _build.load(src)
     return secs
 
 
-def _flash_case(b, s, h, d, causal, g, flush):
+def _bound(nbytes, flops):
+    """(bound ms, what bounds it) on the data sheet's peaks."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _pairs(sq, skv, causal):
+    """Visible (query, key) pairs of one (b, h): col <= row + skv - sq."""
+    return sq * (skv - sq) + sq * (sq + 1) // 2 if causal else sq * skv
+
+
+def _keep(mask, sq, skv, causal):
+    """The boolean [B, 1, Sq, Skv] mask of scaled_dot_product_attention."""
+    import torch
+
+    keep = (mask != 0)[:, None, None, :]
+    if causal:
+        keep = keep & torch.ones(sq, skv, dtype=torch.bool,
+                                 device=mask.device).tril(skv - sq)[None, None]
+    return keep
+
+
+def _flash_case(b, sq, skv, h, d, causal, g, flush):
     import torch
     import torch.nn.functional as F
 
     from opadpo_torch.ops import attention
 
     dev = "cuda"
-    q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev,
-                           dtype=torch.bfloat16) for _ in range(3))
-    mask = torch.ones(b, s, dtype=torch.int32, device=dev)
+    q = torch.randn(b, sq, h, d, generator=g, device=dev, dtype=torch.bfloat16)
+    k, v = (torch.randn(b, skv, h, d, generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    mask = torch.ones(b, skv, dtype=torch.int32, device=dev)
     for i in range(b - 1):
         mask[i, :17 * i] = 0                 # left padding, 0..102 rows
     mask[b - 1] = 0                          # one row masked everywhere
@@ -159,30 +200,143 @@ def _flash_case(b, s, h, d, causal, g, flush):
                  flush)
     plain_ms = time_ms(
         lambda: attention.mha_reference_lse(q, k, v, mask, causal), flush)
-    keep = (mask != 0)[:, None, None, :]
-    if causal:
-        keep = keep & torch.ones(s, s, dtype=torch.bool,
-                                 device=dev).tril()[None, None]
+    keep = _keep(mask, sq, skv, causal)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=keep), flush)
-    pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 4 * b * h * pairs * d
-    nbytes = 4 * b * s * h * d * 2 + b * h * s * 4 + b * s * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
-    res = {"shape": [b, s, h, d], "causal": causal, "err_o": err_o,
+    flops = 4 * b * h * _pairs(sq, skv, causal) * d
+    nbytes = (2 * b * sq + 2 * b * skv) * h * d * 2 + b * h * sq * 4 \
+        + b * skv * 4
+    bound_ms, bound_by = _bound(nbytes, flops)
+    res = {"shape": [b, sq, skv, h, d], "causal": causal, "err_o": err_o,
            "err_lse": err_lse, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "bytes": nbytes, "flops": flops}
+           "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": nbytes, "flops": flops}
     log(f"[flash] {json.dumps(res)}")
     return res
 
 
 def phase_flash(g, flush):
-    return [_flash_case(8, 703, 32, 128, True, g, flush),
-            _flash_case(8, 577, 16, 64, False, g, flush)]
+    return {"llama": _flash_case(8, 703, 703, 32, 128, True, g, flush),
+            "clip": _flash_case(8, 577, 577, 16, 64, False, g, flush),
+            "response": _flash_case(6, 896, 1599, 32, 128, True, g, flush)}
+
+
+def _bwd_case(b, sq, skv, h, d, g, flush):
+    """Both backward kernels against the plain backward, causal, keys
+    left-padded by 29 per row (so the square case has fully masked rows,
+    as a left-padded prefix does, with a zero output gradient, as nothing
+    on the training path reads them)."""
+    import torch
+    import torch.nn.functional as F
+
+    from opadpo_torch.ops import attention
+
+    dev = "cuda"
+    q, do = (torch.randn(b, sq, h, d, generator=g, device=dev,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, skv, h, d, generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    mask = torch.ones(b, skv, dtype=torch.int32, device=dev)
+    for i in range(b):
+        mask[i, :29 * i] = 0
+        do[i, :max(0, 29 * i - (skv - sq))] = 0
+    scale = d ** -0.5
+    o, lse = attention.flash_fwd_cuda(q, k, v, mask, True, scale)
+    inputs = attention.flash_bwd_inputs(q, k, v, mask, o, lse, do)
+    dq = attention.flash_bwd_dq_cuda(q, k, v, mask, True, scale, o, lse, do,
+                                     inputs)
+    dk, dv = attention.flash_bwd_dkv_cuda(q, k, v, mask, True, scale, o, lse,
+                                          do, inputs)
+    ref = attention.flash_bwd_reference(q, k, v, mask, True, scale, o, lse,
+                                        do)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        check(torch.isfinite(a.float()).all().item(), f"{name} not finite")
+        err = (a.float() - r.float()).abs().max().item()
+        top = r.float().abs().max().item()
+        check(err <= 2e-2 * top, f"flash bwd {name} error {err} > 2e-2 x "
+              f"{top} at {[b, sq, skv, h, d]}")
+        errs[name] = err
+    dq_ms = time_ms(lambda: attention.flash_bwd_dq_cuda(
+        q, k, v, mask, True, scale, o, lse, do, inputs), flush)
+    dkv_ms = time_ms(lambda: attention.flash_bwd_dkv_cuda(
+        q, k, v, mask, True, scale, o, lse, do, inputs), flush)
+    plain_ms = time_ms(lambda: attention.flash_bwd_reference(
+        q, k, v, mask, True, scale, o, lse, do), flush)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt,
+                                         attn_mask=_keep(mask, sq, skv, True))
+    dot = do.transpose(1, 2)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), flush)
+    pairs = b * h * _pairs(sq, skv, True)
+    q_bytes, kv_bytes = b * sq * h * d * 2, b * skv * h * d * 2
+    stats = 2 * b * h * sq * 4 + b * skv * 4
+    dq_bound = _bound(3 * q_bytes + 2 * kv_bytes + stats, 6 * d * pairs)
+    dkv_bound = _bound(2 * q_bytes + 4 * kv_bytes + stats, 8 * d * pairs)
+    res = {"shape": [b, sq, skv, h, d], "err": errs, "dq_ms": dq_ms,
+           "dkv_ms": dkv_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
+           "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1]}
+    log(f"[flash_bwd] {json.dumps(res)}")
+    return res
+
+
+def phase_flash_bwd(g, flush):
+    return {"prefix": _bwd_case(2, 703, 703, 32, 128, g, flush),
+            "response": _bwd_case(6, 896, 1599, 32, 128, g, flush)}
+
+
+def _heads_case(b, s, g, flush):
+    """scatter (RoPE) and gather (inverse RoPE, strided [B, S, H, hd]
+    gradient, as the backward kernels write it) at 32 heads of 128."""
+    import torch
+
+    from opadpo_torch.ops import heads_layout
+    from opadpo_torch.ops.rope import rope_frequencies
+
+    dev = "cuda"
+    h, hd = 32, 128
+    cos, sin = rope_frequencies(hd, 4096, device=dev)
+    mask = (torch.arange(s, device=dev)[None]
+            >= (torch.arange(b, device=dev) * 21)[:, None]).long()
+    pos = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
+    x = torch.randn(b, s, h * hd, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    gr = torch.randn(b, s, h, hd, generator=g, device=dev,
+                     dtype=torch.bfloat16).permute(0, 2, 1, 3)
+    cases = {
+        "scatter": (lambda: heads_layout.scatter_heads_cuda(
+            x, cos, sin, pos, h, True), lambda: heads_layout.
+            scatter_heads_plain(x, cos, sin, pos, h, True)),
+        "gather": (lambda: heads_layout.gather_heads_cuda(
+            gr, cos, sin, pos, True), lambda: heads_layout.
+            gather_heads_plain(gr, cos, sin, pos, True)),
+    }
+    # one read and one write of [b, s, 4096] bf16, the positions, and one
+    # cos and one sin half-row per position
+    nbytes = 2 * b * s * h * hd * 2 + b * s * 8 + 2 * b * s * (hd // 2) * 4
+    res = {"shape": [b, s, h * hd]}
+    for name, (kernel, plain) in cases.items():
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        top = ref.float().abs().max().item()
+        check(err <= 1e-2 * top, f"{name}_heads error {err} > 1e-2 x {top}")
+        bound_ms, bound_by = _bound(nbytes, 6 * b * s * h * hd)
+        res[name] = {"err": err, "ms": time_ms(kernel, flush),
+                     "plain_ms": time_ms(plain, flush), "bound_ms": bound_ms,
+                     "bound_by": bound_by, "bytes": nbytes}
+    log(f"[heads] {json.dumps(res)}")
+    return res
+
+
+def phase_heads(g, flush):
+    return {"prefix": _heads_case(2, 703, g, flush),
+            "response": _heads_case(6, 896, g, flush)}
 
 
 def phase_decode(g, flush):
@@ -281,6 +435,88 @@ def phase_reference():
         f"{bool((g_tok == c_tok).all())}")
     check(e_pf <= tol_pf, "prefill logits disagree with the CPU reference")
     check(e_dec <= tol_dec, "decode logits disagree with the CPU reference")
+
+
+def _rel(a, b) -> float:
+    """|a - b| / |b| over all entries (L2)."""
+    import torch
+
+    a = torch.cat([x.float().flatten().cpu() for x in a])
+    b = torch.cat([x.float().flatten().cpu() for x in b])
+    return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+
+def phase_train_reference():
+    """One tiny OPA-DPO step in bf16 on the GPU (kernels) against the same
+    weights, adapter and batch on the CPU (plain versions): the rollout's
+    reference logprobs and entropies, the loss and the adapter's gradients;
+    then the GPU's AdamW step at lr 1e-2 against the CPU's from the same
+    gradients.  (Adam's first step moves each entry by about lr times the
+    sign of its gradient, so entries whose gradient lies within bf16 noise
+    of zero move opposite ways from gradients that agree to 1e-2.)  Each
+    device draws its own CoPO masks in its rollout, so the loss and the
+    step read the GPU rollout on both."""
+    import torch
+
+    from opadpo_torch.engine import dpo as dpo_engine
+    from opadpo_torch.engine.train_state import AdamW, OptimizerConfig, \
+        TrainState
+    from opadpo_torch.models import llava
+    from opadpo_torch.models.lora import LoraConfig, make_trainable, \
+        named_leaves, tree_map
+    from opadpo_torch.tools.profile_train import make_adapters, make_batch
+
+    cfg = llava.LlavaConfig.tiny()
+    dpo = dpo_engine.DpoConfig(response_len=8, query_len=6)
+    g = torch.Generator(device="cpu").manual_seed(2)
+    cpu_model = llava.init_params(cfg, g, device="cpu")
+    gpu_model = llava.empty_model(cfg, "cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    ref, _ = make_adapters(cfg, LoraConfig(rank=4, alpha=8.0), g, b_std=0.05)
+    batch = make_batch(cfg, dpo, 2, g)
+
+    def to(tree, dev):
+        return tree_map(lambda x: x.to(dev), tree)
+
+    roll = {dev: dpo_engine.rollout_score(
+        model, dpo, to(ref, dev), to(batch, dev),
+        torch.Generator(device=dev).manual_seed(3))
+        for dev, model in (("cuda", gpu_model), ("cpu", cpu_model))}
+    keys = [k for k in roll["cpu"] if k.startswith("ref_base")]
+    e_roll = max((roll["cuda"][k].cpu() - roll["cpu"][k]).abs().max().item()
+                 / roll["cpu"][k].abs().max().item() for k in keys)
+    full = {**to(batch, "cuda"), **roll["cuda"]}
+    opt = AdamW(OptimizerConfig(learning_rate=1e-2, warmup_steps=0,
+                                total_steps=10))
+    out = {}
+    for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+        state = TrainState.create(make_trainable(to(ref, dev)), opt.cfg)
+        loss, stats, grads = dpo_engine.loss_and_grads(state, model, dpo,
+                                                       to(full, dev))
+        out[dev] = (loss.item(), grads, state, stats)
+    (l_g, g_g, st_g, s_g), (l_c, g_c, st_c, _) = out["cuda"], out["cpu"]
+    opt.apply_gradients(st_g, g_g)
+    opt.apply_gradients(st_c, [x.cpu() for x in g_g])
+    before = [t for _, t in named_leaves(ref)]
+    e_loss = abs(l_g - l_c) / abs(l_c)
+    e_grad = _rel(g_g, g_c)
+    e_step = _rel([a.detach().cpu().float() - b.float() for (_, a), b
+                   in zip(named_leaves(st_g.params), before)],
+                  [a.detach().float() - b.float() for (_, a), b
+                   in zip(named_leaves(st_c.params), before)])
+    check(all(torch.isfinite(v).all() for v in s_g.values()),
+          "tiny DPO stats not finite")
+    log(f"[reference] tiny bf16 DPO step GPU vs CPU: rollout logprobs and "
+        f"entropies rel err {e_roll:.3e} (tol 5e-2), loss {l_g:.5f} vs "
+        f"{l_c:.5f} rel {e_loss:.3e} (tol 2e-2), LoRA grads rel L2 "
+        f"{e_grad:.3e} (tol 5e-2), AdamW update from the same gradients "
+        f"rel L2 {e_step:.3e} (tol 1e-2)")
+    check(e_roll <= 5e-2, "tiny rollout disagrees with the CPU reference")
+    check(e_loss <= 2e-2, "tiny DPO loss disagrees with the CPU reference")
+    check(e_grad <= 5e-2, "tiny LoRA grads disagree with the CPU reference")
+    check(e_step <= 1e-2, "tiny AdamW step disagrees with the CPU reference")
+    return {"rollout_rel": e_roll, "loss_rel": e_loss, "grad_rel": e_grad,
+            "step_rel": e_step}
 
 
 def _post(port, payload):
@@ -406,7 +642,138 @@ def phase_main_path(card):
     kq = pf["kv_list"][0][0]["q"]
     check(tuple(kq.shape) == (8, 32, 768, 128) and kq.dtype == torch.int8,
           f"int8 prompt cache shape {tuple(kq.shape)}")
-    return main
+    return main, model
+
+
+def _counters():
+    from opadpo_torch.ops import attention, heads_layout
+
+    return {"flash_fwd": attention.flash_fwd_cuda,
+            "flash_bwd_dq": attention.flash_bwd_dq_cuda,
+            "flash_bwd_dkv": attention.flash_bwd_dkv_cuda,
+            "scatter_heads": heads_layout.scatter_heads_cuda,
+            "gather_heads": heads_layout.gather_heads_cuda}
+
+
+def expected_launches(cfg, dpo, train: bool) -> dict:
+    """Launches of kernels #1-#5 in one rollout_score (train=False) or one
+    dpo_train_step (train=True), derived from the configuration.  Each
+    scoring forward runs the CLIP tower (one flash forward per active
+    layer) and, per decoder layer, the prefix and the response stream's
+    flash forwards and six to_heads passes (q, k, v of both streams); a
+    train step's backward recomputes each decoder layer once (remat), so
+    its forward kernels run twice, and adds per layer two dQ and two dK/dV
+    launches and six gather passes.  CoPO adds a second forward."""
+    n_layers, n_clip = cfg.llama.num_layers, cfg.vision.num_active_layers
+    per = {"flash_fwd": n_clip + 2 * n_layers, "scatter_heads": 6 * n_layers,
+           "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "gather_heads": 0}
+    if train:
+        per["flash_fwd"] += 2 * n_layers
+        per["scatter_heads"] += 6 * n_layers
+        per.update(flash_bwd_dq=2 * n_layers, flash_bwd_dkv=2 * n_layers,
+                   gather_heads=6 * n_layers)
+    forwards = 2 if dpo.CoPO else 1
+    return {k: forwards * v for k, v in per.items()}
+
+
+def phase_train(model, card, n_steps: int = 3):
+    """The OPA-DPO training path on the serving phase's 7B weights."""
+    import torch
+
+    from opadpo_torch.engine import dpo as dpo_engine
+    from opadpo_torch.engine.train_state import AdamW, TrainState
+    from opadpo_torch.models.lora import named_leaves
+    from opadpo_torch.tools.profile_train import (
+        RECIPE_LORA, RECIPE_OPT, make_adapters, make_batch,
+    )
+
+    cfg = model.cfg
+    dpo = dpo_engine.DpoConfig()
+    b = 2
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    ref, policy = make_adapters(cfg, RECIPE_LORA, gen)
+    batch = make_batch(cfg, dpo, b, gen)
+    opt = AdamW(RECIPE_OPT)
+    state = TrainState.create(policy, opt.cfg)
+    counters = _counters()
+    n_lora = sum(t.numel() for _, t in named_leaves(policy))
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    reset()
+    t0 = time.perf_counter()
+    rollout = dpo_engine.rollout_score(model, dpo, ref, batch, gen)
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t0
+    launches_rollout = read()
+    for key, val in rollout.items():
+        check(bool(torch.isfinite(val.float()).all()), f"rollout {key}")
+    prefix = cfg.num_patches + dpo.query_len - 1
+    check(tuple(rollout["ref_base_standard_response_logprobs"].shape)
+          == (b, dpo.response_len), "rollout logprob shape")
+    full = {**batch, **rollout}
+
+    reset()
+    step_s, losses = [], []
+    for i in range(n_steps):
+        if i == n_steps - 1:
+            before = [t.detach().clone() for _, t in named_leaves(state.params)]
+        t0 = time.perf_counter()
+        state, stats = dpo_engine.dpo_train_step(state, model, full, opt, dpo)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        bad = [k for k, v in stats.items() if not bool(torch.isfinite(v))]
+        check(not bad, f"step {i}: non-finite stats {bad}")
+        losses.append({k: stats[k].item() for k in
+                       ("loss/total", "loss/grad_norm", "loss/stand_gen",
+                        "loss/AncPO")})
+    launches_train = read()
+    moved = sum(int((t.detach() != p).sum()) for (_, t), p in
+                zip(named_leaves(state.params), before))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    want_roll = expected_launches(cfg, dpo, train=False)
+    want_step = expected_launches(cfg, dpo, train=True)
+    log(f"[train] launches rollout {launches_rollout} (expect {want_roll}); "
+        f"{n_steps} steps {launches_train} (expect {n_steps} x {want_step})")
+    check(launches_rollout == want_roll,
+          "rollout launch counts differ from the configuration's")
+    check(launches_train == {k: n_steps * v for k, v in want_step.items()},
+          "train step launch counts differ from the configuration's")
+    check(moved > 0, "the adapter did not move in the last step")
+
+    positions = (b * prefix + len(dpo_engine.RESPONSE_KEYS) * b
+                 * dpo.response_len) + (b * prefix + 2 * b * dpo.response_len)
+    step_med = statistics.median(step_s[1:])
+    res = {"rollout_s": rollout_s, "step_s": step_s,
+           "step_s_median_after_first": step_med,
+           "scored_positions_per_step": positions,
+           "rollout_positions_per_s": positions / rollout_s,
+           "train_positions_per_s": positions / step_med,
+           "peak_gb": peak_gb, "lora_params": n_lora,
+           "adapter_entries_moved_last_step": moved,
+           "losses": losses,
+           "launches_per_step": {k: v // n_steps
+                                 for k, v in launches_train.items()},
+           "launches_rollout": launches_rollout,
+           "launches": {k: launches_rollout[k] + launches_train[k]
+                        for k in launches_train},
+           "prefix_positions": prefix, "card": card}
+    log(f"[train] rollout_score {rollout_s:.3f} s, dpo_train_step "
+        f"{[round(x, 3) for x in step_s]} s (median after the first "
+        f"{step_med:.3f} s), {positions} scored positions per step: "
+        f"{res['rollout_positions_per_s']:.0f} /s scoring, "
+        f"{res['train_positions_per_s']:.0f} /s training; peak "
+        f"{peak_gb:.2f} GB; LoRA {n_lora / 1e6:.1f} M params, {moved} "
+        f"entries moved in the last step; card: {card}")
+    log(f"[train] {json.dumps(res)}")
+    return res
 
 
 def main() -> int:
@@ -436,36 +803,84 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     flash = phase_flash(g, flush)
+    bwd = phase_flash_bwd(g, flush)
+    heads = phase_heads(g, flush)
     decode = phase_decode(g, flush)
     del flush
     torch.cuda.empty_cache()
     phase_reference()
-    main_res = phase_main_path(card)
+    phase_train_reference()
+    serve, model = phase_main_path(card)
+    torch.cuda.empty_cache()
+    train = phase_train(model, card)
 
-    fl, dc = flash[0], decode[0]
+    def pick(res, *keys):
+        return {k: res[k] for k in keys}
+
+    fl, dc, steps = flash["llama"], decode[0], train["launches_per_step"]
+    times = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "opadpo_torch/csrc/flash_fwd.cu",
          "replaces": "opadpo_tpu/ops/attention.py:174",
-         "launches": main_res["launches_flash"],
-         "max_abs_err": max(f["err_o"] for f in flash),
-         "ms": fl["ms"], "plain_ms": fl["plain_ms"],
-         "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
-         "library_ms": fl["library_ms"],
+         "launches": train["launches"]["flash_fwd"],
+         "launches_per_train_step": steps["flash_fwd"],
+         "launches_serving": serve["launches_flash"],
+         "max_abs_err": max(f["err_o"] for f in flash.values()),
+         **pick(fl, *times),
          "at": "[8,703,32,128] bf16 causal (LLaMA prefill)",
-         "clip": {k: flash[1][k] for k in
-                  ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}},
+         "clip": pick(flash["clip"], *times),
+         "response": pick(flash["response"], *times)},
+    ]
+    for kname, key in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dkv")):
+        r, p = bwd["response"], bwd["prefix"]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "opadpo_torch/csrc/flash_bwd.cu",
+            "replaces": "opadpo_tpu/ops/attention.py:"
+                        + ("263" if key == "dq" else "302"),
+            "launches": train["launches"][kname],
+            "launches_per_train_step": steps[kname],
+            "max_abs_err": max(x["err"][n] for x in (r, p)
+                               for n in ((key,) if key == "dq"
+                                         else ("dk", "dv"))),
+            "ms": r[key + "_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r[key + "_bound_ms"],
+            "bound_by": r[key + "_bound_by"], "library_ms": r["library_ms"],
+            "at": "[6,896 over 1599,32,128] bf16 causal offset 703 "
+                  "(response stream); plain and library compute dq, dk, dv "
+                  "together",
+            "prefix": {"ms": p[key + "_ms"], "plain_ms": p["plain_ms"],
+                       "library_ms": p["library_ms"],
+                       "bound_ms": p[key + "_bound_ms"],
+                       "bound_by": p[key + "_bound_by"]}})
+    for kname, key, line in (("scatter_heads", "scatter", "582"),
+                             ("gather_heads", "gather", "602")):
+        r, p = heads["response"][key], heads["prefix"][key]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "opadpo_torch/csrc/heads_layout.cu",
+            "replaces": f"opadpo_tpu/ops/attention.py:{line}",
+            "launches": train["launches"][kname],
+            "launches_per_train_step": steps[kname],
+            "max_abs_err": max(r["err"], p["err"]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None,
+            "at": "[6,896,4096] bf16, 32 heads of 128, RoPE (response "
+                  "stream); no one PyTorch call computes it",
+            "prefix": pick(p, "ms", "plain_ms", "bound_ms", "bound_by")})
+    kernels.append(
         {"name": "decode_attention_int8", "route": "cuda",
          "source": "opadpo_torch/csrc/decode_attention.cu",
          "replaces": "opadpo_tpu/ops/decode_attention.py:51",
-         "launches": main_res["launches_decode"],
+         "launches": serve["launches_decode"],
          "max_abs_err": max(d["err_out"] for d in decode),
          "ms": dc["ms"], "plain_ms": dc["plain_ms"],
          "bound_ms": dc["bound_ms"], "bound_by": dc["bound_by"],
          "library_ms": None,
          "at": "[8,32,768,128] int8, s_used 768 (7B decode step, one layer)",
-         "s_used_640_ms": decode[1]["ms"]},
-    ]
+         "s_used_640_ms": decode[1]["ms"]})
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Weights carried across from the JAX package's parameter trees.
+"""Weights, adapters and batches carried between the JAX package's trees
+and the port.
 
 The JAX trees stack layers on a leading axis and store dense weights
 ``[in, out]`` (``opadpo_tpu/models/llama.py:init_params``,
@@ -111,4 +112,40 @@ def lora_from_jax(lora_np: dict, device="cuda") -> dict:
                 conv[name] = _entry(node["a"], node["b"],
                                     _torch_dtype(node["a"]), dev)
         out[part] = conv
+    return out
+
+
+def lora_to_jax(lora: dict) -> dict:
+    """The port's adapter tree -> the JAX package's layout as numpy f32:
+    ``{"a": [in, r], "b": [r, out]}`` entries, per-layer entries stacked
+    on a leading axis under ``layers``."""
+    def entry(e):
+        return {k: e[k].detach().float().cpu().numpy().T for k in ("a", "b")}
+
+    out: dict = {}
+    for part, sub in lora.items():
+        conv: dict = {}
+        for name, node in sub.items():
+            if name == "layers":
+                per = [{w: entry(e) for w, e in layer.items()}
+                       for layer in node]
+                conv["layers"] = {
+                    w: {k: np.stack([p[w][k] for p in per]) for k in ("a", "b")}
+                    for w in per[0]}
+            else:
+                conv[name] = entry(node)
+        out[part] = conv
+    return out
+
+
+def tensors_from_jax(arrays: dict, device="cuda") -> dict:
+    """A flat dict of JAX (or numpy) arrays, such as a rollout batch, ->
+    tensors on ``device``: integers as int64, floats as f32."""
+    dev = resolve_device(device)
+    out = {}
+    for key, value in arrays.items():
+        arr = np.asarray(value)
+        dtype = np.int64 if np.issubdtype(arr.dtype, np.integer) \
+            else np.float32
+        out[key] = torch.from_numpy(arr.astype(dtype)).to(dev)
     return out

@@ -7,20 +7,26 @@
 //
 // Semantics follow the JAX kernel and mha_reference exactly:
 // - the key mask arrives as an additive f32 bias (0 valid / -1e30 masked);
-//   the causal rule is col <= row, and causally hidden keys score the
-//   finite -1e30, never -inf;
+//   the causal rule is col <= row + offset, and causally hidden keys score
+//   the finite -1e30, never -inf.  Sq queries attend Skv keys; offset is
+//   Skv - Sq (queries aligned to the end of the keys): 0 for square
+//   self-attention, the prefix length Sp for the shared-prefix response
+//   stream, whose keys are [prefix ++ response];
 // - m starts at -inf, and o = acc / l_safe, lse = m + log(l_safe) with
 //   l_safe = (l == 0 ? 1 : l) and lse = -1e30 where l == 0;
 // - causal tiles past the diagonal are skipped; but a query tile holding a
 //   row that saw no valid key walks on to the last tile, so that row comes
-//   out uniform over all S keys, as mha_reference gives it (left-padded
-//   serving batches have such rows).
-// Keys at or past S are excluded (-inf), so no padding of S or D is needed,
-// and q, k, v are read straight from the [B, S, H, D] layout by strides.
+//   out uniform over all Skv keys, as mha_reference gives it (left-padded
+//   batches have such rows).
+// Keys at or past Skv are excluded (-inf), so no padding of S or D is
+// needed, and q, k, v are read straight from the [B, S, H, D] layout by
+// strides (any layout with unit stride on D, such as a permuted view of a
+// head-major [B, H, S, D] tensor).
 //
 // What bounds it: causal LLaMA prefill does ~4*S^2*D/2 flops per (b, h)
-// against S*D*2*4 bytes, so at S=703, D=128 it is compute-bound on the
-// tensor cores.  This first version uses WMMA (mma.sync, bf16 -> f32) with
+// against S*D*2*4 bytes; at S=703, D=128 the data sheet's rates make it
+// bytes-bound by a small margin, and the response stream (896 queries over
+// 1599 keys) operations-bound.  This first version uses WMMA (mma.sync, bf16 -> f32) with
 // plain 16-byte loads and one K/V tile in flight; TMA, wgmma and
 // double-buffering are left for a later pass.
 
@@ -76,10 +82,11 @@ template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const float* __restrict__ kbias,
-                 bf16* __restrict__ o, float* __restrict__ lse, int S, int H,
-                 int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
-                 int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
-                 int64_t v_sh, int causal, float scale) {
+                 bf16* __restrict__ o, float* __restrict__ lse, int Sq,
+                 int Skv, int H, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                 int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
+                 int64_t v_ss, int64_t v_sh, int causal, int offset,
+                 float scale) {
   using L = Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -101,7 +108,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qb = q + b * q_sb + h * q_sh;
   const bf16* kb = k + b * k_sb + h * k_sh;
   const bf16* vb = v + b * v_sb + h * v_sh;
-  load_tile<D>(Qs, qb, q_ss, q0, S, tid);
+  load_tile<D>(Qs, qb, q_ss, q0, Sq, tid);
 
   // each lane owns half of one query row: 32 score columns, D/2 outputs
   const int r_loc = lane >> 1;
@@ -114,25 +121,26 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int c = 0; c < D / 2; ++c) acc[c] = 0.f;
 
-  const int nkv = (S + BK - 1) / BK;
-  int bound = causal ? min(nkv, (q0 + BQ + BK - 1) / BK) : nkv;
+  const int nkv = (Skv + BK - 1) / BK;
+  int bound = causal ? min(nkv, (q0 + BQ + offset + BK - 1) / BK) : nkv;
 
   for (int j = 0;; ++j) {
     if (j == bound) {
       // a row with no valid key so far scores -1e30 everywhere: walk on so
       // it averages over every key, as the reference does
       if (bound < nkv &&
-          __syncthreads_or(row < S && m <= 0.5f * kMask))
+          __syncthreads_or(row < Sq && m <= 0.5f * kMask))
         bound = nkv;
       if (j == bound) break;
     }
     const int k0 = j * BK;
     __syncthreads();                   // previous tile fully consumed
-    load_tile<D>(Ks, kb, k_ss, k0, S, tid);
-    load_tile<D>(Vs, vb, v_ss, k0, S, tid);
+    load_tile<D>(Ks, kb, k_ss, k0, Skv, tid);
+    load_tile<D>(Vs, vb, v_ss, k0, Skv, tid);
     if (tid < BK) {
       const int c = k0 + tid;
-      Bs[tid] = c < S ? (kbias ? kbias[int64_t(b) * S + c] : 0.f) : -INFINITY;
+      Bs[tid] = c < Skv ? (kbias ? kbias[int64_t(b) * Skv + c] : 0.f)
+                        : -INFINITY;
     }
     __syncthreads();
 
@@ -168,8 +176,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int cl = half * 32 + c;
       const int col = k0 + cl;
       float s;
-      if (col >= S) s = -INFINITY;
-      else if (causal && col > row) s = kMask;
+      if (col >= Skv) s = -INFINITY;
+      else if (causal && col > row + offset) s = kMask;
       else s = srow[c] * scale + Bs[cl];
       mx = fmaxf(mx, s);
     }
@@ -183,8 +191,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int cl = half * 32 + c;
       const int col = k0 + cl;
       float s;
-      if (col >= S) s = -INFINITY;
-      else if (causal && col > row) s = kMask;
+      if (col >= Skv) s = -INFINITY;
+      else if (causal && col > row + offset) s = kMask;
       else s = srow[c] * scale + Bs[cl];
       const float p = expf(s - m_new);
       psum += p;
@@ -217,9 +225,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncwarp();
   }
 
-  if (row < S) {
+  if (row < Sq) {
     const float l_safe = (l == 0.f) ? 1.f : l;
-    bf16* orow = o + ((int64_t(b) * S + row) * H + h) * D + half * (D / 2);
+    bf16* orow = o + ((int64_t(b) * Sq + row) * H + h) * D + half * (D / 2);
 #pragma unroll
     for (int c = 0; c < D / 2; c += 8) {
       __align__(16) bf16 pack[8];
@@ -228,15 +236,16 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       *reinterpret_cast<uint4*>(orow + c) = *reinterpret_cast<uint4*>(pack);
     }
     if (half == 0)
-      lse[(int64_t(b) * H + h) * S + row] =
+      lse[(int64_t(b) * H + h) * Sq + row] =
           (l == 0.f) ? kMask : m + logf(l_safe);
   }
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const float* kbias,
-           void* o, float* lse, int B, int S, int H, const int64_t* st,
-           int causal, float scale, cudaStream_t stream) {
+           void* o, float* lse, int B, int Sq, int Skv, int H,
+           const int64_t* st, int causal, int offset, float scale,
+           cudaStream_t stream) {
   static bool configured = false;
   const size_t smem = Layout<D>::total;
   if (!configured) {
@@ -246,34 +255,39 @@ int launch(const void* q, const void* k, const void* v, const float* kbias,
     if (e != cudaSuccess) return int(e);
     configured = true;
   }
-  dim3 grid((S + BQ - 1) / BQ, H, B);
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), kbias, static_cast<bf16*>(o), lse, S, H,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
-      scale);
+      static_cast<const bf16*>(v), kbias, static_cast<bf16*>(o), lse, Sq,
+      Skv, H, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      causal, offset, scale);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v: bf16 [B, S, H, D] with element strides (b, s, h) given in
-// `strides` (9 values: q then k then v), unit stride on D; kbias: f32
-// [B, S] additive key bias or NULL; o: bf16 [B, S, H, D] contiguous;
-// lse: f32 [B, H, S] contiguous.  Returns the cudaError_t of the launch.
+// q: bf16 [B, Sq, H, D], k, v: bf16 [B, Skv, H, D], with element strides
+// (b, s, h) given in `strides` (9 values: q then k then v), unit stride on
+// D; kbias: f32 [B, Skv] additive key bias or NULL; o: bf16 [B, Sq, H, D]
+// contiguous; lse: f32 [B, H, Sq] contiguous; causal rule col <= row +
+// offset.  Returns the cudaError_t of the launch.
 extern "C" int opadpo_flash_fwd_bf16(const void* q, const void* k,
                                      const void* v, const void* kbias,
-                                     void* o, void* lse, int B, int S, int H,
-                                     int D, const int64_t* strides,
-                                     int causal, float scale, void* stream) {
+                                     void* o, void* lse, int B, int Sq,
+                                     int Skv, int H, int D,
+                                     const int64_t* strides, int causal,
+                                     int offset, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* kb = static_cast<const float*>(kbias);
   float* ls = static_cast<float*>(lse);
   if (D == 128)
-    return launch<128>(q, k, v, kb, o, ls, B, S, H, strides, causal, scale, st);
+    return launch<128>(q, k, v, kb, o, ls, B, Sq, Skv, H, strides, causal,
+                       offset, scale, st);
   if (D == 64)
-    return launch<64>(q, k, v, kb, o, ls, B, S, H, strides, causal, scale, st);
+    return launch<64>(q, k, v, kb, o, ls, B, Sq, Skv, H, strides, causal,
+                      offset, scale, st);
   if (D == 32)
-    return launch<32>(q, k, v, kb, o, ls, B, S, H, strides, causal, scale, st);
+    return launch<32>(q, k, v, kb, o, ls, B, Sq, Skv, H, strides, causal,
+                      offset, scale, st);
   return int(cudaErrorInvalidValue);
 }

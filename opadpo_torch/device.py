@@ -19,3 +19,12 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """Whether a kernel wrapper launches its kernel for ``t`` (a CUDA
+    tensor) or runs its plain version (a CPU tensor); anything else
+    raises."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type == "cuda"

@@ -1,6 +1,10 @@
-"""LLaMA / Vicuna decoder, serving subset: port of
-``opadpo_tpu/models/llama.py``.
+"""LLaMA / Vicuna decoder: port of ``opadpo_tpu/models/llama.py``.
 
+- ``forward`` and ``forward_shared_prefix``: the training / scoring
+  passes over whole sequences, each layer under
+  ``torch.utils.checkpoint`` when ``remat`` (the JAX package's
+  ``jax.checkpoint`` on its layer scan), attention through the fused
+  RoPE + head-layout + flash composites of ``ops/attention``.
 - ``forward_prefill_unrolled``: the prompt pass, returning the last
   position's logits and every layer's (k, v), with causal attention on the
   flash kernel (``ops/attention``).
@@ -23,9 +27,14 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from opadpo_torch.models.lora import lora_dense, lora_delta, tree_get
-from opadpo_torch.ops.attention import multi_head_attention
+from opadpo_torch.models.lora import (
+    LoraConfig, init_lora_entry, lora_dense, lora_delta, tree_get,
+)
+from opadpo_torch.ops.attention import (
+    flash_attention_fused, flash_attention_fused_shared, multi_head_attention,
+)
 from opadpo_torch.ops.decode_attention import decode_attention_prompt
 from opadpo_torch.ops.rope import apply_rope, rope_frequencies
 
@@ -92,13 +101,30 @@ class LlamaModel(nn.Module):
         self._rope = None
 
     def rope_tables(self):
-        """f32 cos/sin tables on the weights' device, built once."""
+        """f32 cos/sin tables on the weights' device, built once, as normal
+        tensors even under inference mode, so that a model that served can
+        train."""
         dev = self.embed.device
         if self._rope is None or self._rope[0].device != dev:
-            self._rope = rope_frequencies(
-                self.cfg.head_dim, self.cfg.max_position_embeddings,
-                self.cfg.rope_base, device=dev)
+            with torch.inference_mode(False), torch.no_grad():
+                self._rope = rope_frequencies(
+                    self.cfg.head_dim, self.cfg.max_position_embeddings,
+                    self.cfg.rope_base, device=dev)
         return self._rope
+
+
+def init_lora(cfg: LlamaConfig, lora_cfg: LoraConfig,
+              generator: torch.Generator) -> dict:
+    """Adapters over all seven decoder linears of every layer (the
+    reference's "all linear layers"), B zero."""
+    d, i = cfg.hidden_size, cfg.intermediate_size
+    nq, nkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    shapes = {"wq": (d, nq), "wk": (d, nkv), "wv": (d, nkv), "wo": (nq, d),
+              "w_gate": (d, i), "w_up": (d, i), "w_down": (i, d)}
+    return {"layers": [
+        {name: init_lora_entry(a, b, lora_cfg, generator)
+         for name, (a, b) in shapes.items()}
+        for _ in range(cfg.num_layers)]}
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float):
@@ -166,6 +192,84 @@ def forward_prefill_unrolled(model: LlamaModel, input_embeds, key_mask,
         h = rms_norm(x, layer.mlp_norm, cfg.rms_norm_eps)
         x = x + _mlp_block(h, layer, ll, lora_scaling)
     return _decode_head(x[:, -1:, :], model, lora, lora_scaling), kv_list
+
+
+def _maybe_remat(fn, remat: bool, *args):
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _train_layer(x, layer: LlamaLayer, ll, key_mask, positions, cfg,
+                 scaling, cos, sin):
+    h = rms_norm(x, layer.attn_norm, cfg.rms_norm_eps)
+    q, k, v = _qkv_proj(h, layer, ll, scaling)
+    attn = flash_attention_fused(q, k, v, cos, sin, positions,
+                                 cfg.num_heads, key_mask=key_mask,
+                                 causal=True, num_kv_heads=cfg.num_kv_heads)
+    x = x + layer.dense(attn, "wo", ll, scaling)
+    h = rms_norm(x, layer.mlp_norm, cfg.rms_norm_eps)
+    return x + _mlp_block(h, layer, ll, scaling)
+
+
+def forward(model: LlamaModel, input_embeds, key_mask, positions, lora=None,
+            lora_scaling: float = 1.0, remat: bool = True,
+            return_hidden: bool = False):
+    """Decoder over whole sequences -> f32 logits [B, S, V], or with
+    ``return_hidden`` the final-norm hidden states [B, S, D] (for the
+    chunked readout of ``ops/logprobs``)."""
+    cfg = model.cfg
+    cos, sin = model.rope_tables()
+    x = input_embeds
+    for i, layer in enumerate(model.layers):
+        x = _maybe_remat(_train_layer, remat, x, layer,
+                         tree_get(lora, "layers", i), key_mask, positions,
+                         cfg, lora_scaling, cos, sin)
+    x = rms_norm(x, model.final_norm, cfg.rms_norm_eps)
+    if return_hidden:
+        return x
+    logits = F.linear(x.float(), model.lm_head.weight.float())
+    delta = lora_delta(x, tree_get(lora, "lm_head"), lora_scaling)
+    return logits if delta is None else logits + delta
+
+
+def _shared_layer(xp, xr, layer: LlamaLayer, ll, masks, positions, cfg,
+                  scaling, cos, sin):
+    hp = rms_norm(xp, layer.attn_norm, cfg.rms_norm_eps)
+    hr = rms_norm(xr, layer.attn_norm, cfg.rms_norm_eps)
+    op2, or2 = flash_attention_fused_shared(
+        *_qkv_proj(hp, layer, ll, scaling), *_qkv_proj(hr, layer, ll, scaling),
+        cos, sin, positions[0], positions[1], cfg.num_heads, masks[0],
+        masks[1], num_kv_heads=cfg.num_kv_heads)
+    xp = xp + layer.dense(op2, "wo", ll, scaling)
+    xr = xr + layer.dense(or2, "wo", ll, scaling)
+    hp = rms_norm(xp, layer.mlp_norm, cfg.rms_norm_eps)
+    hr = rms_norm(xr, layer.mlp_norm, cfg.rms_norm_eps)
+    return (xp + _mlp_block(hp, layer, ll, scaling),
+            xr + _mlp_block(hr, layer, ll, scaling))
+
+
+def forward_shared_prefix(model: LlamaModel, prefix_embeds, prefix_mask,
+                          prefix_positions, resp_embeds, resp_mask,
+                          resp_positions, lora=None,
+                          lora_scaling: float = 1.0, remat: bool = True):
+    """Decoder over a shared prefix [B, Sp] and K responses per example
+    [K*B, Sr], stacked B-major (row b*K + t): the prefix runs once and the
+    responses attend to [prefix ++ self] (``flash_attention_fused_shared``);
+    the same numbers as the stacked layout, with the prefix computed once
+    instead of K times.  Returns the final-norm hidden states ``(hp [B, Sp,
+    D], hr [K*B, Sr, D])``."""
+    cfg = model.cfg
+    cos, sin = model.rope_tables()
+    masks = (prefix_mask, resp_mask)
+    positions = (prefix_positions, resp_positions)
+    xp, xr = prefix_embeds, resp_embeds
+    for i, layer in enumerate(model.layers):
+        xp, xr = _maybe_remat(_shared_layer, remat, xp, xr, layer,
+                              tree_get(lora, "layers", i), masks, positions,
+                              cfg, lora_scaling, cos, sin)
+    return (rms_norm(xp, model.final_norm, cfg.rms_norm_eps),
+            rms_norm(xr, model.final_norm, cfg.rms_norm_eps))
 
 
 def quantize_prompt_kv(kv: torch.Tensor) -> dict:

@@ -1,4 +1,4 @@
-"""LLaVA-1.5 assembly, serving subset: port of ``opadpo_tpu/models/llava.py``.
+"""LLaVA-1.5 assembly: port of ``opadpo_tpu/models/llava.py``.
 
 CLIP tower -> mm_projector -> LLaMA decoder, with the 576 projected patches
 spliced in at each row's ``IMAGE_TOKEN_INDEX``: for output position p and
@@ -8,7 +8,9 @@ splice point q,
     q <= p < q+P   -> image patch p-q
     p >= q+P       -> text token p-(P-1)
 
-RoPE positions are ``max(cumsum(mask) - 1, 0)`` of the spliced mask.
+RoPE positions are ``max(cumsum(mask) - 1, 0)`` of the spliced mask.  The
+CoPO "attention" method masks patches through ``image_mask``, spliced into
+the key mask the same way.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from opadpo_torch.device import resolve_device
 from opadpo_torch.models import clip as clip_model
 from opadpo_torch.models import llama as llama_model
 from opadpo_torch.models import projector as projector_model
-from opadpo_torch.models.lora import tree_get
+from opadpo_torch.models.lora import LoraConfig, tree_get
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,8 +128,10 @@ def _gather_indices(splice_pos: torch.Tensor, text_len: int,
 
 
 def splice_sequence(text_embeds: torch.Tensor, image_feats: torch.Tensor,
-                    text_mask: torch.Tensor, splice_pos: torch.Tensor):
-    """-> (embeds [B, S, D], key_mask [B, S] int)."""
+                    text_mask: torch.Tensor, splice_pos: torch.Tensor,
+                    image_mask: Optional[torch.Tensor] = None):
+    """-> (embeds [B, S, D], key_mask [B, S] int); ``image_mask`` [B, P]
+    marks the valid patches (all of them when None)."""
     b, l, d = text_embeds.shape
     p = image_feats.shape[1]
     is_image, text_idx, image_idx = _gather_indices(splice_pos, l, p)
@@ -137,8 +141,44 @@ def splice_sequence(text_embeds: torch.Tensor, image_feats: torch.Tensor,
                             image_idx[..., None].expand(-1, -1, d))
     embeds = torch.where(is_image[..., None], gath_img, gath_text)
     tmask = torch.gather(text_mask.to(torch.int64), 1, text_idx)
-    key_mask = torch.where(is_image, torch.ones_like(tmask), tmask)
+    if image_mask is None:
+        imask = torch.ones_like(tmask)
+    else:
+        imask = torch.gather(image_mask.to(torch.int64), 1, image_idx)
+    key_mask = torch.where(is_image, imask, tmask)
     return embeds, key_mask
+
+
+def spliced_positions(key_mask: torch.Tensor) -> torch.Tensor:
+    """RoPE positions of a spliced sequence: max(cumsum(mask) - 1, 0)."""
+    return torch.clamp(torch.cumsum(key_mask, dim=1) - 1, min=0)
+
+
+def init_lora(cfg: LlavaConfig, lora_cfg: LoraConfig,
+              generator: torch.Generator) -> dict:
+    """The DPO stage's adapter: the language side only (the vision tower
+    and projector adapters of the OPA-SFT recipe come with that stage)."""
+    return {"llama": llama_model.init_lora(cfg.llama, lora_cfg, generator)}
+
+
+def forward(model: Llava, input_ids: torch.Tensor, text_mask: torch.Tensor,
+            images: torch.Tensor, lora=None, lora_scaling: float = 1.0,
+            image_key_mask: Optional[torch.Tensor] = None,
+            remat: bool = True, return_hidden: bool = False) -> dict:
+    """Full-sequence forward (training / scoring) over the spliced sequence
+    of length L - 1 + P -> dict(logits [B, S, V] f32 or, with
+    ``return_hidden``, hidden [B, S, D]; key_mask [B, S])."""
+    image_feats = encode_images(model, images, lora, lora_scaling)
+    text_embeds = llama_model.embed_tokens(model.llama, input_ids)
+    embeds, key_mask = splice_sequence(
+        text_embeds, image_feats.to(text_embeds.dtype), text_mask,
+        splice_positions(input_ids), image_mask=image_key_mask)
+    out = llama_model.forward(
+        model.llama, embeds, key_mask, spliced_positions(key_mask),
+        lora=tree_get(lora, "llama"), lora_scaling=lora_scaling, remat=remat,
+        return_hidden=return_hidden)
+    return {"hidden" if return_hidden else "logits": out,
+            "key_mask": key_mask}
 
 
 def prefill_unrolled(model: Llava, input_ids: torch.Tensor,
@@ -153,7 +193,7 @@ def prefill_unrolled(model: Llava, input_ids: torch.Tensor,
     embeds, key_mask = splice_sequence(
         text_embeds, image_feats.to(text_embeds.dtype), text_mask,
         splice_positions(input_ids))
-    positions = torch.clamp(torch.cumsum(key_mask, dim=1) - 1, min=0)
+    positions = spliced_positions(key_mask)
     logits, kv_list = llama_model.forward_prefill_unrolled(
         model.llama, embeds, key_mask, positions,
         lora=tree_get(lora, "llama"), lora_scaling=lora_scaling)

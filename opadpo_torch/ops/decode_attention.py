@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from opadpo_torch.device import on_cuda
 from opadpo_torch.ops import _build
 
 NEG_INF = -1e30
@@ -110,10 +111,6 @@ def decode_attention_prompt(q: torch.Tensor, pk_q: torch.Tensor,
 
     ``s_used`` (a 128-multiple) limits the read to the first ``s_used``
     cache positions."""
-    if q.device.type == "cuda":
-        return decode_attention_cuda(q, pk_q, k_scale, pv_q, v_scale, bias,
-                                     sm_scale, s_used)
-    if q.device.type == "cpu":
-        return decode_attention_prompt_plain(q, pk_q, k_scale, pv_q, v_scale,
-                                             bias, sm_scale, s_used)
-    raise ValueError(f"unsupported device {q.device}")
+    fn = decode_attention_cuda if on_cuda(q) else \
+        decode_attention_prompt_plain
+    return fn(q, pk_q, k_scale, pv_q, v_scale, bias, sm_scale, s_used)

@@ -40,8 +40,10 @@ DECODE_STEPS = 16
 
 def kernel_group(name: str) -> str:
     n = name.lower()
-    if "flash_fwd_kernel" in n:
-        return "flash_fwd (csrc)"
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                   "scatter_heads", "gather_heads"):
+        if kernel + "_kernel" in n:
+            return kernel + " (csrc)"
     if "decode_attn_int8_kernel" in n:
         return "decode_attention_int8 (csrc)"
     if any(s in n for s in ("gemm", "gemv", "nvjet", "cutlass", "xmma",

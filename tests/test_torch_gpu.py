@@ -14,15 +14,21 @@ import torch
 
 from opadpo_torch.ops import attention as t_attention
 from opadpo_torch.ops import decode_attention as t_decode
+from opadpo_torch.ops import heads_layout as t_heads
+from opadpo_torch.ops.rope import rope_frequencies
+
+
+def _gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return torch.Generator(device="cuda").manual_seed(0)
 
 
 @pytest.mark.gpu
 def test_kernels_match_plain_on_gpu():
     """On the card: the flash forward kernel and the int8 decode kernel
     against their plain versions, bf16, at small shapes."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU")
-    g = torch.Generator(device="cuda").manual_seed(0)
+    g = _gen()
     dev = "cuda"
     for causal, d, s in ((True, 128, 203), (False, 64, 77), (True, 32, 33)):
         q, k, v = (torch.randn(2, s, 4, d, generator=g, device=dev,
@@ -49,3 +55,65 @@ def test_kernels_match_plain_on_gpu():
         for o, r in zip(out, ref):
             assert torch.allclose(o, r, rtol=1e-4,
                                   atol=1e-4 * r.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,d,sq,skv", [
+    (True, 128, 203, 203), (False, 64, 77, 77), (True, 128, 96, 250),
+    (True, 64, 130, 130)])
+def test_flash_rect_and_backward_match_plain_on_gpu(causal, d, sq, skv):
+    """The forward at Sq < Skv (offset Skv - Sq) and both backward kernels
+    against the plain backward, bf16, with left padding and one fully
+    masked row (its dO nonzero too).  Tolerances: o 2e-2 and lse 1e-3 as
+    above; gradients 3e-2 relative to their largest entry (bf16 inputs and
+    outputs, and dS rounded to bf16 before its products in both)."""
+    g = _gen()
+    dev = "cuda"
+    q, do = (torch.randn(3, sq, 4, d, generator=g, device=dev,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(3, skv, 4, d, generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    mask = torch.ones(3, skv, dtype=torch.int32, device=dev)
+    mask[1, :50] = 0
+    mask[2] = 0
+    scale = d ** -0.5
+    o, lse = t_attention.flash_fwd_cuda(q, k, v, mask, causal, scale)
+    o_ref, lse_ref = t_attention.mha_reference_lse(q, k, v, mask, causal,
+                                                   scale)
+    assert (o.float() - o_ref.float()).abs().max().item() < 2e-2
+    assert (lse - lse_ref).abs().max().item() < 1e-3
+    got = t_attention.flash_bwd_cuda(q, k, v, mask, causal, scale, o, lse, do)
+    ref = t_attention.flash_bwd_reference(q, k, v, mask, causal, scale, o,
+                                          lse, do)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert torch.isfinite(a.float()).all(), name
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= 3e-2 * max(r.float().abs().max().item(), 1.0), \
+            (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rep,hd", [(1, 128), (2, 64)])
+def test_heads_layout_match_plain_on_gpu(rep, hd):
+    """scatter_heads (RoPE and plain, GQA repeat) and gather_heads (inverse
+    RoPE, group sum, strided input) against their plain versions: equal to
+    one bf16 rounding of the f32 result."""
+    g = _gen()
+    dev = "cuda"
+    b, s, h = 2, 75, 4
+    cos, sin = rope_frequencies(hd, 256, device=dev)
+    pos = torch.randint(0, 256, (b, s), generator=g, device=dev)
+    x = torch.randn(b, s, (h // rep) * hd, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    for rope in (True, False):
+        out = t_heads.scatter_heads_cuda(x, cos, sin, pos, h, rope, rep)
+        ref = t_heads.scatter_heads_plain(x, cos, sin, pos, h, rope, rep)
+        assert out.shape == (b, h, s, hd)
+        assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    gr = torch.randn(b, s, h, hd, generator=g, device=dev,
+                     dtype=torch.bfloat16).permute(0, 2, 1, 3)
+    for rope in (True, False):
+        out = t_heads.gather_heads_cuda(gr, cos, sin, pos, rope, rep)
+        ref = t_heads.gather_heads_plain(gr, cos, sin, pos, rope, rep)
+        assert out.shape == (b, s, (h // rep) * hd)
+        assert (out.float() - ref.float()).abs().max().item() <= 3e-2

@@ -158,7 +158,8 @@ def test_quantize_prompt_kv_bit_exact():
 
 def test_port_imports_no_jax():
     """Every opadpo_torch module, and chip_smoke.py, imports in a process
-    where ``jax`` and ``opadpo_tpu`` cannot be imported."""
+    where ``jax`` and ``opadpo_tpu`` cannot be imported; the training
+    slice's modules are among them."""
     code = (
         "import sys, pkgutil, importlib, runpy\n"
         "sys.modules['jax'] = None\n"
@@ -167,7 +168,10 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages("
         "opadpo_torch.__path__, 'opadpo_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 15, names\n"
+        "assert len(names) >= 30, names\n"
+        "assert {'opadpo_torch.engine.dpo', 'opadpo_torch.engine.train_state',"
+        " 'opadpo_torch.ops.heads_layout', 'opadpo_torch.ops.logprobs',"
+        " 'opadpo_torch.ops.image_ops'} <= set(names), names\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'opadpo_tpu'))"
         " for k, v in sys.modules.items() if v is not None)\n"
@@ -194,11 +198,16 @@ def test_cuda_default_entry_raises_without_gpu(monkeypatch):
 
 
 def test_flash_attention_refuses_autograd_and_bad_s_used():
-    """Forward only until the training slice: a call that needs gradients
-    raises; a decode watermark off the 128 grid raises."""
+    """Gradients flow through the attention (to 1e-5 of autodiff through
+    the plain forward, f32), and it still runs under no_grad; a decode
+    watermark off the 128 grid still raises."""
     q = torch.randn(1, 8, 2, 16, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        t_attention.multi_head_attention(q, q, q)
+    out = t_attention.multi_head_attention(q, q, q)
+    (g,) = torch.autograd.grad(out.square().sum(), q)
+    (g_ref,) = torch.autograd.grad(
+        t_attention.mha_reference(q, q, q).square().sum(), q)
+    assert torch.isfinite(g).all() and g.abs().max() > 0
+    torch.testing.assert_close(g, g_ref, atol=1e-5, rtol=1e-5)
     with torch.no_grad():
         assert t_attention.multi_head_attention(q, q, q).shape == q.shape
     q8, pk, ks, pv, vs, bias = (t(x) for x in _decode_inputs(seed=1))
