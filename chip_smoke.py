@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the four CUDA sources of ``opadpo_torch/csrc``, one nvcc each,
+  2. build: the five CUDA sources of ``opadpo_torch/csrc``, one nvcc each,
      all at once;
   3. the flash forward kernel (#1) against its plain version at the
      serving shapes (LLaMA prefill [8, 703, 32, 128] causal, CLIP
@@ -20,21 +20,38 @@ Phases, each fatal on failure:
      [6, 896, 4096];
   6. the int8 decode-attention kernel (#6) against its plain version at
      [8, 32, 768, 128], s_used 768 and 640;
-  7. small-input references, the GPU (kernels) against the same weights on
-     the CPU (plain): the tiny LLaVA's prefill and one int8 decode step,
-     and one tiny OPA-DPO step (rollout, loss, LoRA gradients, AdamW);
-  8. the serving path: LLaVA-1.5-7B at full width (random bf16 weights
+  7. the quantized matmuls against their plain versions: int8 (#9) at the
+     7B decode (M 8), head (f32 out), prefix (M 703) and CLIP (M 577)
+     shapes, its transpose (#10) at M 703, int4 (#11) at the 13B decode
+     (M 1, 8), head and prefix shapes; and #9 / #11 beside
+     dequantize-then-matmul at M 8, 703, 1024 and 1406;
+  8. small-input references, the GPU (kernels) against the same weights on
+     the CPU (plain), on the tiny LLaVA with a bf16, an int8 and an int4
+     base (and a decode head of that width): prefill and two int8-KV
+     decode steps, and one tiny OPA-DPO step (rollout, loss, LoRA
+     gradients, AdamW);
+  9. the serving path: LLaVA-1.5-7B at full width (random bf16 weights
      from a seed) behind the HTTP server, 9 concurrent requests, greedy,
      int8 KV; the launch counters must show that every prefill and decode
      step went through the kernels;
-  9. the training path, on the same 7B weights: ``rollout_score`` once,
-     then 3 ``dpo_train_step``s at the reference recipe (per-device batch
+  10. the training path, on the same 7B weights: ``rollout_score`` once,
+     then 2 ``dpo_train_step``s at the reference recipe (per-device batch
      2, K = 3 responses of 896 tokens after a 128-token query, LoRA r 256,
      CoPO random, AncPO, AdamW lr 1e-6 with 5 warmup steps, clip 1.0);
      every loss and stat finite, the adapter moved by the last step, and
      the launch counters of kernels #1-#5 equal to the counts derived from
      the configuration;
-  10. one JSON line of the kernels' numbers, the card line, and last
+  11. the quantized paths: the same 7B model quantized to int8 in place
+     serves the 9 requests with an int8 decode head, then trains at the
+     single-chip recipe (``configs/llava_dpo_singlechip.yaml``: w8a8 with
+     the int8 backward, LoRA r 64 / alpha 128) cut to per-device batch 1:
+     at the recipe's batch 2 the 1406-row prefix crosses the 1024-row rule
+     and no quantized kernel would run, as in the JAX package; then, the
+     7B model freed, LLaVA-1.5-13B drawn straight into int4
+     (``llava_dpo_13b_singlechip.yaml``, batch 1, r 64) serves 3 requests
+     one at a time with an int4 head and trains; each run's counters of
+     #1, #6 and #9-#11 equal to the counts derived from its batches;
+  12. one JSON line of the kernels' numbers, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA GPU and the repository around it: anywhere else it exits
@@ -44,6 +61,7 @@ of 20 launches with the L2 cache flushed (by a read) before each.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -388,19 +406,148 @@ def phase_decode(g, flush):
     return results
 
 
-def phase_reference():
-    """Tiny LLaVA in bf16: prefill and one int8 decode step through the
-    kernels on the GPU against the plain path on the CPU, same weights."""
+def _library_int8(x, q, scale, out_dtype, deq):
+    """One PyTorch call for x @ int8 q^T * scale where this build has one
+    on CUDA (``torch._weight_int8pack_mm``, bf16 out), else ``deq``
+    (dequantize, then ``torch.matmul``): (fn, label)."""
+    import torch
+
+    if out_dtype == torch.bfloat16:
+        try:
+            sb = scale.to(torch.bfloat16)
+            torch._weight_int8pack_mm(x, q, sb)
+            torch.cuda.synchronize()
+            return (lambda: torch._weight_int8pack_mm(x, q, sb),
+                    "torch._weight_int8pack_mm")
+        except (RuntimeError, NotImplementedError):
+            pass
+    return deq, "dequantize + torch.matmul (two calls)"
+
+
+def _quant_case(kind, m, k, n, g, flush, out_f32=False):
+    """One kernel (#9 ``q8``, #10 ``q8t``, #11 ``q4``) at [M, K] x [K, N]
+    (for #10 the gradient is [M, N] and dx [M, K]) against its plain
+    version: f32 output within 1e-5 of the largest entry, bf16 within one
+    bf16 step (2^-7) of it; its time, the plain version's, the library
+    call's, dequantize-then-matmul's (the path above the 1024-row rule) and
+    the bound."""
+    import torch
+
+    from opadpo_torch.ops import quant
+
+    dev = "cuda"
+    od = torch.float32 if out_f32 else torch.bfloat16
+    w = torch.randn(n, k, generator=g, device=dev) * 0.02
+    if kind == "q4":
+        q, s = quant.quantize_weight_int4(w)
+    else:
+        q, s = quant.quantize_weight(w)
+    del w
+    if kind == "q8t":
+        a = torch.randn(m, n, generator=g, device=dev).to(torch.bfloat16)
+        kernel = lambda: quant.quant_matmul_t_cuda(a, q, s)   # noqa: E731
+        plain = lambda: quant.quant_matmul_t_plain(a, q, s)   # noqa: E731
+        gs = (a.float() * s).to(torch.bfloat16)
+        deq = lambda: torch.matmul(                           # noqa: E731
+            gs, quant.dequantize_weight(q, s))
+        library = (deq, "dequantize + torch.matmul (two calls)")
+        out_elems, in_bytes = m * k, m * n * 2 + n * 4 + n * k
+    else:
+        a = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+        if kind == "q4":
+            kernel = lambda: quant.quant_matmul4_cuda(a, q, s, od)  # noqa
+            plain = lambda: quant.quant_matmul4_plain(a, q, s, od)  # noqa
+            deq = lambda: torch.matmul(                       # noqa: E731
+                a, quant.dequantize_weight4(q, s).t()).to(od)
+            library = (deq, "dequantize + torch.matmul (two calls)")
+            in_bytes = m * k * 2 + n * k // 2 + s.numel() * 4
+        else:
+            kernel = lambda: quant.quant_matmul_cuda(a, q, s, od)  # noqa
+            plain = lambda: quant.quant_matmul_plain(a, q, s, od)  # noqa
+            deq = lambda: torch.matmul(                       # noqa: E731
+                a, quant.dequantize_weight(q, s).t()).to(od)
+            library = _library_int8(a, q, s, od, deq)
+            in_bytes = m * k * 2 + n * k + n * 4
+        out_elems = m * n
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out.float()).all()), f"{kind} not finite")
+    err = (out.float() - ref.float()).abs().max().item()
+    top = ref.float().abs().max().item()
+    tol = 1e-5 if out.dtype == torch.float32 else 2.0 ** -7
+    check(out.dtype == ref.dtype and err <= tol * top,
+          f"{kind} at M {m} K {k} N {n}: error {err} > {tol} x {top}")
+    nbytes = in_bytes + out_elems * out.element_size()
+    bound_ms, bound_by = _bound(nbytes, 2 * m * n * k)
+    res_lib = time_ms(library[0], flush)
+    res = {"kernel": kind, "m": m, "k": k, "n": n,
+           "out": "f32" if out_f32 else "bf16", "err": err, "top": top,
+           "ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush),
+           "library_ms": res_lib,
+           "library_call": library[1],
+           "dequant_matmul_ms": (res_lib if library[0] is deq
+                                 else time_ms(deq, flush)),
+           "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": nbytes}
+    log(f"[quant] {json.dumps(res)}")
+    return res
+
+
+def phase_quant(g, flush):
+    """Kernels #9-#11 at the shapes of the quantized paths: 7B int8 decode
+    (M 8) and its head, the 7B prefix (M 703), CLIP at B = 1 (M 577), the
+    13B int4 decode (M 1, 8), head and prefix; and #9 / #11 against
+    dequantize-then-matmul at M 8, 703, 1024 and 1406, either side of the
+    1024-row rule."""
+    q8 = [_quant_case("q8", 8, k, n, g, flush)
+          for k, n in ((4096, 4096), (4096, 11008), (11008, 4096))]
+    q8.append(_quant_case("q8", 8, 4096, 32000, g, flush, out_f32=True))
+    q8 += [_quant_case("q8", 703, k, n, g, flush)
+           for k, n in ((4096, 4096), (4096, 11008), (11008, 4096))]
+    q8 += [_quant_case("q8", 577, 1024, n, g, flush) for n in (1024, 4096)]
+    q8t = [_quant_case("q8t", 703, k, n, g, flush)
+           for k, n in ((4096, 4096), (4096, 11008), (11008, 4096))]
+    q4 = [_quant_case("q4", m, k, n, g, flush)
+          for m in (1, 8, 703)
+          for k, n in ((5120, 5120), (5120, 13824), (13824, 5120))]
+    q4 += [_quant_case("q4", m, 5120, 32000, g, flush, out_f32=True)
+           for m in (1, 8)]
+    crossover = [_quant_case(kind, m, k, k, g, flush)
+                 for kind, k in (("q8", 4096), ("q4", 5120))
+                 for m in (8, 703, 1024, 1406)]
+    return {"q8": q8, "q8t": q8t, "q4": q4, "crossover": crossover}
+
+
+def _tiny_pair(bits, seed):
+    """The tiny LLaVA in bf16 on the CPU and the same weights on the GPU;
+    with ``bits`` 8 / 4 its block linears quantized (the same codes on
+    both)."""
+    import copy
+
+    import torch
+
+    from opadpo_torch.models import llava
+    from opadpo_torch.ops import quant
+
+    cfg = llava.LlavaConfig.tiny()
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cpu_model = llava.init_params(cfg, g, device="cpu")
+    if bits != 16:
+        quant.quantize_params(cpu_model, bits=bits)
+    return cfg, g, cpu_model, copy.deepcopy(cpu_model).to("cuda")
+
+
+def phase_reference(bits=16):
+    """Tiny LLaVA in bf16: prefill and two int8-KV decode steps through the
+    kernels on the GPU against the plain path on the CPU, same weights;
+    with ``bits`` 8 / 4 on a quantized base and a quantized decode head of
+    the same width."""
     import torch
 
     from opadpo_torch.constants import IMAGE_TOKEN_INDEX
-    from opadpo_torch.models import llava
+    from opadpo_torch.models import llama, llava
 
-    cfg = llava.LlavaConfig.tiny()
-    g = torch.Generator(device="cpu").manual_seed(1)
-    cpu_model = llava.init_params(cfg, g, device="cpu")
-    gpu_model = llava.empty_model(cfg, "cuda")
-    gpu_model.load_state_dict(cpu_model.state_dict())
+    cfg, g, cpu_model, gpu_model = _tiny_pair(bits, 1)
     ids = torch.randint(5, cfg.llama.vocab_size, (4, 130), generator=g)
     ids[:, 3] = IMAGE_TOKEN_INDEX
     mask = torch.ones_like(ids)
@@ -409,30 +556,34 @@ def phase_reference():
     outs = []
     with torch.inference_mode():
         for model, dev in ((gpu_model, "cuda"), (cpu_model, "cpu")):
+            head = llama.quantize_head_for_decode(model.llama, bits)
             pf = llava.prefill_unrolled(model, ids.to(dev), mask.to(dev),
-                                        images.to(dev), quantize_kv=True)
+                                        images.to(dev), quantize_kv=True,
+                                        head=head)
             n = cfg.llama.num_layers
             shape = (4, 2, cfg.llama.num_kv_heads, cfg.llama.head_dim)
             sfx = [(torch.zeros(shape, dtype=cfg.llama.dtype, device=dev),
                     torch.zeros(shape, dtype=cfg.llama.dtype, device=dev))
                    for _ in range(n)]
             tok = torch.argmax(pf["last_logits"], dim=-1)
-            logits, _ = llava.decode_step_unrolled(
-                model, tok, pf["kv_list"], pf["key_mask"], sfx, 0,
-                pf["next_position"])
-            outs.append((pf["last_logits"].float().cpu(), tok.cpu(),
-                         logits.float().cpu()))
-    (g_pf, g_tok, g_dec), (c_pf, c_tok, c_dec) = outs
+            logits = []
+            for step in range(2):
+                lg, sfx = llava.decode_step_unrolled(
+                    model, tok, pf["kv_list"], pf["key_mask"], sfx, step,
+                    pf["next_position"] + step, head=head)
+                logits.append(lg.float().cpu())
+                tok = torch.argmax(lg, dim=-1)
+            outs.append((pf["last_logits"].float().cpu(), torch.cat(logits)))
+    (g_pf, g_dec), (c_pf, c_dec) = outs
     check(torch.isfinite(g_pf).all() and torch.isfinite(g_dec).all(),
           "reference logits not finite")
     e_pf = (g_pf - c_pf).abs().max().item()
     e_dec = (g_dec - c_dec).abs().max().item()
     tol_pf = 0.05 * c_pf.abs().max().item()
     tol_dec = 0.05 * c_dec.abs().max().item()
-    log(f"[reference] tiny bf16 GPU vs CPU: prefill logits err {e_pf:.3e} "
-        f"(tol {tol_pf:.3e}), decode logits err {e_dec:.3e} "
-        f"(tol {tol_dec:.3e}), first tokens equal "
-        f"{bool((g_tok == c_tok).all())}")
+    log(f"[reference] tiny bf16 bits {bits} GPU vs CPU: prefill logits err "
+        f"{e_pf:.3e} (tol {tol_pf:.3e}), decode logits err {e_dec:.3e} "
+        f"(tol {tol_dec:.3e})")
     check(e_pf <= tol_pf, "prefill logits disagree with the CPU reference")
     check(e_dec <= tol_dec, "decode logits disagree with the CPU reference")
 
@@ -446,32 +597,28 @@ def _rel(a, b) -> float:
     return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
 
 
-def phase_train_reference():
+def phase_train_reference(bits=16):
     """One tiny OPA-DPO step in bf16 on the GPU (kernels) against the same
-    weights, adapter and batch on the CPU (plain versions): the rollout's
-    reference logprobs and entropies, the loss and the adapter's gradients;
-    then the GPU's AdamW step at lr 1e-2 against the CPU's from the same
-    gradients.  (Adam's first step moves each entry by about lr times the
-    sign of its gradient, so entries whose gradient lies within bf16 noise
-    of zero move opposite ways from gradients that agree to 1e-2.)  Each
-    device draws its own CoPO masks in its rollout, so the loss and the
-    step read the GPU rollout on both."""
+    weights, adapter and batch on the CPU (plain versions), on a bf16 base
+    or (``bits`` 8 / 4) a quantized one: the rollout's reference logprobs
+    and entropies, the loss and the adapter's gradients; then the GPU's
+    AdamW step at lr 1e-2 against the CPU's from the same gradients.
+    (Adam's first step moves each entry by about lr times the sign of its
+    gradient, so entries whose gradient lies within bf16 noise of zero move
+    opposite ways from gradients that agree to 1e-2.)  Each device draws
+    its own CoPO masks in its rollout, so the loss and the step read the
+    GPU rollout on both."""
     import torch
 
     from opadpo_torch.engine import dpo as dpo_engine
     from opadpo_torch.engine.train_state import AdamW, OptimizerConfig, \
         TrainState
-    from opadpo_torch.models import llava
     from opadpo_torch.models.lora import LoraConfig, make_trainable, \
         named_leaves, tree_map
     from opadpo_torch.tools.profile_train import make_adapters, make_batch
 
-    cfg = llava.LlavaConfig.tiny()
     dpo = dpo_engine.DpoConfig(response_len=8, query_len=6)
-    g = torch.Generator(device="cpu").manual_seed(2)
-    cpu_model = llava.init_params(cfg, g, device="cpu")
-    gpu_model = llava.empty_model(cfg, "cuda")
-    gpu_model.load_state_dict(cpu_model.state_dict())
+    cfg, g, cpu_model, gpu_model = _tiny_pair(bits, 2)
     ref, _ = make_adapters(cfg, LoraConfig(rank=4, alpha=8.0), g, b_std=0.05)
     batch = make_batch(cfg, dpo, 2, g)
 
@@ -506,7 +653,8 @@ def phase_train_reference():
                    in zip(named_leaves(st_c.params), before)])
     check(all(torch.isfinite(v).all() for v in s_g.values()),
           "tiny DPO stats not finite")
-    log(f"[reference] tiny bf16 DPO step GPU vs CPU: rollout logprobs and "
+    log(f"[reference] tiny bf16 bits {bits} DPO step GPU vs CPU: rollout "
+        f"logprobs and "
         f"entropies rel err {e_roll:.3e} (tol 5e-2), loss {l_g:.5f} vs "
         f"{l_c:.5f} rel {e_loss:.3e} (tol 2e-2), LoRA grads rel L2 "
         f"{e_grad:.3e} (tol 5e-2), AdamW update from the same gradients "
@@ -528,44 +676,28 @@ def _post(port, payload):
         return json.loads(r.read())
 
 
-def phase_main_path(card):
-    import torch
+def _serve(model, cfg, reqs, **worker_kw):
+    """Serve ``reqs`` concurrently over HTTP, after one warm-up request,
+    with every kernel counter set to 0 just before them -> (responses,
+    ``Sampler.stats`` of their batches, the counters just after, wall s)."""
     from http.server import ThreadingHTTPServer
 
-    from opadpo_torch.constants import IMAGE_TOKEN_INDEX
-    from opadpo_torch.models import llava
-    from opadpo_torch.ops import attention, decode_attention
     from opadpo_torch.serve import InferenceWorker, make_handler
 
-    cfg = llava.LlavaConfig.llava_7b()
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    model = llava.init_params(cfg, gen, device="cuda")
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"[main] LLaVA-1.5-7B random init: {n_params / 1e9:.3f} B params, "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, "
-        f"{time.perf_counter() - t0:.1f} s")
-    worker = InferenceWorker(model, cfg, WordTokenizer(), max_batch=8,
-                             max_new_tokens=64, kv_bits=8)
+    worker = InferenceWorker(model, cfg, WordTokenizer(), **worker_kw)
     server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(worker))
     threading.Thread(target=server.serve_forever, daemon=True).start()
     port = server.server_address[1]
+    counters = _counters()
+    results = [None] * len(reqs)
     try:
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
                                     timeout=60) as r:
             check(json.loads(r.read()).get("status") == "ok", "healthz")
         warm = _post(port, {"prompt": "warm up", "max_new_tokens": 2})
         check("error" not in warm, f"warm-up request failed: {warm}")
-
-        prompts = [f"Describe object {i} in the image in detail."
-                   for i in range(8)]
-        reqs = [{"prompt": p} for p in prompts]
-        reqs.append({"prompt": prompts[0], "max_new_tokens": 8})
         worker.sampler.stats.clear()
-        attention.flash_fwd_cuda.launches = 0
-        decode_attention.decode_attention_cuda.launches = 0
-        results = [None] * len(reqs)
+        _reset(counters)
 
         def go(i):
             results[i] = _post(port, reqs[i])
@@ -578,52 +710,90 @@ def phase_main_path(card):
         for th in threads:
             th.join(timeout=900)
         wall = time.perf_counter() - t_start
-        launches_a = attention.flash_fwd_cuda.launches
-        launches_b = decode_attention.decode_attention_cuda.launches
+        launches = _read(counters)
         stats = list(worker.sampler.stats)
     finally:
         server.shutdown()
         server.server_close()
-
+        worker.close()
     check(not any(th.is_alive() for th in threads), "a request hung")
     for i, r in enumerate(results):
         check(r is not None and "text" in r and "error" not in r,
               f"request {i} failed: {r}")
+    return results, stats, launches, wall
+
+
+def _serve_metrics(stats, wall, n_reqs):
+    n_prefill = len(stats)
+    n_steps = sum(s["decode_steps"] for s in stats)
+    check(n_prefill >= 1 and n_steps >= 1, "no batch ran")
+    busy = sum(s["prefill_s"] + s["decode_s"] for s in stats)
+    gen_tokens = sum(s["batch_rows"] * (s["decode_steps"] + 1)
+                     for s in stats)
+    return {"prefill_ms": 1e3 * sum(s["prefill_s"] for s in stats)
+            / n_prefill,
+            "decode_ms_per_step": 1e3 * sum(s["decode_s"] for s in stats)
+            / n_steps,
+            "generated_tok_per_s": gen_tokens / busy, "requests": n_reqs,
+            "wall_s": wall, "batches": n_prefill, "decode_steps": n_steps}
+
+
+def _check_attention_launches(cfg, stats, launches):
+    """Flash forward once per CLIP and decoder layer per prefill; the
+    decode kernel once per decoder layer per decode step (int8 KV)."""
+    n_prefill = len(stats)
+    n_steps = sum(s["decode_steps"] for s in stats)
+    per_prefill = cfg.vision.num_active_layers + cfg.llama.num_layers
+    check(launches["flash_fwd"] == per_prefill * n_prefill,
+          f"flash kernel launches {launches['flash_fwd']} do not match "
+          f"{per_prefill} x {n_prefill} prefills")
+    check(launches["decode_attention_int8"] == cfg.llama.num_layers * n_steps,
+          f"decode kernel launches {launches['decode_attention_int8']} do "
+          f"not match {cfg.llama.num_layers} x {n_steps} decode steps")
+
+
+def phase_main_path(card):
+    import torch
+
+    from opadpo_torch.constants import IMAGE_TOKEN_INDEX
+    from opadpo_torch.models import llava
+
+    cfg = llava.LlavaConfig.llava_7b()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = llava.init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[main] LLaVA-1.5-7B random init: {n_params / 1e9:.3f} B params, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompts = [f"Describe object {i} in the image in detail."
+               for i in range(8)]
+    reqs = [{"prompt": p} for p in prompts]
+    reqs.append({"prompt": prompts[0], "max_new_tokens": 8})
+    results, stats, launches, wall = _serve(
+        model, cfg, reqs, max_batch=8, max_new_tokens=64, kv_bits=8)
     short, twin = results[-1]["text"], results[0]["text"]
     check(twin.startswith(short),
           f"short answer {short!r} is not a prefix of {twin!r}")
     check(len(twin) > len(short), "the 64-token answer is not longer")
-    n_prefill = len(stats)
-    n_steps = sum(s["decode_steps"] for s in stats)
-    per_prefill = cfg.vision.num_active_layers + cfg.llama.num_layers
     sizes = sorted(r["batch_size"] for r in results)
-    log(f"[main] {n_prefill} batches (requests per batch, one entry per "
+    log(f"[main] {len(stats)} batches (requests per batch, one entry per "
         f"request: {sizes}), decode steps "
-        f"{[s['decode_steps'] for s in stats]}; launches "
-        f"flash {launches_a} (expect {per_prefill} x {n_prefill}), decode "
-        f"{launches_b} (expect {cfg.llama.num_layers} x {n_steps})")
-    check(n_prefill >= 1 and n_steps >= 1, "no batch ran")
+        f"{[s['decode_steps'] for s in stats]}; launches {launches}")
     positions = sorted({s["prompt_positions"] for s in stats})
     check(positions == [703], f"prompt positions {positions}: the kernels "
           "were checked and timed at 703")
-    check(launches_a == per_prefill * n_prefill,
-          "flash kernel launches do not match the prefills")
-    check(launches_b == cfg.llama.num_layers * n_steps,
-          "decode kernel launches do not match the decode steps")
-
-    prefill_ms = 1e3 * sum(s["prefill_s"] for s in stats) / n_prefill
-    decode_ms = 1e3 * sum(s["decode_s"] for s in stats) / n_steps
-    gen_tokens = sum(8 * (s["decode_steps"] + 1) for s in stats)
-    busy = sum(s["prefill_s"] + s["decode_s"] for s in stats)
-    main = {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
-            "generated_tok_per_s": gen_tokens / busy,
-            "requests": len(reqs), "wall_s": wall,
-            "launches_flash": launches_a, "launches_decode": launches_b,
+    _check_attention_launches(cfg, stats, launches)
+    main = {**_serve_metrics(stats, wall, len(reqs)),
+            "launches_flash": launches["flash_fwd"],
+            "launches_decode": launches["decode_attention_int8"],
             "card": card}
-    log(f"[main] prefill {prefill_ms:.1f} ms/batch of 8 (qlen 128, "
-        f"{positions[0]} positions), decode {decode_ms:.2f} ms/step, "
-        f"{main['generated_tok_per_s']:.1f} generated tok/s (8 batch rows), "
-        f"{wall:.2f} s wall for {len(reqs)} requests; card: {card}")
+    log(f"[main] prefill {main['prefill_ms']:.1f} ms/batch of 8 (qlen 128, "
+        f"{positions[0]} positions), decode {main['decode_ms_per_step']:.2f} "
+        f"ms/step, {main['generated_tok_per_s']:.1f} generated tok/s (8 "
+        f"batch rows), {wall:.2f} s wall for {len(reqs)} requests; card: "
+        f"{card}")
     log(f"[main] {json.dumps(main)}")
 
     # the same path once more, directly: finite logits, int8 cache shapes
@@ -645,14 +815,135 @@ def phase_main_path(card):
     return main, model
 
 
+def phase_quant_serve(model, card, label, head_bits, max_batch, n_reqs,
+                      max_new_tokens):
+    """The serving path on a quantized base: ``n_reqs`` concurrent requests
+    (greedy, int8 prompt KV, the lm_head quantized to ``head_bits`` for
+    decode); the launch counters of #1, #6, #9 and #11 must equal the
+    counts derived from the batches."""
+    cfg = model.cfg
+    prompts = [f"What is object {i} in the picture doing?"
+               for i in range(n_reqs)]
+    results, stats, launches, wall = _serve(
+        model, cfg, [{"prompt": p} for p in prompts], max_batch=max_batch,
+        max_new_tokens=max_new_tokens, kv_bits=8, head_bits=head_bits)
+    check(all(r["text"] for r in results), "an empty answer")
+    positions = sorted({s["prompt_positions"] for s in stats})
+    check(positions == [703], f"prompt positions {positions}")
+    _check_attention_launches(cfg, stats, launches)
+    want = expected_quant_serving(model, stats, head_bits)
+    got = {k: launches[k] for k in want}
+    log(f"[{label}] {len(stats)} batches of {max_batch} rows, decode steps "
+        f"{[s['decode_steps'] for s in stats]}; quant launches {got} "
+        f"(expect {want})")
+    check(got == want, "quant kernel launches differ from the batches'")
+    res = {**_serve_metrics(stats, wall, n_reqs), "batch_rows": max_batch,
+           "head_bits": head_bits, "launches": launches, "card": card}
+    log(f"[{label}] prefill {res['prefill_ms']:.1f} ms/batch, decode "
+        f"{res['decode_ms_per_step']:.2f} ms/step, "
+        f"{res['generated_tok_per_s']:.1f} generated tok/s; card: {card}")
+    log(f"[{label}] {json.dumps(res)}")
+    return res
+
+
 def _counters():
-    from opadpo_torch.ops import attention, heads_layout
+    from opadpo_torch.ops import attention, decode_attention, heads_layout
+    from opadpo_torch.ops import quant
 
     return {"flash_fwd": attention.flash_fwd_cuda,
             "flash_bwd_dq": attention.flash_bwd_dq_cuda,
             "flash_bwd_dkv": attention.flash_bwd_dkv_cuda,
             "scatter_heads": heads_layout.scatter_heads_cuda,
-            "gather_heads": heads_layout.gather_heads_cuda}
+            "gather_heads": heads_layout.gather_heads_cuda,
+            "decode_attention_int8": decode_attention.decode_attention_cuda,
+            "quant_matmul": quant.quant_matmul_cuda,
+            "quant_matmul_t": quant.quant_matmul_t_cuda,
+            "quant_matmul4": quant.quant_matmul4_cuda}
+
+
+def _reset(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _read(counters):
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def _quant_bits(model):
+    """(bits of each quantized CLIP block linear, of each decoder one, of
+    the first decoder layer's q, k, v)."""
+    from opadpo_torch.ops.quant import QuantLinear
+
+    def bits(blocks):
+        return [m.bits for blk in blocks for m in blk.children()
+                if isinstance(m, QuantLinear)]
+
+    first = model.llama.layers[0]
+    return (bits(model.vision.layers), bits(model.llama.layers),
+            [m.bits for m in (first.wq, first.wk, first.wv)
+             if isinstance(m, QuantLinear)])
+
+
+def _add(counts, bits_list, times=1):
+    for bits in bits_list:
+        key = "quant_matmul" if bits == 8 else "quant_matmul4"
+        counts[key] += times
+
+
+def expected_quant_serving(model, stats, head_bits) -> dict:
+    """Launches of kernels #9 and #11 in the batches ``stats`` describe
+    (``Sampler.stats``), derived from the model's quantized linears: a
+    linear takes its kernel when its rows (the product of the leading
+    dims) are at most ``_STREAMING_MAX_M``.  A prefill of B rows runs the
+    CLIP tower on B x 577 rows and the decoder on B x 703, then the head on
+    B rows; each decode step the decoder and the head on B rows."""
+    from opadpo_torch.ops.quant import _STREAMING_MAX_M as max_m
+
+    clip, dec, _ = _quant_bits(model)
+    counts = {"quant_matmul": 0, "quant_matmul_t": 0, "quant_matmul4": 0}
+    for s in stats:
+        b, steps = s["batch_rows"], s["decode_steps"]
+        if b * (model.cfg.num_patches + 1) <= max_m:
+            _add(counts, clip)
+        if b * s["prompt_positions"] <= max_m:
+            _add(counts, dec)
+        if b <= max_m:
+            _add(counts, dec, steps)
+        if head_bits != 16:
+            _add(counts, [head_bits], 1 + steps)
+    return counts
+
+
+def expected_quant_train(model, dpo, b, train: bool) -> dict:
+    """Launches of kernels #9-#11 in one rollout_score (train=False) or
+    one dpo_train_step (train=True) at per-device batch b.  Each scoring
+    forward runs CLIP on b x 577 rows, the decoder's prefix on b x 703 and
+    its response stream on K x b x 896 (K = 3, and 2 in the CoPO forward);
+    a train step reruns each decoder layer's forward once (remat) and runs
+    dx (#10) through every int8 decoder linear whose input needs a
+    gradient: all but the first layer's q, k, v, whose input is the
+    embeddings.  The int4 backward dequantizes (no kernel)."""
+    from opadpo_torch.engine.dpo import RESPONSE_KEYS
+    from opadpo_torch.ops.quant import _STREAMING_MAX_M as max_m
+
+    clip, dec, first_qkv = _quant_bits(model)
+    counts = {"quant_matmul": 0, "quant_matmul_t": 0, "quant_matmul4": 0}
+    prefix = b * (model.cfg.num_patches + dpo.query_len - 1)
+    streams = [(prefix, len(RESPONSE_KEYS) * b * dpo.response_len)]
+    if dpo.CoPO:
+        streams.append((prefix, 2 * b * dpo.response_len))
+    for p_rows, r_rows in streams:
+        if b * (model.cfg.num_patches + 1) <= max_m:
+            _add(counts, clip)
+        for rows in (p_rows, r_rows):
+            if rows > max_m:
+                continue
+            _add(counts, dec, 2 if train else 1)
+            if train:
+                counts["quant_matmul_t"] += (dec.count(8)
+                                             - first_qkv.count(8))
+    return counts
 
 
 def expected_launches(cfg, dpo, train: bool) -> dict:
@@ -676,8 +967,11 @@ def expected_launches(cfg, dpo, train: bool) -> dict:
     return {k: forwards * v for k, v in per.items()}
 
 
-def phase_train(model, card, n_steps: int = 3):
-    """The OPA-DPO training path on the serving phase's 7B weights."""
+def phase_train(model, card, label="train", n_steps: int = 2, b: int = 2,
+                lora_cfg=None):
+    """The OPA-DPO training path: ``rollout_score`` once, then ``n_steps``
+    ``dpo_train_step``s at per-device batch ``b`` with adapters of
+    ``lora_cfg`` (the reference recipe's r 256 by default)."""
     import torch
 
     from opadpo_torch.engine import dpo as dpo_engine
@@ -689,29 +983,22 @@ def phase_train(model, card, n_steps: int = 3):
 
     cfg = model.cfg
     dpo = dpo_engine.DpoConfig()
-    b = 2
+    lora_cfg = lora_cfg or RECIPE_LORA
     gen = torch.Generator(device="cuda").manual_seed(1)
     torch.cuda.reset_peak_memory_stats()
-    ref, policy = make_adapters(cfg, RECIPE_LORA, gen)
+    ref, policy = make_adapters(cfg, lora_cfg, gen)
     batch = make_batch(cfg, dpo, b, gen)
     opt = AdamW(RECIPE_OPT)
     state = TrainState.create(policy, opt.cfg)
     counters = _counters()
     n_lora = sum(t.numel() for _, t in named_leaves(policy))
 
-    def reset():
-        for fn in counters.values():
-            fn.launches = 0
-
-    def read():
-        return {k: fn.launches for k, fn in counters.items()}
-
-    reset()
+    _reset(counters)
     t0 = time.perf_counter()
     rollout = dpo_engine.rollout_score(model, dpo, ref, batch, gen)
     torch.cuda.synchronize()
     rollout_s = time.perf_counter() - t0
-    launches_rollout = read()
+    launches_rollout = _read(counters)
     for key, val in rollout.items():
         check(bool(torch.isfinite(val.float()).all()), f"rollout {key}")
     prefix = cfg.num_patches + dpo.query_len - 1
@@ -719,7 +1006,7 @@ def phase_train(model, card, n_steps: int = 3):
           == (b, dpo.response_len), "rollout logprob shape")
     full = {**batch, **rollout}
 
-    reset()
+    _reset(counters)
     step_s, losses = [], []
     for i in range(n_steps):
         if i == n_steps - 1:
@@ -733,15 +1020,20 @@ def phase_train(model, card, n_steps: int = 3):
         losses.append({k: stats[k].item() for k in
                        ("loss/total", "loss/grad_norm", "loss/stand_gen",
                         "loss/AncPO")})
-    launches_train = read()
+    launches_train = _read(counters)
     moved = sum(int((t.detach() != p).sum()) for (_, t), p in
                 zip(named_leaves(state.params), before))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    want_roll = expected_launches(cfg, dpo, train=False)
-    want_step = expected_launches(cfg, dpo, train=True)
-    log(f"[train] launches rollout {launches_rollout} (expect {want_roll}); "
-        f"{n_steps} steps {launches_train} (expect {n_steps} x {want_step})")
+    want_roll = {**expected_launches(cfg, dpo, train=False),
+                 **expected_quant_train(model, dpo, b, train=False),
+                 "decode_attention_int8": 0}
+    want_step = {**expected_launches(cfg, dpo, train=True),
+                 **expected_quant_train(model, dpo, b, train=True),
+                 "decode_attention_int8": 0}
+    log(f"[{label}] launches rollout {launches_rollout} (expect "
+        f"{want_roll}); {n_steps} steps {launches_train} (expect {n_steps} "
+        f"x {want_step})")
     check(launches_rollout == want_roll,
           "rollout launch counts differ from the configuration's")
     check(launches_train == {k: n_steps * v for k, v in want_step.items()},
@@ -752,7 +1044,8 @@ def phase_train(model, card, n_steps: int = 3):
                  * dpo.response_len) + (b * prefix + 2 * b * dpo.response_len)
     step_med = statistics.median(step_s[1:])
     res = {"rollout_s": rollout_s, "step_s": step_s,
-           "step_s_median_after_first": step_med,
+           "step_s_median_after_first": step_med, "batch": b,
+           "lora_rank": lora_cfg.rank,
            "scored_positions_per_step": positions,
            "rollout_positions_per_s": positions / rollout_s,
            "train_positions_per_s": positions / step_med,
@@ -765,15 +1058,103 @@ def phase_train(model, card, n_steps: int = 3):
            "launches": {k: launches_rollout[k] + launches_train[k]
                         for k in launches_train},
            "prefix_positions": prefix, "card": card}
-    log(f"[train] rollout_score {rollout_s:.3f} s, dpo_train_step "
+    log(f"[{label}] rollout_score {rollout_s:.3f} s, dpo_train_step "
         f"{[round(x, 3) for x in step_s]} s (median after the first "
         f"{step_med:.3f} s), {positions} scored positions per step: "
         f"{res['rollout_positions_per_s']:.0f} /s scoring, "
         f"{res['train_positions_per_s']:.0f} /s training; peak "
         f"{peak_gb:.2f} GB; LoRA {n_lora / 1e6:.1f} M params, {moved} "
         f"entries moved in the last step; card: {card}")
-    log(f"[train] {json.dumps(res)}")
+    log(f"[{label}] {json.dumps(res)}")
     return res
+
+
+SINGLE_CHIP_STEPS = 2
+
+
+def phase_7b_int8(model, card):
+    """LLaVA-1.5-7B at bits 8 (the served and trained bf16 model,
+    quantized in place) serving 9 requests with head_bits 8, then training
+    at the single-chip recipe (``configs/llava_dpo_singlechip.yaml``: w8a8
+    with the int8 backward, LoRA r 64 / alpha 128) cut to per-device batch
+    1.  -> (serving result, training result)."""
+    import torch
+
+    from opadpo_torch.ops import quant
+    from opadpo_torch.tools.profile_train import SINGLE_CHIP_LORA
+
+    t0 = time.perf_counter()
+    quant.quantize_params(model, bits=8)
+    torch.cuda.synchronize()
+    log(f"[7b-int8] quantized in place in {time.perf_counter() - t0:.1f} s:"
+        f" {quant.quantized_bytes(model) / 1e9:.2f} GB of weights")
+    serving = phase_quant_serve(model, card, "7b-int8", 8, 8, 9, 64)
+    quant.set_quant_mode(model, quant.QuantMode(act_bits=8, bwd_int8=True))
+    training = phase_train(model, card, "7b-int8-train", SINGLE_CHIP_STEPS,
+                           1, SINGLE_CHIP_LORA)
+    return serving, training
+
+
+def phase_13b_int4(card):
+    """LLaVA-1.5-13B at bits 4 (``llava_dpo_13b_singlechip.yaml``, random
+    weights drawn straight into int4) serving 3 requests one at a time
+    with head_bits 4, then training at batch 1, LoRA r 64 / alpha 128.
+    -> (serving result, training result)."""
+    import torch
+
+    from opadpo_torch.models import llava
+    from opadpo_torch.ops import quant
+    from opadpo_torch.tools.profile_train import SINGLE_CHIP_LORA
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = llava.init_params_quantized(
+        llava.LlavaConfig.llava_13b(),
+        torch.Generator(device="cuda").manual_seed(0), bits=4)
+    torch.cuda.synchronize()
+    log(f"[13b-int4] random init in int4 in {time.perf_counter() - t0:.1f} "
+        f"s: {quant.quantized_bytes(model) / 1e9:.2f} GB, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    serving = phase_quant_serve(model, card, "13b-int4", 4, 1, 3, 32)
+    training = phase_train(model, card, "13b-int4-train", SINGLE_CHIP_STEPS,
+                           1, SINGLE_CHIP_LORA)
+    return serving, training
+
+
+def quant_kernel_entries(qk, q_serve, q_train):
+    """The kernels line's entries of #9-#11: launches over the quantized
+    paths' runs, numbers at a main-path shape, every shape beside."""
+    def runs(kname):
+        return sum(r["launches"][kname]
+                   for r in list(q_serve.values()) + list(q_train.values()))
+
+    keys = ("ms", "plain_ms", "library_ms", "library_call",
+            "dequant_matmul_ms", "bound_ms", "bound_by")
+    out = []
+    for kname, group, main_i, line in (
+            ("quant_matmul", "q8", 0, "opadpo_tpu/ops/quant.py:60"),
+            ("quant_matmul_t", "q8t", 0, "opadpo_tpu/ops/quant.py:155"),
+            ("quant_matmul4", "q4", 3, "opadpo_tpu/ops/quant.py:495")):
+        cases = qk[group] + [c for c in qk["crossover"]
+                             if c["kernel"] == group]
+        main = qk[group][main_i]
+        out.append({
+            "name": kname, "route": "cuda",
+            "source": "opadpo_torch/csrc/quant_matmul.cu", "replaces": line,
+            "launches": runs(kname),
+            "launches_by_run": {
+                **{f"serve {k}": r["launches"][kname]
+                   for k, r in q_serve.items()},
+                **{f"train {k} (rollout + {SINGLE_CHIP_STEPS} steps)":
+                   r["launches"][kname]
+                   for k, r in q_train.items()}},
+            "max_abs_err": max(c["err"] for c in cases),
+            **{k: main[k] for k in keys},
+            "at": f"M {main['m']} K {main['k']} N {main['n']} "
+                  f"{main['out']} out",
+            "shapes": [{k: c[k] for k in ("m", "k", "n", "out", "err",
+                                          *keys)} for c in cases]})
+    return out
 
 
 def main() -> int:
@@ -806,13 +1187,21 @@ def main() -> int:
     bwd = phase_flash_bwd(g, flush)
     heads = phase_heads(g, flush)
     decode = phase_decode(g, flush)
+    qk = phase_quant(g, flush)
     del flush
     torch.cuda.empty_cache()
-    phase_reference()
-    phase_train_reference()
+    for bits in (16, 8, 4):
+        phase_reference(bits)
+        phase_train_reference(bits)
     serve, model = phase_main_path(card)
     torch.cuda.empty_cache()
     train = phase_train(model, card)
+    q_serve, q_train = {}, {}
+    q_serve["7b-int8"], q_train["7b-int8"] = phase_7b_int8(model, card)
+    del model                       # the 13B phase runs without the 7B
+    gc.collect()
+    torch.cuda.empty_cache()
+    q_serve["13b-int4"], q_train["13b-int4"] = phase_13b_int4(card)
 
     def pick(res, *keys):
         return {k: res[k] for k in keys}
@@ -881,6 +1270,7 @@ def main() -> int:
          "library_ms": None,
          "at": "[8,32,768,128] int8, s_used 768 (7B decode step, one layer)",
          "s_used_640_ms": decode[1]["ms"]})
+    kernels += quant_kernel_entries(qk, q_serve, q_train)
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

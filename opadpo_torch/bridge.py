@@ -7,8 +7,11 @@ The JAX trees stack layers on a leading axis and store dense weights
 per layer.  The trees arrive with numpy leaves (``np.asarray`` of each JAX
 array, bf16 included), so this module needs neither JAX nor the JAX package.
 
-Quantized base weights (``{"q", "scale"}`` or ``{"q4", "scale"}`` leaves)
-wait for the slice that ports the quantized matmul kernels.
+Quantized base weights cross over too: a ``{"q": int8 [L, K, N], "scale":
+[L, 1, N]}`` or ``{"q4": int8 [L, K/2, N], "scale": [L, K/g, N]}`` leaf of
+the decoder's or the vision tower's block linears becomes a
+``QuantLinear`` in the port's layout (``ops/quant.py``: codes ``[N, K]`` or
+``[N, K/2]``, scales ``[N]`` or ``[N, K/g]``), the same codes transposed.
 """
 
 from __future__ import annotations
@@ -18,13 +21,50 @@ import torch
 
 from opadpo_torch.device import resolve_device
 from opadpo_torch.models.llava import Llava, LlavaConfig, empty_model
+from opadpo_torch.ops.quant import QuantLinear
 
 
 def _np(leaf) -> np.ndarray:
     if isinstance(leaf, dict):
-        raise NotImplementedError(
-            "quantized base weights: ROADMAP slice 3 (quantized base weights)")
+        raise ValueError("a quantized leaf where the port keeps the weight "
+                         "in its own dtype (only the block linears of the "
+                         "decoder and the vision tower are quantized)")
     return np.asarray(leaf, dtype=np.float32)
+
+
+def _layer_leaf(leaf):
+    """A stacked leaf as numpy: a quantized dict keeps its arrays' dtypes,
+    any other leaf is f32."""
+    if isinstance(leaf, dict):
+        return {k: np.asarray(v) for k, v in leaf.items()}
+    return _np(leaf)
+
+
+def _set_linear(owner, name: str, leaf, i: int, bias=None) -> None:
+    """Layer ``i`` of a stacked ``[L, in, out]`` leaf (or a quantized one)
+    into ``owner.<name>``: copied into the ``nn.Linear``, or a
+    ``QuantLinear`` in its place (with ``bias`` in the model dtype)."""
+    lin = getattr(owner, name)
+    if not isinstance(leaf, dict):
+        _copy(lin.weight, leaf[i], transpose=True)
+        if bias is not None:
+            _copy(lin.bias, bias)
+        return
+    dev = lin.weight.device
+    bits = 4 if "q4" in leaf else 8
+    q = np.ascontiguousarray(leaf["q4" if bits == 4 else "q"][i].T)
+    scale = leaf["scale"][i]
+    scale = np.ascontiguousarray(scale.T if bits == 4 else scale[0])
+    b = None
+    if bias is not None:
+        b = torch.tensor(_np(bias), dtype=lin.bias.dtype, device=dev)
+    qlin = QuantLinear(torch.tensor(q.astype(np.int8), device=dev),
+                       torch.tensor(scale.astype(np.float32), device=dev),
+                       bits, b)
+    if (qlin.out_features, qlin.in_features) != tuple(lin.weight.shape):
+        raise ValueError(f"quantized shape {tuple(q.shape)} for a "
+                         f"{tuple(lin.weight.shape)} slot")
+    setattr(owner, name, qlin)
 
 
 def _copy(dst: torch.Tensor, leaf, transpose: bool = False) -> None:
@@ -49,15 +89,14 @@ def llava_from_jax(params_np: dict, cfg: LlavaConfig,
     _copy(vis.pos_embed, vp["pos_embed"])
     _copy(vis.pre_norm.weight, vp["pre_norm"]["scale"])
     _copy(vis.pre_norm.bias, vp["pre_norm"]["bias"])
-    vl = {k: _np(v) for k, v in vp["layers"].items()}
+    vl = {k: _layer_leaf(v) for k, v in vp["layers"].items()}
     for i, blk in enumerate(vis.layers):
         for ln in ("ln1", "ln2"):
             _copy(getattr(blk, ln).weight, vl[f"{ln}_scale"][i])
             _copy(getattr(blk, ln).bias, vl[f"{ln}_bias"][i])
         for w, bias in (("wq", "bq"), ("wk", "bk"), ("wv", "bv"),
                         ("wo", "bo"), ("fc1", "b_fc1"), ("fc2", "b_fc2")):
-            _copy(getattr(blk, w).weight, vl[w][i], transpose=True)
-            _copy(getattr(blk, w).bias, vl[bias][i])
+            _set_linear(blk, w, vl[w], i, vl[bias][i])
 
     pp, proj = params_np["projector"], model.projector
     _copy(proj.fc1.weight, pp["fc1"], transpose=True)
@@ -69,12 +108,12 @@ def llava_from_jax(params_np: dict, cfg: LlavaConfig,
     _copy(lm.embed, lp["embed"])
     _copy(lm.final_norm, lp["final_norm"])
     _copy(lm.lm_head.weight, lp["lm_head"], transpose=True)
-    ll = {k: _np(v) for k, v in lp["layers"].items()}
+    ll = {k: _layer_leaf(v) for k, v in lp["layers"].items()}
     for i, layer in enumerate(lm.layers):
         _copy(layer.attn_norm, ll["attn_norm"][i])
         _copy(layer.mlp_norm, ll["mlp_norm"][i])
         for w in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
-            _copy(getattr(layer, w).weight, ll[w][i], transpose=True)
+            _set_linear(layer, w, ll[w], i)
     return model
 
 

@@ -4,7 +4,9 @@
 
 The prompt KV is computed once by prefill (int8 head-major with
 ``kv_bits=8``) and stays constant; each decode step writes its token's KV
-into a small bf16 suffix buffer in place.  The decode loop stops when every
+into a small bf16 suffix buffer in place.  With ``head_bits`` 8 or 4 the
+prefill and decode passes read an int8 / int4 copy of the lm_head, made
+once per model.  The decode loop stops when every
 row has emitted EOS, as the JAX ``while_loop`` does; the forward of a step
 whose token ends the loop is skipped, since no one reads its logits.
 """
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from opadpo_torch.engine.sampling import SamplingConfig, sample_tokens
+from opadpo_torch.models import llama as llama_model
 from opadpo_torch.models import llava as llava_model
 
 
@@ -27,10 +30,11 @@ def decode_loop_unrolled(model, prompt_kv_list: list,
                          last_logits: torch.Tensor,
                          generator: Optional[torch.Generator],
                          sampling: SamplingConfig, lora=None,
-                         lora_scaling: float = 1.0
+                         lora_scaling: float = 1.0, head=None
                          ) -> Tuple[torch.Tensor, int]:
     """-> (tokens [B, max_new_tokens] int64, pad after each row's EOS;
-    the number of decode forwards run)."""
+    the number of decode forwards run).  ``head``: a quantized decode
+    head, or None for the model's lm_head."""
     cfg = model.cfg.llama
     b = prompt_mask.shape[0]
     n_new = sampling.max_new_tokens
@@ -52,7 +56,7 @@ def decode_loop_unrolled(model, prompt_kv_list: list,
             break
         last_logits, suffix = llava_model.decode_step_unrolled(
             model, tok, prompt_kv_list, prompt_mask, suffix, step, positions,
-            lora=lora, lora_scaling=lora_scaling)
+            lora=lora, lora_scaling=lora_scaling, head=head)
         positions = positions + 1
         n_fwd += 1
     return out, n_fwd
@@ -60,7 +64,8 @@ def decode_loop_unrolled(model, prompt_kv_list: list,
 
 class Sampler:
     """Prefill then decode, per-layer weights, with a bf16 (``kv_bits=16``)
-    or int8 (``kv_bits=8``) prompt cache.
+    or int8 (``kv_bits=8``) prompt cache, and the model's lm_head
+    (``head_bits=16``) or an int8 / int4 copy of it (8 / 4).
 
     ``stats`` holds, for each of the last 1000 calls, its phase times (host
     clock around work that ends in a device synchronise), its prompt
@@ -83,13 +88,13 @@ class Sampler:
             raise NotImplementedError(
                 "speculative decode needs the multi-query decode kernel "
                 "(_kernel_multi): ROADMAP slice 4")
-        if head_bits != 16:
-            raise NotImplementedError(
-                "a quantized decode head needs the int8/int4 matmul kernels: "
-                "ROADMAP slice 3, quantized base weights")
+        if head_bits not in (16, 8, 4):
+            raise ValueError(f"head_bits={head_bits}")
         self.sampling = sampling
         self.lora_scaling = lora_scaling
         self.kv_bits = kv_bits
+        self.head_bits = head_bits
+        self._head = None                 # (model, its quantized head)
         self.stats: deque = deque(maxlen=1000)
 
     def generate(self, model, input_ids: torch.Tensor,
@@ -100,22 +105,35 @@ class Sampler:
         mask, [B, H, W, 3] images -> tokens [B, max_new_tokens]."""
         sync = (torch.cuda.synchronize if input_ids.is_cuda
                 else (lambda: None))
+        head = self.decode_head(model)
         t0 = time.perf_counter()
         pf = llava_model.prefill_unrolled(
             model, input_ids, text_mask, images, lora=lora,
-            lora_scaling=self.lora_scaling, quantize_kv=self.kv_bits == 8)
+            lora_scaling=self.lora_scaling, quantize_kv=self.kv_bits == 8,
+            head=head)
         sync()
         t1 = time.perf_counter()
         out, n_fwd = decode_loop_unrolled(
             model, pf["kv_list"], pf["key_mask"], pf["next_position"],
             pf["last_logits"], generator, self.sampling, lora=lora,
-            lora_scaling=self.lora_scaling)
+            lora_scaling=self.lora_scaling, head=head)
         sync()
         t2 = time.perf_counter()
         self.stats.append({"prefill_s": t1 - t0, "decode_s": t2 - t1,
                            "prompt_positions": pf["key_mask"].shape[1],
-                           "decode_steps": n_fwd})
+                           "decode_steps": n_fwd,
+                           "batch_rows": int(input_ids.shape[0])})
         return out
+
+    def decode_head(self, model):
+        """The quantized decode head of ``model`` (made on its first use,
+        then kept), or None at ``head_bits=16``."""
+        if self.head_bits == 16:
+            return None
+        if self._head is None or self._head[0] is not model:
+            self._head = (model, llama_model.quantize_head_for_decode(
+                model.llama, self.head_bits))
+        return self._head[1]
 
 
 def truncate_after_tokens(

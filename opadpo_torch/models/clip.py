@@ -5,7 +5,9 @@ stride-14 patch convolution is patchify + matmul (a matmul keeps f32 runs
 in full f32, where cuDNN's convolution would default to TF32); CLS and
 position embeddings, ``pre_norm``; pre-LN blocks with quick_gelu in f32
 and bidirectional attention.  Layer -2 is selected, so only the first 23 of
-24 blocks exist, and CLS is dropped at the end.
+24 blocks exist, and CLS is dropped at the end.  The block linears may be
+quantized (``ops/quant.QuantLinear``, their biases kept in the model
+dtype); the patch embedding stays in the model dtype.
 """
 
 from __future__ import annotations
@@ -88,9 +90,8 @@ class ClipBlock(nn.Module):
         self.fc2 = nn.Linear(i, d, dtype=dt)
 
     def _dense(self, x, name, ll, scaling):
-        lin = getattr(self, name)
-        return lora_dense(x, lin.weight, tree_get(ll, name), scaling) + \
-            lin.bias
+        lin = getattr(self, name)        # nn.Linear or QuantLinear
+        return lora_dense(x, lin, tree_get(ll, name), scaling) + lin.bias
 
     def forward(self, x, ll=None, scaling: float = 1.0):
         b, seq, d = x.shape

@@ -16,7 +16,10 @@
 
 Projections run in the model dtype and widen to f32 for the LoRA sum; the
 decode head returns f32 logits.  RoPE positions come from
-``cumsum(mask) - 1`` so left-padded batches work.
+``cumsum(mask) - 1`` so left-padded batches work.  The seven block linears
+may be frozen int8 / int4 ``QuantLinear``s (``ops/quant.py``), and the
+prefill and decode passes may take an int8 / int4 decode head made by
+``quantize_head_for_decode``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from opadpo_torch.ops.attention import (
     flash_attention_fused, flash_attention_fused_shared, multi_head_attention,
 )
 from opadpo_torch.ops.decode_attention import decode_attention_prompt
+from opadpo_torch.ops.quant import QuantLinear, exact_div
 from opadpo_torch.ops.rope import apply_rope, rope_frequencies
 
 NEG_INF = -1e30
@@ -61,6 +65,11 @@ class LlamaConfig:
         return LlamaConfig()
 
     @staticmethod
+    def llava_13b() -> "LlamaConfig":
+        return LlamaConfig(hidden_size=5120, intermediate_size=13824,
+                           num_layers=40, num_heads=40, num_kv_heads=40)
+
+    @staticmethod
     def tiny(vocab_size: int = 512) -> "LlamaConfig":
         return LlamaConfig(vocab_size=vocab_size, hidden_size=128,
                            intermediate_size=352, num_layers=2,
@@ -84,7 +93,9 @@ class LlamaLayer(nn.Module):
         self.w_down = nn.Linear(i, d, bias=False, dtype=dt)
 
     def dense(self, x, name, ll, scaling):
-        return lora_dense(x, getattr(self, name).weight, tree_get(ll, name),
+        """One of the seven linears (``nn.Linear`` or ``QuantLinear``)
+        with its adapter entry from ``ll``."""
+        return lora_dense(x, getattr(self, name), tree_get(ll, name),
                           scaling)
 
 
@@ -149,11 +160,35 @@ def _mlp_block(x, layer: LlamaLayer, ll, scaling):
     return layer.dense(h, "w_down", ll, scaling)
 
 
-def _decode_head(x, model: LlamaModel, lora, scaling):
+@torch.no_grad()
+def quantize_head_for_decode(model: LlamaModel,
+                             bits: int) -> Optional[QuantLinear]:
+    """The lm_head as an int8 (``bits`` 8) or int4 (4) ``QuantLinear`` for
+    the decode passes, or None for 16.  Training and scoring keep the bf16
+    head (the reference skips lm_head); the sampler opts in with
+    ``head_bits``, since decode re-reads the whole head every token."""
+    if bits == 16:
+        return None
+    if bits not in (8, 4):
+        raise ValueError(f"head_bits={bits}")
+    q = QuantLinear.from_weight(model.lm_head.weight, bits)
+    if q.bits != bits:
+        raise ValueError(f"hidden size {model.cfg.hidden_size} is not a "
+                         "multiple of the int4 group")
+    return q
+
+
+def _decode_head(x, model: LlamaModel, lora, scaling, head=None):
     """Final norm + lm_head on [B, 1, D] -> f32 logits [B, V] (the bf16
-    products summed in f32, as the JAX head's f32 accumulation)."""
+    products summed in f32, as the JAX head's f32 accumulation).  ``head``:
+    a quantized decode head, through the int8 / int4 kernel with f32
+    output."""
     x = rms_norm(x, model.final_norm, model.cfg.rms_norm_eps)
-    logits = F.linear(x.float(), model.lm_head.weight.float())
+    if head is None:
+        logits = F.linear(x.float(), model.lm_head.weight.float())
+    else:
+        logits = head.matmul_f32(x.reshape(-1, x.shape[-1])).reshape(
+            *x.shape[:-1], -1)
     delta = lora_delta(x, tree_get(lora, "lm_head"), scaling)
     if delta is not None:
         logits = logits + delta
@@ -166,9 +201,11 @@ def _repeat_kv(t, cfg: LlamaConfig):
 
 
 def forward_prefill_unrolled(model: LlamaModel, input_embeds, key_mask,
-                             positions, lora=None, lora_scaling: float = 1.0):
+                             positions, lora=None, lora_scaling: float = 1.0,
+                             head: Optional[QuantLinear] = None):
     """Prompt pass -> (last-position logits [B, V] f32, [(k, v), ...] per
-    layer, each [B, S, Hkv, hd] after RoPE)."""
+    layer, each [B, S, Hkv, hd] after RoPE); ``head`` as for
+    ``_decode_head``."""
     cfg = model.cfg
     b, s, _ = input_embeds.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -191,7 +228,8 @@ def forward_prefill_unrolled(model: LlamaModel, input_embeds, key_mask,
                             lora_scaling)
         h = rms_norm(x, layer.mlp_norm, cfg.rms_norm_eps)
         x = x + _mlp_block(h, layer, ll, lora_scaling)
-    return _decode_head(x[:, -1:, :], model, lora, lora_scaling), kv_list
+    return (_decode_head(x[:, -1:, :], model, lora, lora_scaling, head),
+            kv_list)
 
 
 def _maybe_remat(fn, remat: bool, *args):
@@ -279,7 +317,7 @@ def quantize_prompt_kv(kv: torch.Tensor) -> dict:
     128-multiple with zero values and zero scales."""
     kv32 = kv.float()
     amax = kv32.abs().amax(dim=-1)
-    scale = torch.clamp(amax, min=1e-8) / 127.0
+    scale = exact_div(torch.clamp(amax, min=1e-8), 127.0)
     q = torch.round(kv32 / scale[..., None]).to(torch.int8)
     q = q.permute(0, 2, 1, 3)
     scale = scale.permute(0, 2, 1)
@@ -356,13 +394,14 @@ def _decode_layer(x, layer: LlamaLayer, ll, pk, pv, sk, sv, *, cfg,
 def decode_forward_unrolled(model: LlamaModel, embeds, prompt_kv: list,
                             prompt_mask, suffix_kv: list, step: int,
                             positions, lora=None, lora_scaling: float = 1.0,
-                            sp_used: Optional[int] = None):
+                            sp_used: Optional[int] = None,
+                            head: Optional[QuantLinear] = None):
     """One-token decode -> (logits [B, V] f32, suffix_kv).
 
     embeds [B, 1, D]; prompt_kv: per layer (pk, pv); prompt_mask [B, Sp];
     suffix_kv: per layer (sk, sv) [B, Nmax, Hkv, hd], written at ``step``
     in place (the new token attends to suffix slots 0..step); positions
-    [B], the new token's RoPE position."""
+    [B], the new token's RoPE position; ``head`` as for ``_decode_head``."""
     cfg = model.cfg
     if cfg.num_heads != cfg.num_kv_heads:
         raise NotImplementedError("grouped-query decode")
@@ -383,4 +422,4 @@ def decode_forward_unrolled(model: LlamaModel, embeds, prompt_kv: list,
         sk, sv = suffix_kv[i]
         x = _decode_layer(x, layer, tree_get(lora, "layers", i), pk, pv, sk,
                           sv, **kw)
-    return _decode_head(x, model, lora, lora_scaling), suffix_kv
+    return _decode_head(x, model, lora, lora_scaling, head), suffix_kv

@@ -27,6 +27,7 @@ from opadpo_torch.models import clip as clip_model
 from opadpo_torch.models import llama as llama_model
 from opadpo_torch.models import projector as projector_model
 from opadpo_torch.models.lora import LoraConfig, tree_get
+from opadpo_torch.ops import quant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +41,13 @@ class LlavaConfig:
     @staticmethod
     def llava_7b() -> "LlavaConfig":
         lm = llama_model.LlamaConfig.llava_7b()
+        vis = clip_model.ClipVisionConfig()
+        return LlavaConfig(lm, vis, projector_model.ProjectorConfig(
+            in_dim=vis.hidden_size, out_dim=lm.hidden_size))
+
+    @staticmethod
+    def llava_13b() -> "LlavaConfig":
+        lm = llama_model.LlamaConfig.llava_13b()
         vis = clip_model.ClipVisionConfig()
         return LlavaConfig(lm, vis, projector_model.ProjectorConfig(
             in_dim=vis.hidden_size, out_dim=lm.hidden_size))
@@ -78,6 +86,19 @@ def empty_model(cfg: LlavaConfig, device="cuda") -> Llava:
     return model.to_empty(device=dev).requires_grad_(False)
 
 
+def _init_(name: str, p: torch.Tensor, generator: torch.Generator) -> None:
+    """Fill parameter ``name`` in place: biases 0, norm scales 1, the rest
+    N(0, 0.02) drawn from ``generator`` in f32 and cast to p's dtype."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf == "bias":
+        p.zero_()
+    elif "norm" in name or ".ln" in name:
+        p.fill_(1.0)
+    else:
+        p.copy_(torch.randn(p.shape, generator=generator, device=p.device,
+                            dtype=torch.float32) * 0.02)
+
+
 @torch.no_grad()
 def init_params(cfg: LlavaConfig, generator: torch.Generator,
                 device="cuda") -> Llava:
@@ -87,15 +108,37 @@ def init_params(cfg: LlavaConfig, generator: torch.Generator,
     live on ``device``; weights are made on the device itself."""
     model = empty_model(cfg, device)
     for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        is_norm = "norm" in name or ".ln" in name
-        if leaf == "bias":
-            p.zero_()
-        elif is_norm:
-            p.fill_(1.0)
+        _init_(name, p, generator)
+    return model
+
+
+@torch.no_grad()
+def init_params_quantized(cfg: LlavaConfig, generator: torch.Generator,
+                          bits: int = 8, device="cuda",
+                          mode: quant.QuantMode = quant.QuantMode()) -> Llava:
+    """``quant.quantize_params(init_params(cfg, generator, device), bits)``
+    without the whole bf16 model ever existing: the parameters are drawn
+    in ``init_params``' order, one at a time, and each quantizable weight
+    is quantized as soon as it is drawn, so the codes are the same."""
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = Llava(cfg)
+    model.requires_grad_(False)
+    targets = {id(lin) for _, _, lin in quant.quantizable_linears(model)}
+    for name, p in list(model.named_parameters()):
+        owner_name, _, attr = name.rpartition(".")
+        owner = model.get_submodule(owner_name)
+        t = torch.empty(p.shape, dtype=p.dtype, device=dev)
+        _init_(name, t, generator)
+        if id(owner) in targets and attr == "weight":
+            parent_name, _, child = owner_name.rpartition(".")
+            qlin = quant.QuantLinear.from_weight(t, bits, mode=mode)
+            targets.add(id(qlin))
+            setattr(model.get_submodule(parent_name), child, qlin)
+        elif isinstance(owner, quant.QuantLinear):
+            owner.bias = t                # the bias follows its weight
         else:
-            p.copy_(torch.randn(p.shape, generator=generator,
-                                device=p.device, dtype=torch.float32) * 0.02)
+            setattr(owner, attr, torch.nn.Parameter(t, requires_grad=False))
     return model
 
 
@@ -184,10 +227,11 @@ def forward(model: Llava, input_ids: torch.Tensor, text_mask: torch.Tensor,
 def prefill_unrolled(model: Llava, input_ids: torch.Tensor,
                      text_mask: torch.Tensor, images: torch.Tensor,
                      lora=None, lora_scaling: float = 1.0,
-                     quantize_kv: bool = False) -> dict:
+                     quantize_kv: bool = False, head=None) -> dict:
     """Prompt pass -> dict(kv_list, last_logits [B, V] f32, key_mask
     [B, Sp], next_position [B]).  With ``quantize_kv`` the prompt KV comes
-    back as int8 head-major dicts (``llama.quantize_prompt_kv``)."""
+    back as int8 head-major dicts (``llama.quantize_prompt_kv``); ``head``
+    is a quantized decode head (``llama.quantize_head_for_decode``)."""
     image_feats = encode_images(model, images, lora, lora_scaling)
     text_embeds = llama_model.embed_tokens(model.llama, input_ids)
     embeds, key_mask = splice_sequence(
@@ -196,7 +240,7 @@ def prefill_unrolled(model: Llava, input_ids: torch.Tensor,
     positions = spliced_positions(key_mask)
     logits, kv_list = llama_model.forward_prefill_unrolled(
         model.llama, embeds, key_mask, positions,
-        lora=tree_get(lora, "llama"), lora_scaling=lora_scaling)
+        lora=tree_get(lora, "llama"), lora_scaling=lora_scaling, head=head)
     if quantize_kv:
         kv_list = llama_model.quantize_prompt_kv_list(kv_list)
     return {"kv_list": kv_list, "last_logits": logits, "key_mask": key_mask,
@@ -208,11 +252,11 @@ def decode_step_unrolled(model: Llava, token_ids: torch.Tensor,
                          suffix_list: list, step: int,
                          positions: torch.Tensor, lora=None,
                          lora_scaling: float = 1.0,
-                         sp_used: Optional[int] = None):
+                         sp_used: Optional[int] = None, head=None):
     """One sampled token [B] through the decoder -> (logits [B, V],
-    suffix_list)."""
+    suffix_list); ``head`` as for ``prefill_unrolled``."""
     embeds = llama_model.embed_tokens(model.llama, token_ids[:, None])
     return llama_model.decode_forward_unrolled(
         model.llama, embeds, prompt_kv_list, prompt_mask, suffix_list, step,
         positions, lora=tree_get(lora, "llama"), lora_scaling=lora_scaling,
-        sp_used=sp_used)
+        sp_used=sp_used, head=head)

@@ -1,4 +1,5 @@
-"""LoRA on plain (unquantized) weights: port of ``opadpo_tpu/models/lora.py``.
+"""LoRA over plain or quantized base weights: port of
+``opadpo_tpu/models/lora.py``.
 
 An adapter is a nested dict of ``{"a": [r, in], "b": [out, r]}`` entries
 mirroring the model's module names (per-layer entries in a ``"layers"``
@@ -9,6 +10,9 @@ differentiates the adapter's leaves (``make_trainable``), never the base.
 
 ``y = x W^T + (x A^T) B^T * (alpha / r)``, with the delta accumulated in f32
 and added to the base product in f32 before the cast back to x's dtype.
+The base may be a frozen int8 / int4 ``QuantLinear`` (the QLoRA
+configuration, ``ops/quant.py``): its product comes back in x's dtype and
+is widened the same way.
 """
 
 from __future__ import annotations
@@ -18,6 +22,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+from opadpo_torch.ops.quant import QuantLinear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,14 +103,18 @@ def lora_delta(x: torch.Tensor, entry: Optional[dict],
     return F.linear(xa.float(), entry["b"].float()) * scaling
 
 
-def lora_dense(x: torch.Tensor, weight: torch.Tensor,
-               entry: Optional[dict] = None,
+def lora_dense(x: torch.Tensor, weight, entry: Optional[dict] = None,
                scaling: float = 1.0) -> torch.Tensor:
     """Dense ``[.., in] -> [.., out]`` with an optional LoRA delta.
 
-    ``weight`` is ``[out, in]``.  The base product runs in x's dtype; with
-    an adapter it is widened to f32 for the sum."""
-    y = F.linear(x, weight)
+    ``weight`` is a ``[out, in]`` tensor, an ``nn.Linear`` (its weight; the
+    bias is the caller's) or a ``QuantLinear``.  The base product runs in
+    x's dtype; with an adapter it is widened to f32 for the sum."""
+    if isinstance(weight, QuantLinear):
+        y = weight(x)
+    else:
+        y = F.linear(x, weight.weight if isinstance(weight, nn.Linear)
+                     else weight)
     delta = lora_delta(x, entry, scaling)
     if delta is None:
         return y

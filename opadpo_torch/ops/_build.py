@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
     "opadpo_torch_kernels"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "heads_layout.cu",
-           "decode_attention.cu")
+           "decode_attention.cu", "quant_matmul.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,102 @@
+"""Model set-up for the pipeline entry points: port of
+``opadpo_tpu/pipeline/runtime.py`` (``llava_config_from_hf``,
+``setup_model``).
+
+One device, no mesh: multi-GPU set-up comes with ``torch.distributed``
+(ROADMAP Queue 1 item 11).  Loading checkpoint weights waits for the
+HF/PEFT loader (ROADMAP slice order, the module slice after slice 4); the
+random-weight branches (``tiny``, ``skip_loading_weights``), the QLoRA
+quantization and the w8a8 switches are here.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Optional, Tuple
+
+import torch
+
+from opadpo_torch.device import resolve_device
+from opadpo_torch.models import clip as clip_model
+from opadpo_torch.models import llama as llama_model
+from opadpo_torch.models import llava as llava_model
+from opadpo_torch.models import projector as projector_model
+from opadpo_torch.models.llava import Llava, LlavaConfig
+from opadpo_torch.ops import quant
+
+
+def llava_config_from_hf(model_dir: str) -> LlavaConfig:
+    """LlavaConfig from a HF checkpoint's ``config.json`` (only that file
+    is read)."""
+    with open(os.path.join(model_dir, "config.json")) as f:
+        hf = json.load(f)
+    heads = hf.get("num_attention_heads", 32)
+    lm = llama_model.LlamaConfig(
+        vocab_size=hf.get("vocab_size", 32000),
+        hidden_size=hf.get("hidden_size", 4096),
+        intermediate_size=hf.get("intermediate_size", 11008),
+        num_layers=hf.get("num_hidden_layers", 32),
+        num_heads=heads,
+        num_kv_heads=hf.get("num_key_value_heads", heads),
+        head_dim=hf.get("hidden_size", 4096) // heads,
+        max_position_embeddings=hf.get("max_position_embeddings", 4096),
+        rope_base=hf.get("rope_theta", 10000.0),
+        rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
+    )
+    vis = clip_model.ClipVisionConfig(
+        select_layer=hf.get("mm_vision_select_layer", -2))
+    proj = projector_model.ProjectorConfig(in_dim=vis.hidden_size,
+                                           out_dim=lm.hidden_size)
+    return LlavaConfig(lm, vis, proj)
+
+
+def setup_model(
+    model_dir: Optional[str] = None,
+    skip_loading_weights: bool = False,
+    tiny: bool = False,
+    seed: int = 42,
+    bits: int = 16,
+    act_bits: int = 16,
+    act_outlier_cols: int = 0,
+    act_bwd_int8: bool = False,
+    device: str = "cuda",
+) -> Tuple[LlavaConfig, Llava]:
+    """(cfg, model) on ``device``.  ``tiny``: the tiny random model;
+    ``skip_loading_weights`` (or no ``model_dir``): random weights at the
+    configuration of ``model_dir``'s ``config.json`` (LLaVA-1.5-7B without
+    one), drawn from ``seed``.  ``bits`` 8 / 4: the QLoRA base (int8 / int4
+    block linears; the full-size random branch draws it straight into
+    quantized form, and a model already quantized is not quantized again).
+    ``act_bits`` 8 (with ``act_outlier_cols`` and ``act_bwd_int8``): the
+    w8a8 mode of an int8 base."""
+    if bits not in (16, 8, 4):
+        raise ValueError(f"bits={bits} unsupported (16, 8 or 4)")
+    if act_bits not in (16, 8):
+        raise ValueError(f"act_bits={act_bits} unsupported (16 or 8)")
+    if act_bits == 8 and bits != 8:
+        raise ValueError("act_bits=8 requires bits=8")
+    mode = quant.QuantMode(act_bits, act_outlier_cols if act_bits == 8 else 0,
+                           act_bwd_int8 and act_bits == 8)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if tiny:
+        cfg = LlavaConfig.tiny()
+        model = llava_model.init_params(cfg, gen, dev)
+    elif skip_loading_weights or model_dir is None:
+        cfg = (llava_config_from_hf(model_dir) if model_dir
+               else LlavaConfig.llava_7b())
+        if bits in (8, 4):
+            model = llava_model.init_params_quantized(cfg, gen, bits, dev,
+                                                      mode)
+        else:
+            model = llava_model.init_params(cfg, gen, dev)
+    else:
+        raise NotImplementedError(
+            f"loading the checkpoint in {model_dir!r}: the HF/PEFT loader "
+            "comes with the module slice after slice 4 (ROADMAP, slice "
+            "order); pass skip_loading_weights=True for random weights")
+    if bits in (8, 4) and not quant.is_quantized(model):
+        quant.quantize_params(model, bits=bits, mode=mode)
+    quant.set_quant_mode(model, mode)
+    return cfg, model

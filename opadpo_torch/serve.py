@@ -87,7 +87,8 @@ class InferenceWorker:
                                chunk=decode_chunk, spec_k=spec_k)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(0)
-        threading.Thread(target=self._loop, daemon=True).start()
+        self.thread = threading.Thread(target=self._loop, daemon=True)
+        self.thread.start()
 
     def submit(self, request: Dict) -> Dict:
         done = threading.Event()
@@ -96,19 +97,31 @@ class InferenceWorker:
         done.wait()
         return slot["response"]
 
+    def close(self):
+        """Stop the device thread once the requests queued before this call
+        are answered; the worker then holds the model no longer."""
+        self.queue.put(None)
+        self.thread.join()
+
     def _loop(self):
         # inference mode is thread-local: this thread enters it itself
         with torch.inference_mode():
             while True:
-                slots = [self.queue.get()]
+                first = self.queue.get()
+                if first is None:
+                    return
+                slots = [first]
                 t0 = time.time()
                 while (len(slots) < self.max_batch
                        and time.time() - t0 < self.batch_window_s):
                     try:
-                        slots.append(
-                            self.queue.get(timeout=self.batch_window_s))
+                        slot = self.queue.get(timeout=self.batch_window_s)
                     except queue.Empty:
                         break
+                    if slot is None:             # close(): after this batch
+                        self.queue.put(None)
+                        break
+                    slots.append(slot)
                 try:
                     self._run_batch(slots)
                 except Exception as e:   # keep serving; report per request

@@ -1,10 +1,12 @@
 """Where the serving path's time goes: ``torch.profiler`` over one prefill
-and the 16 decode steps after it, on LLaVA-1.5-7B at full width (random
-bf16 weights from a seed), a batch of 8 left-padded prompts of 128 tokens
-with one image each, int8 prompt KV, greedy: the shapes of
-``chip_smoke.py``'s main path.
+and the 16 decode steps after it, on LLaVA-1.5-7B (or ``--model 13b``) at
+full width (random weights from a seed: bf16, or with ``--bits 8`` / ``4``
+an int8 / int4 base, and with ``--head-bits`` a quantized decode head), a
+batch of 8 left-padded prompts of 128 tokens with one image each, int8
+prompt KV, greedy: the shapes of ``chip_smoke.py``'s serving paths.
 
-    python -m opadpo_torch.tools.profile_serving [--json PATH]
+    python -m opadpo_torch.tools.profile_serving [--model 7b|13b]
+        [--bits 16|8|4] [--head-bits 16|8|4] [--json PATH]
 
 For each phase it prints the host time (ending in a device synchronise)
 with and without the profiler, the device's busy time (the union of the
@@ -31,7 +33,7 @@ from opadpo_torch.constants import IMAGE_TOKEN_INDEX
 from opadpo_torch.device import resolve_device
 from opadpo_torch.engine.sampler import decode_loop_unrolled
 from opadpo_torch.engine.sampling import SamplingConfig
-from opadpo_torch.models import llava
+from opadpo_torch.models import llama, llava
 
 BATCH = 8
 QLEN = 128
@@ -46,6 +48,8 @@ def kernel_group(name: str) -> str:
             return kernel + " (csrc)"
     if "decode_attn_int8_kernel" in n:
         return "decode_attention_int8 (csrc)"
+    if "quant_mm_kernel" in n or "splitk_reduce" in n:
+        return "quant_matmul (csrc)"
     if any(s in n for s in ("gemm", "gemv", "nvjet", "cutlass", "xmma",
                             "splitk")):
         return "matmul (cuBLAS)"
@@ -102,31 +106,49 @@ def make_inputs(cfg, batch: int, qlen: int, dev, seed: int = 0):
     return ids, mask, images
 
 
+def make_model(name: str, bits: int, dev, cuda: bool, seed: int = 0,
+               mode=None):
+    """(cfg, random model): LLaVA-1.5-7B or -13B on the GPU, the tiny one
+    on the CPU; bf16 weights, or drawn straight into an int8 / int4 base."""
+    cfg = ({"7b": llava.LlavaConfig.llava_7b,
+            "13b": llava.LlavaConfig.llava_13b}[name]() if cuda
+           else llava.LlavaConfig.tiny())
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if bits == 16:
+        return cfg, llava.init_params(cfg, gen, device=dev), gen
+    kw = {} if mode is None else {"mode": mode}
+    return cfg, llava.init_params_quantized(cfg, gen, bits, dev, **kw), gen
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda",
-                    help="cpu runs the tiny model instead of the 7B")
+                    help="cpu runs the tiny model instead of the 7B / 13B")
+    ap.add_argument("--model", choices=("7b", "13b"), default="7b")
+    ap.add_argument("--bits", type=int, choices=(16, 8, 4), default=16,
+                    help="the base's block linears: bf16, int8 or int4")
+    ap.add_argument("--head-bits", type=int, choices=(16, 8, 4), default=16,
+                    help="the decode head: bf16, int8 or int4")
     ap.add_argument("--json", help="also write the summary here")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    cfg = llava.LlavaConfig.llava_7b() if cuda else llava.LlavaConfig.tiny()
-    model = llava.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    cfg, model, _ = make_model(args.model, args.bits, dev, cuda)
+    head = llama.quantize_head_for_decode(model.llama, args.head_bits)
     ids, mask, images = make_inputs(cfg, BATCH, QLEN, dev)
     sampling = SamplingConfig(greedy=True, max_new_tokens=DECODE_STEPS + 1,
                               eos_token_id=-1)
 
     def prefill():
         return llava.prefill_unrolled(model, ids, mask, images,
-                                      quantize_kv=True)
+                                      quantize_kv=True, head=head)
 
     def decode(pf):
         return decode_loop_unrolled(
             model, pf["kv_list"], pf["key_mask"], pf["next_position"],
-            pf["last_logits"], None, sampling)
+            pf["last_logits"], None, sampling, head=head)
 
     def timed(fn, *a):
         t0 = time.perf_counter()
@@ -140,7 +162,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.splitlines()[0] if cuda else "cpu"
     result = {"card": card,
-              "model": "llava_7b" if cuda else "tiny",
+              "model": f"llava_{args.model}" if cuda else "tiny",
+              "bits": args.bits, "head_bits": args.head_bits,
               "batch": BATCH, "qlen": QLEN, "decode_steps": DECODE_STEPS}
     with torch.inference_mode():
         decode(timed(prefill)[0])                     # warm-up

@@ -1,11 +1,17 @@
 """Where the OPA-DPO training step's time goes: ``torch.profiler`` over one
-``rollout_score`` and one ``dpo_train_step`` on LLaVA-1.5-7B at full width
-(random bf16 weights and a random OPA-like adapter, LoRA r 256, from a
-seed), per-device batch 2 with K = 3 response types of 896 tokens after a
-128-token query: the shapes of ``chip_smoke.py``'s training phase, which
-builds its batch and adapters with ``make_batch`` and ``make_adapters``.
+``rollout_score`` and one ``dpo_train_step`` on LLaVA-1.5-7B (or
+``--model 13b``) at full width (random weights and a random OPA-like
+adapter from a seed), K = 3 response types of 896 tokens after a 128-token
+query: the shapes of ``chip_smoke.py``'s training phases, which build
+their batches and adapters with ``make_batch`` and ``make_adapters``.
+With bf16 weights it runs the reference recipe (per-device batch 2, LoRA
+r 256); with ``--bits 8`` the single-chip recipe
+(``configs/llava_dpo_singlechip.yaml``: an int8 base, w8a8 with the int8
+backward, LoRA r 64) and with ``--bits 4`` the int4 one
+(``llava_dpo_13b_singlechip.yaml``, LoRA r 64), both at batch 1.
 
-    python -m opadpo_torch.tools.profile_train [--json PATH]
+    python -m opadpo_torch.tools.profile_train [--model 7b|13b]
+        [--bits 16|8|4] [--json PATH]
 
 For each phase it prints the host time (ending in a device synchronise)
 with and without the profiler, the device's busy time and share, and the
@@ -31,13 +37,17 @@ from opadpo_torch.engine import dpo as dpo_engine
 from opadpo_torch.engine.train_state import AdamW, OptimizerConfig, TrainState
 from opadpo_torch.models import llava
 from opadpo_torch.models.lora import LoraConfig, make_trainable
-from opadpo_torch.tools.profile_serving import summarise
+from opadpo_torch.ops.quant import QuantMode
+from opadpo_torch.tools.profile_serving import make_model, summarise
 
 # the reference recipe (configs/llava_dpo.yaml, llava_training_base.yaml)
 RECIPE_LORA = LoraConfig(rank=256, alpha=512.0)
 RECIPE_OPT = OptimizerConfig(learning_rate=1e-6, lr_scheduler_type="cosine",
                              warmup_steps=5, total_steps=500,
                              max_grad_norm=1.0)
+# the single-chip recipes on a quantized base (llava_dpo_singlechip.yaml,
+# llava_dpo_13b_singlechip.yaml)
+SINGLE_CHIP_LORA = LoraConfig(rank=64, alpha=128.0)
 
 
 def make_batch(cfg: llava.LlavaConfig, dpo: dpo_engine.DpoConfig, batch: int,
@@ -94,24 +104,27 @@ def make_adapters(cfg: llava.LlavaConfig, lora_cfg: LoraConfig,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda",
-                    help="cpu runs the tiny model instead of the 7B")
+                    help="cpu runs the tiny model instead of the 7B / 13B")
+    ap.add_argument("--model", choices=("7b", "13b"), default="7b")
+    ap.add_argument("--bits", type=int, choices=(16, 8, 4), default=16,
+                    help="the base's block linears: bf16, int8 or int4")
     ap.add_argument("--json", help="also write the summary here")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    mode = QuantMode(act_bits=8, bwd_int8=True) if args.bits == 8 else None
+    cfg, model, gen = make_model(args.model, args.bits, dev, cuda, mode=mode)
+    b = 2 if args.bits == 16 else 1
     if cuda:
-        cfg, dpo, lcfg = llava.LlavaConfig.llava_7b(), \
-            dpo_engine.DpoConfig(), RECIPE_LORA
+        dpo = dpo_engine.DpoConfig()
+        lcfg = RECIPE_LORA if args.bits == 16 else SINGLE_CHIP_LORA
     else:
-        cfg = llava.LlavaConfig.tiny()
         dpo = dpo_engine.DpoConfig(response_len=8, query_len=6)
         lcfg = LoraConfig(rank=4, alpha=8.0)
-    model = llava.init_params(cfg, gen, device=dev)
     ref, policy = make_adapters(cfg, lcfg, gen)
-    batch = make_batch(cfg, dpo, 2, gen)
+    batch = make_batch(cfg, dpo, b, gen)
     opt = AdamW(RECIPE_OPT)
     state = TrainState.create(policy, opt.cfg)
 
@@ -132,8 +145,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.splitlines()[0] if cuda else "cpu"
-    result = {"card": card, "model": "llava_7b" if cuda else "tiny",
-              "batch": 2, "query_len": dpo.query_len,
+    result = {"card": card,
+              "model": f"llava_{args.model}" if cuda else "tiny",
+              "bits": args.bits, "batch": b, "query_len": dpo.query_len,
               "response_len": dpo.response_len, "lora_rank": lcfg.rank}
     full = {**batch, **rollout()}                       # warm-up
     step(full)

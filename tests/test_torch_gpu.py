@@ -15,6 +15,7 @@ import torch
 from opadpo_torch.ops import attention as t_attention
 from opadpo_torch.ops import decode_attention as t_decode
 from opadpo_torch.ops import heads_layout as t_heads
+from opadpo_torch.ops import quant as t_quant
 from opadpo_torch.ops.rope import rope_frequencies
 
 
@@ -117,3 +118,57 @@ def test_heads_layout_match_plain_on_gpu(rep, hd):
         ref = t_heads.gather_heads_plain(gr, cos, sin, pos, rope, rep)
         assert out.shape == (b, s, (h // rep) * hd)
         assert (out.float() - ref.float()).abs().max().item() <= 3e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [(1, 200, 256), (8, 4096, 4096),
+                                   (37, 300, 384), (577, 1024, 1024),
+                                   (20, 100, 72)])
+def test_quant_kernels_match_plain_on_gpu(m, n, k):
+    """The int8 matmul (#9, bf16 and f32 output), its transpose (#10) and
+    the int4 matmul (#11, K a multiple of 128) against their plain
+    versions: f32 output within 1e-5 of the largest entry (the same exact
+    products summed in another order, split-K included), bf16 output within
+    one bf16 step (2^-7) of it."""
+    g = _gen()
+    x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+    gr = torch.randn(m, n, generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn(n, k, generator=g, device="cuda") * 0.02
+    q, s = t_quant.quantize_weight(w)
+    cases = [(t_quant.quant_matmul_cuda(x, q, s, od),
+              t_quant.quant_matmul_plain(x, q, s, od))
+             for od in (torch.bfloat16, torch.float32)]
+    cases.append((t_quant.quant_matmul_t_cuda(gr, q, s),
+                  t_quant.quant_matmul_t_plain(gr, q, s)))
+    if k % 128 == 0:
+        q4, s4 = t_quant.quantize_weight_int4(w)
+        cases += [(t_quant.quant_matmul4_cuda(x, q4, s4, od),
+                   t_quant.quant_matmul4_plain(x, q4, s4, od))
+                  for od in (torch.bfloat16, torch.float32)]
+    for out, ref in cases:
+        assert out.dtype == ref.dtype and out.shape == ref.shape
+        err = (out.float() - ref.float()).abs().max().item()
+        top = ref.float().abs().max().item()
+        tol = 1e-5 if out.dtype == torch.float32 else 2.0 ** -7
+        assert err <= tol * top, (out.dtype, err, top)
+
+
+@pytest.mark.gpu
+def test_quantizers_give_the_cpu_codes_on_gpu():
+    """Weight codes and scales (int8 and int4) and the int8 prompt-KV cache
+    made on the GPU equal the CPU's bit for bit (the CPU's equal the JAX
+    package's): a division by a Python number would run as a product by
+    its reciprocal on the GPU and move some codes."""
+    from opadpo_torch.models import llama as t_llama
+
+    _gen()                                   # skips without a GPU
+    g = torch.Generator().manual_seed(3)     # the inputs are made on the CPU
+    w = (torch.randn(512, 256, generator=g) * 0.02).to(torch.bfloat16)
+    kv = torch.randn(2, 300, 4, 64, generator=g).to(torch.bfloat16)
+    for fn in (t_quant.quantize_weight, t_quant.quantize_weight_int4):
+        for c, gpu in zip(fn(w), fn(w.cuda())):
+            assert torch.equal(c, gpu.cpu()), fn.__name__
+    c, gpu = t_llama.quantize_prompt_kv(kv), t_llama.quantize_prompt_kv(
+        kv.cuda())
+    for key in ("q", "scale"):
+        assert torch.equal(c[key], gpu[key].cpu()), key

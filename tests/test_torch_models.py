@@ -172,14 +172,16 @@ def test_sampled_tokens_stay_in_support():
 
 def test_sampler_rejects_unported_modes():
     s = SamplingConfig(greedy=True)
-    for kw in (dict(kv_bits=4), dict(kv_bits=8, chunk=128), dict(spec_k=2),
-               dict(head_bits=8)):
+    for kw in (dict(kv_bits=4), dict(kv_bits=8, chunk=128), dict(spec_k=2)):
         with pytest.raises(NotImplementedError):
             Sampler(s, **kw)
+    with pytest.raises(ValueError, match="head_bits"):
+        Sampler(s, head_bits=5)
     import dataclasses
     with pytest.raises(NotImplementedError):
         t_llava.Llava(dataclasses.replace(TCFG32, visual_tokens=64))
-    with pytest.raises(NotImplementedError):
+    # the port quantizes block linears only; a quantized lm_head is refused
+    with pytest.raises(ValueError, match="quantized leaf"):
         bridge.llava_from_jax(
             {**to_np(PARAMS), "llama": {**to_np(PARAMS)["llama"],
                                         "lm_head": {"q": 0, "scale": 0}}},

@@ -116,6 +116,22 @@ def test_build_prompt_matches_jax():
         assert build_prompt(q, short) == jax_build(q, short)
 
 
+def test_worker_close_answers_queued_requests_then_stops():
+    """``close()`` lets the requests queued before it finish, then ends the
+    device thread, which releases the model."""
+    worker = InferenceWorker(MODEL, TCFG32, FakeTokenizer(), max_batch=2,
+                             max_new_tokens=2, batch_window_s=0.5,
+                             device="cpu")
+    slots = [{"request": {"prompt": p}, "done": threading.Event(),
+              "response": None} for p in ("a b", "c")]
+    for slot in slots:
+        worker.queue.put(slot)
+    worker.close()
+    assert not worker.thread.is_alive()
+    for slot in slots:
+        assert slot["done"].is_set() and "text" in slot["response"]
+
+
 def test_worker_refuses_weights_on_another_device():
     model = empty_model(TCFG32, "cpu").to("meta")
     with pytest.raises(ValueError, match="meta"):

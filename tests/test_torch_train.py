@@ -27,9 +27,11 @@ from opadpo_torch.engine import dpo as t_dpo
 from opadpo_torch.engine import train_state as t_ts
 from opadpo_torch.models import llama as t_llama
 from opadpo_torch.models import llava as t_llava
-from opadpo_torch.models.lora import make_trainable, named_leaves, tree_map
-from tests.torch_parity import JCFG32, jax_lora, jax_params, t, to_np, \
-    torch_model
+from opadpo_torch.models.lora import make_trainable
+from tests.torch_parity import (
+    JCFG32, assert_trees_close, dpo_batch, grads_as_jax, jax_llama_lora,
+    jax_params, t, to_np, torch_model,
+)
 
 PARAMS = jax_params()
 MODEL = torch_model(PARAMS)
@@ -37,44 +39,9 @@ SCALING = 2.0
 DPO = jax_dpo.DpoConfig(response_len=8, query_len=6, lora_scaling=SCALING)
 T_DPO = t_dpo.DpoConfig(response_len=8, query_len=6, lora_scaling=SCALING)
 
-
-def _llama_lora(seed):
-    """A non-zero adapter over the decoder and the lm_head (the DPO
-    stage's adapter has no vision part)."""
-    lora = jax_lora(seed)
-    return {"llama": lora["llama"]}
-
-
-J_REF, J_POL = _llama_lora(1), _llama_lora(2)
+J_REF, J_POL = jax_llama_lora(1), jax_llama_lora(2)
 T_REF = bridge.lora_from_jax(to_np(J_REF), device="cpu")
-
-
-def _batch(b=2, lq=6, r=8, seed=7):
-    """A numpy DPO batch: left-padded queries with one image token, three
-    response types with pad tails, scores and image relations."""
-    rng = np.random.default_rng(seed)
-    v = JCFG32.llama.vocab_size
-    queries = rng.integers(5, v, (b, lq)).astype(np.int32)
-    queries[:, 1] = IMAGE_TOKEN_INDEX
-    q_mask = np.ones((b, lq), np.int32)
-    q_mask[0, 0] = 0
-    sz = JCFG32.vision.image_size
-    out = {"queries": queries, "queries_attention_mask": q_mask,
-           "images": rng.normal(size=(b, sz, sz, 3)).astype(np.float32)}
-    for i, key in enumerate(t_dpo.RESPONSE_KEYS):
-        ids = rng.integers(5, v, (b, r)).astype(np.int32)
-        ids[:, r - 2 - i % 2:] = 0
-        out[key] = ids
-        out[key + "_attention_mask"] = (ids != 0).astype(np.int32)
-    scores = rng.uniform(1.0, 2.5, (b, r)).astype(np.float32)
-    scores *= out["AI_pseudo_response_attention_mask"]
-    out["AI_pseudo_response_scores"] = scores
-    out["original_generate_response_scores"] = scores[::-1].copy()
-    out["AI_pseudo_response_image_relations"] = scores * 0.5 + 0.5
-    return out
-
-
-BATCH = _batch()
+BATCH = dpo_batch()
 
 
 def _jnp(tree):
@@ -175,22 +142,6 @@ def test_rollout_score_matches_jax(jax_rollout, monkeypatch):
                                    atol=1e-5, err_msg=key)
 
 
-def _grads_as_jax(params, grads):
-    for (_, leaf), g in zip(named_leaves(params), grads):
-        leaf.grad = g
-    return bridge.lora_to_jax(tree_map(lambda x: x.grad, params))
-
-
-def _assert_trees_close(port, ref, rel=None, atol=None):
-    flat_p = jax.tree_util.tree_leaves_with_path(port)
-    flat_r = dict(jax.tree_util.tree_leaves_with_path(ref))
-    assert len(flat_p) == len(flat_r)
-    for path, p in flat_p:
-        r = np.asarray(flat_r[path])
-        tol = atol if atol is not None else rel * np.abs(r).max()
-        np.testing.assert_allclose(p, r, atol=tol, rtol=0, err_msg=str(path))
-
-
 def test_dpo_loss_and_stats_and_grads_match_jax(full_batch):
     """The loss, every stat, and the policy adapter's gradients (decoder
     and lm_head entries), on a model whose RoPE tables were first built
@@ -210,7 +161,7 @@ def test_dpo_loss_and_stats_and_grads_match_jax(full_batch):
     for key, ref in j_stats.items():
         np.testing.assert_allclose(stats[key].item(), float(ref), atol=1e-5,
                                    err_msg=key)
-    _assert_trees_close(_grads_as_jax(state.params, grads), j_grads,
+    assert_trees_close(grads_as_jax(state.params, grads), j_grads,
                         rel=1e-4)
 
 
@@ -232,7 +183,7 @@ def test_dpo_train_step_two_steps_match_jax(full_batch):
         j_state, j_stats = _J_STEP(j_state, PARAMS, jb, tx, JCFG32, DPO)
         state, stats = t_dpo.dpo_train_step(state, MODEL, tb, opt, T_DPO)
         ported = bridge.lora_to_jax(state.params)
-        _assert_trees_close(ported, to_np(j_state.params), atol=1e-6)
+        assert_trees_close(ported, to_np(j_state.params), atol=1e-6)
     for key in ("loss/total", "loss/grad_norm"):
         np.testing.assert_allclose(stats[key].item(), float(j_stats[key]),
                                    rtol=1e-4, err_msg=key)

@@ -67,6 +67,59 @@ def jax_lora(seed: int = 1, rank: int = 4) -> dict:
     return lora
 
 
+def jax_llama_lora(seed: int) -> dict:
+    """A non-zero adapter over the decoder and the lm_head (the DPO
+    stage's adapter has no vision part)."""
+    return {"llama": jax_lora(seed)["llama"]}
+
+
+def dpo_batch(b=2, lq=6, r=8, seed=7):
+    """A numpy DPO batch: left-padded queries with one image token, three
+    response types with pad tails, scores and image relations."""
+    rng = np.random.default_rng(seed)
+    v = JCFG32.llama.vocab_size
+    queries = rng.integers(5, v, (b, lq)).astype(np.int32)
+    queries[:, 1] = IMAGE_TOKEN_INDEX
+    q_mask = np.ones((b, lq), np.int32)
+    q_mask[0, 0] = 0
+    sz = JCFG32.vision.image_size
+    out = {"queries": queries, "queries_attention_mask": q_mask,
+           "images": rng.normal(size=(b, sz, sz, 3)).astype(np.float32)}
+    keys = ("standard_response", "original_generate_response",
+            "AI_pseudo_response")
+    for i, key in enumerate(keys):
+        ids = rng.integers(5, v, (b, r)).astype(np.int32)
+        ids[:, r - 2 - i % 2:] = 0
+        out[key] = ids
+        out[key + "_attention_mask"] = (ids != 0).astype(np.int32)
+    scores = rng.uniform(1.0, 2.5, (b, r)).astype(np.float32)
+    scores *= out["AI_pseudo_response_attention_mask"]
+    out["AI_pseudo_response_scores"] = scores
+    out["original_generate_response_scores"] = scores[::-1].copy()
+    out["AI_pseudo_response_image_relations"] = scores * 0.5 + 0.5
+    return out
+
+
+def grads_as_jax(params, grads):
+    """Gradients in ``named_leaves`` order -> the JAX adapter layout."""
+    from opadpo_torch.models.lora import named_leaves, tree_map
+    for (_, leaf), g in zip(named_leaves(params), grads):
+        leaf.grad = g
+    return bridge.lora_to_jax(tree_map(lambda x: x.grad, params))
+
+
+def assert_trees_close(port, ref, rel=None, atol=None):
+    """Every leaf of ``port`` against ``ref``: within ``atol``, or ``rel``
+    times the reference leaf's largest entry."""
+    flat_p = jax.tree_util.tree_leaves_with_path(port)
+    flat_r = dict(jax.tree_util.tree_leaves_with_path(ref))
+    assert len(flat_p) == len(flat_r)
+    for path, p in flat_p:
+        r = np.asarray(flat_r[path])
+        tol = atol if atol is not None else rel * np.abs(r).max()
+        np.testing.assert_allclose(p, r, atol=tol, rtol=0, err_msg=str(path))
+
+
 def inputs(b: int = 2, l: int = 10, seed: int = 4):
     """Left-padded prompts with one image token each, numpy."""
     rng = np.random.default_rng(seed)
