@@ -18,8 +18,11 @@ Phases, each fatal on failure:
   5. the head-layout kernels, scatter (#4, RoPE) and gather (#5, inverse
      RoPE), against their plain versions at [2, 703, 4096] and
      [6, 896, 4096];
-  6. the int8 decode-attention kernel (#6) against its plain version at
-     [8, 32, 768, 128], s_used 768 and 640;
+  6. the decode-attention kernels against their plain versions: int8 (#6)
+     at [8, 32, 768, 128], s_used 768 and 640; int4 (#7) over the packed
+     cache of an 896-token chunk-256 rollout ([8, 32, 768, 128] packed,
+     1536 positions) at s_used 768, 512 and 1536; multi-query (#8) at G 5
+     (s_used 768, 640), 2 and 8, and beside five launches of #6;
   7. the quantized matmuls against their plain versions: int8 (#9) at the
      7B decode (M 8), head (f32 out), prefix (M 703) and CLIP (M 577)
      shapes, its transpose (#10) at M 703, int4 (#11) at the 13B decode
@@ -27,21 +30,34 @@ Phases, each fatal on failure:
      dequantize-then-matmul at M 8, 703, 1024 and 1406;
   8. small-input references, the GPU (kernels) against the same weights on
      the CPU (plain), on the tiny LLaVA with a bf16, an int8 and an int4
-     base (and a decode head of that width): prefill and two int8-KV
-     decode steps, and one tiny OPA-DPO step (rollout, loss, LoRA
-     gradients, AdamW);
+     base (and a decode head of that width): prefill, two decode steps over
+     the int8 and over the int4 cache, a G = 3 verify group over the int8
+     cache, and one tiny OPA-DPO step (rollout, loss, LoRA gradients,
+     AdamW); then, in f32, greedy speculative decode (k 3, kv 16 and 8,
+     both advances) token-exact against plain greedy on the GPU, and
+     greedy int4 chunk-256 decode over 300 tokens (one fold) token-exact
+     against the CPU;
   9. the serving path: LLaVA-1.5-7B at full width (random bf16 weights
      from a seed) behind the HTTP server, 9 concurrent requests, greedy,
      int8 KV; the launch counters must show that every prefill and decode
      step went through the kernels;
-  10. the training path, on the same 7B weights: ``rollout_score`` once,
+  10. path A, the rollout recipe's decode served on the same weights
+     (``configs/llava_online_generation.yaml``: int4 KV and head, chunk
+     256, 896 tokens, batch 8, temperature 1, top-k 30, top-p 0.95): 8
+     requests, three folds, chunks reading to 768 ... 1536 positions, #7
+     once per layer per decode forward, #11 per prefill and forward;
+  11. path B, speculative serving (k 4, int8 KV, greedy, 64 tokens): the 9
+     requests with the per-row advance, then one alone with the shared
+     one; #8 once per layer per verify forward, each row's tokens equal to
+     1 + its advances, agreement with step 9's answers reported;
+  12. the training path, on the same 7B weights: ``rollout_score`` once,
      then 2 ``dpo_train_step``s at the reference recipe (per-device batch
      2, K = 3 responses of 896 tokens after a 128-token query, LoRA r 256,
      CoPO random, AncPO, AdamW lr 1e-6 with 5 warmup steps, clip 1.0);
      every loss and stat finite, the adapter moved by the last step, and
      the launch counters of kernels #1-#5 equal to the counts derived from
      the configuration;
-  11. the quantized paths: the same 7B model quantized to int8 in place
+  13. the quantized paths: the same 7B model quantized to int8 in place
      serves the 9 requests with an int8 decode head, then trains at the
      single-chip recipe (``configs/llava_dpo_singlechip.yaml``: w8a8 with
      the int8 backward, LoRA r 64 / alpha 128) cut to per-device batch 1:
@@ -51,7 +67,7 @@ Phases, each fatal on failure:
      (``llava_dpo_13b_singlechip.yaml``, batch 1, r 64) serves 3 requests
      one at a time with an int4 head and trains; each run's counters of
      #1, #6 and #9-#11 equal to the counts derived from its batches;
-  12. one JSON line of the kernels' numbers, the card line, and last
+  14. one JSON line of the 11 kernels' numbers, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA GPU and the repository around it: anywhere else it exits
@@ -357,53 +373,105 @@ def phase_heads(g, flush):
             "response": _heads_case(6, 896, g, flush)}
 
 
+def _decode_bytes(b, h, su, hd, gq, packed):
+    """Bytes a decode-attention call must move: K and V (int8, or half for
+    packed int4), both scales and the bias to ``su``, q in bf16, out and
+    (m, l) in f32."""
+    kv = 2 * b * h * su * hd // (2 if packed else 1)
+    return (kv + 2 * b * h * su * 4 + b * su * 4 + b * h * gq * hd * 2
+            + b * h * gq * hd * 4 + 2 * b * h * gq * 4)
+
+
+def _decode_case(kernel, plain, args, su, gq, packed, flush, label):
+    """One decode kernel call against its plain version (out, m, l within
+    1e-4 of each one's largest entry), its time, the plain version's and
+    the bound."""
+    import torch
+
+    out, ref = kernel(*args, su), plain(*args, su)
+    torch.cuda.synchronize()
+    errs = [(o - r).abs().max().item() for o, r in zip(out, ref)]
+    scale = [max(r.abs().max().item(), 1.0) for r in ref]
+    for name, e, sc in zip(("out", "m", "l"), errs, scale):
+        check(e <= 1e-4 * sc, f"{label} {name} error {e} > 1e-4 x {sc} at "
+              f"s_used={su}, G={gq}")
+    b, h, _, hd = args[1].shape
+    bound_ms, bound_by = _bound(_decode_bytes(b, h, su, hd, gq, packed),
+                                4 * b * h * gq * su * hd)
+    res = {"kernel": label, "shape": list(args[1].shape), "s_used": su,
+           "G": gq, "err_out": errs[0], "err_m": errs[1], "err_l": errs[2],
+           "ms": time_ms(lambda: kernel(*args, su), flush),
+           "plain_ms": time_ms(lambda: plain(*args, su), flush),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bytes": _decode_bytes(b, h, su, hd, gq, packed)}
+    log(f"[decode] {json.dumps(res)}")
+    return res
+
+
 def phase_decode(g, flush):
+    """The int8 decode kernel (#6) at [8, 32, 768, 128], s_used 768 and 640
+    (the 7B serving step); the int4 one (#7) over the packed cache of an
+    896-token, chunk-256 rollout ([8, 32, 768, 128] packed = 1536
+    positions) at s_used 768 (the prompt), 512 and 1536 (the last chunk);
+    the multi-query one (#8) over the int8 cache at G = 5 (k = 4) with
+    s_used 768 and 640, and at G = 2 and 8; and #8 at G = 5 beside five
+    launches of #6 on the same queries."""
     import torch
 
     from opadpo_torch.ops import decode_attention as da
 
     dev = "cuda"
-    b, h, sp, hd = 8, 32, 768, 128
-    q = torch.randn(b, h, hd, generator=g, device=dev).to(torch.bfloat16)
-    pk, pv = (torch.randint(-127, 128, (b, h, sp, hd), generator=g,
-                            device=dev, dtype=torch.int8) for _ in range(2))
-    ks, vs = (torch.rand(b, h, sp, generator=g, device=dev) * 0.02
-              for _ in range(2))
-    bias = torch.zeros(b, sp, device=dev)
-    for i in range(b):
-        bias[i, :13 * i] = NEG_INF           # left padding
-    bias[:, 703:] = NEG_INF                  # quantizer padding...
-    ks[:, :, 703:] = 0.0                     # ...with zero scales
-    vs[:, :, 703:] = 0.0
+    b, h, hd = 8, 32, 128
     sm = hd ** -0.5
-    results = []
-    for su in (768, 640):
-        out = da.decode_attention_cuda(q, pk, ks, pv, vs, bias, sm, su)
-        ref = da.decode_attention_prompt_plain(q, pk, ks, pv, vs, bias, sm,
-                                               su)
-        torch.cuda.synchronize()
-        errs = [(o - r).abs().max().item() for o, r in zip(out, ref)]
-        scale = [max(r.abs().max().item(), 1.0) for r in ref]
-        for name, e, sc in zip(("out", "m", "l"), errs, scale):
-            check(e <= 1e-4 * sc,
-                  f"decode {name} error {e} > 1e-4 x {sc} at s_used={su}")
-        ms = time_ms(lambda: da.decode_attention_cuda(q, pk, ks, pv, vs,
-                                                      bias, sm, su), flush)
-        plain_ms = time_ms(lambda: da.decode_attention_prompt_plain(
-            q, pk, ks, pv, vs, bias, sm, su), flush)
-        nbytes = (2 * b * h * su * hd + 2 * b * h * su * 4 + b * su * 4
-                  + b * h * hd * 2 + b * h * hd * 4 + 2 * b * h * 4)
-        flops = 4 * b * h * su * hd
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / BF16_FLOPS * 1e3
-        res = {"shape": [b, h, sp, hd], "s_used": su, "err_out": errs[0],
-               "err_m": errs[1], "err_l": errs[2], "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "bytes": nbytes}
-        log(f"[decode] {json.dumps(res)}")
-        results.append(res)
-    return results
+
+    def scales_and_bias(sp, filled):
+        ks, vs = (torch.rand(b, h, sp, generator=g, device=dev) * 0.02
+                  for _ in range(2))
+        bias = torch.zeros(b, sp, device=dev)
+        for i in range(b):
+            bias[i, :13 * i] = NEG_INF       # left padding
+        bias[:, filled:] = NEG_INF           # padding and unfilled tail...
+        ks[:, :, filled:] = 0.0              # ...with zero scales
+        vs[:, :, filled:] = 0.0
+        return ks, vs, bias
+
+    q = torch.randn(b, h, 8, hd, generator=g, device=dev).to(torch.bfloat16)
+    q1 = q[:, :, 0].contiguous()        # one query: no copy in the timing
+    ks, vs, bias = scales_and_bias(1536, 1500)
+    pk4, pv4 = (torch.randint(-128, 128, (b, h, 768, hd), generator=g,
+                              device=dev, dtype=torch.int8) for _ in range(2))
+    int4 = [_decode_case(da.decode_attention4_cuda,
+                         da.decode_attention_prompt4_plain,
+                         (q1, pk4, ks, pv4, vs, bias, sm), su, 1,
+                         True, flush, "decode_attention_int4")
+            for su in (768, 512, 1536)]
+    del pk4, pv4
+    ks, vs, bias = scales_and_bias(768, 703)
+    pk, pv = (torch.randint(-127, 128, (b, h, 768, hd), generator=g,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    int8 = [_decode_case(da.decode_attention_cuda,
+                         da.decode_attention_prompt_plain,
+                         (q1, pk, ks, pv, vs, bias, sm), su, 1,
+                         False, flush, "decode_attention_int8")
+            for su in (768, 640)]
+    multi = [_decode_case(da.decode_attention_multi_cuda,
+                          da.decode_attention_prompt_multi_plain,
+                          (q[:, :, :gq].contiguous(), pk, ks, pv, vs, bias,
+                           sm), su, gq, False, flush,
+                          "decode_attention_multi")
+             for gq, su in ((5, 768), (5, 640), (2, 768), (8, 768))]
+    q5 = [q[:, :, i].contiguous() for i in range(5)]
+    ms6 = time_ms(lambda: da.decode_attention_cuda(
+        q5[0], pk, ks, pv, vs, bias, sm, 768), flush)
+    ms6x5 = time_ms(lambda: [da.decode_attention_cuda(
+        qi, pk, ks, pv, vs, bias, sm, 768) for qi in q5], flush)
+    versus = {"multi_g5_ms": multi[0]["ms"], "int8_one_ms": ms6,
+              "int8_five_ms": ms6x5,
+              "multi_over_one": multi[0]["ms"] / ms6,
+              "multi_over_five": multi[0]["ms"] / ms6x5}
+    log(f"[decode] #8 at G 5 beside #6: {json.dumps(versus)}")
+    return {"int8": int8, "int4": int4, "multi": multi,
+            "versus_int8": versus}
 
 
 def _library_int8(x, q, scale, out_dtype, deq):
@@ -538,10 +606,11 @@ def _tiny_pair(bits, seed):
 
 
 def phase_reference(bits=16):
-    """Tiny LLaVA in bf16: prefill and two int8-KV decode steps through the
-    kernels on the GPU against the plain path on the CPU, same weights;
-    with ``bits`` 8 / 4 on a quantized base and a quantized decode head of
-    the same width."""
+    """Tiny LLaVA in bf16: prefill, two decode steps over the int8 cache
+    (#6), two over the int4 cache (#7) and one speculative verify group of
+    G = 3 over the int8 cache (#8) through the kernels on the GPU against
+    the plain path on the CPU, same weights; with ``bits`` 8 / 4 on a
+    quantized base and a quantized decode head of the same width."""
     import torch
 
     from opadpo_torch.constants import IMAGE_TOKEN_INDEX
@@ -553,39 +622,132 @@ def phase_reference(bits=16):
     mask = torch.ones_like(ids)
     mask[1, :40] = 0
     images = torch.randn(4, 28, 28, 3, generator=g)
+    verify = torch.randint(5, cfg.llama.vocab_size, (4, 3), generator=g)
     outs = []
     with torch.inference_mode():
         for model, dev in ((gpu_model, "cuda"), (cpu_model, "cpu")):
             head = llama.quantize_head_for_decode(model.llama, bits)
-            pf = llava.prefill_unrolled(model, ids.to(dev), mask.to(dev),
-                                        images.to(dev), quantize_kv=True,
-                                        head=head)
-            n = cfg.llama.num_layers
-            shape = (4, 2, cfg.llama.num_kv_heads, cfg.llama.head_dim)
-            sfx = [(torch.zeros(shape, dtype=cfg.llama.dtype, device=dev),
-                    torch.zeros(shape, dtype=cfg.llama.dtype, device=dev))
-                   for _ in range(n)]
-            tok = torch.argmax(pf["last_logits"], dim=-1)
-            logits = []
-            for step in range(2):
-                lg, sfx = llava.decode_step_unrolled(
-                    model, tok, pf["kv_list"], pf["key_mask"], sfx, step,
-                    pf["next_position"] + step, head=head)
-                logits.append(lg.float().cpu())
-                tok = torch.argmax(lg, dim=-1)
-            outs.append((pf["last_logits"].float().cpu(), torch.cat(logits)))
-    (g_pf, g_dec), (c_pf, c_dec) = outs
-    check(torch.isfinite(g_pf).all() and torch.isfinite(g_dec).all(),
-          "reference logits not finite")
-    e_pf = (g_pf - c_pf).abs().max().item()
-    e_dec = (g_dec - c_dec).abs().max().item()
-    tol_pf = 0.05 * c_pf.abs().max().item()
-    tol_dec = 0.05 * c_dec.abs().max().item()
-    log(f"[reference] tiny bf16 bits {bits} GPU vs CPU: prefill logits err "
-        f"{e_pf:.3e} (tol {tol_pf:.3e}), decode logits err {e_dec:.3e} "
-        f"(tol {tol_dec:.3e})")
-    check(e_pf <= tol_pf, "prefill logits disagree with the CPU reference")
-    check(e_dec <= tol_dec, "decode logits disagree with the CPU reference")
+            got = {}
+            for kv_bits in (8, 4):
+                pf = llava.prefill_unrolled(
+                    model, ids.to(dev), mask.to(dev), images.to(dev),
+                    quantize_kv=True, kv_bits=kv_bits, head=head)
+                n = cfg.llama.num_layers
+                shape = (4, 3, cfg.llama.num_kv_heads, cfg.llama.head_dim)
+                sfx = [(torch.zeros(shape, dtype=cfg.llama.dtype, device=dev),
+                        torch.zeros(shape, dtype=cfg.llama.dtype, device=dev))
+                       for _ in range(n)]
+                tok = torch.argmax(pf["last_logits"], dim=-1)
+                logits = []
+                for step in range(2):
+                    lg, sfx = llava.decode_step_unrolled(
+                        model, tok, pf["kv_list"], pf["key_mask"], sfx, step,
+                        pf["next_position"] + step, head=head)
+                    logits.append(lg.float().cpu())
+                    tok = torch.argmax(lg, dim=-1)
+                got[f"prefill kv{kv_bits}"] = pf["last_logits"].float().cpu()
+                got[f"decode kv{kv_bits}"] = torch.cat(logits)
+                if kv_bits == 8:
+                    lg, _ = llava.decode_step_multi(
+                        model, verify.to(dev), pf["kv_list"],
+                        pf["key_mask"], [tuple(x.zero_() for x in p)
+                                         for p in sfx], 0,
+                        pf["next_position"], head=head)
+                    got["verify G3 kv8"] = lg.float().cpu()
+            outs.append(got)
+    gpu, cpu = outs
+    errs = {}
+    for key, ref in cpu.items():
+        check(torch.isfinite(gpu[key]).all(), f"reference {key} not finite")
+        e = (gpu[key] - ref).abs().max().item()
+        tol = 0.05 * ref.abs().max().item()
+        errs[key] = (e, tol)
+        check(e <= tol, f"{key} logits disagree with the CPU reference: "
+              f"{e} > {tol}")
+    log(f"[reference] tiny bf16 bits {bits} GPU vs CPU, logits max err "
+        "(tol): " + ", ".join(f"{k} {e:.3e} ({t:.3e})"
+                              for k, (e, t) in errs.items()))
+
+
+def _tiny_f32(seed):
+    """The tiny LLaVA in f32 on the CPU and the same weights on the GPU,
+    with a batch of 2 prompts."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from opadpo_torch.constants import IMAGE_TOKEN_INDEX
+    from opadpo_torch.models import llava
+
+    tiny = llava.LlavaConfig.tiny()
+    cfg = llava.LlavaConfig(*(dataclasses.replace(c, dtype=torch.float32)
+                              for c in (tiny.llama, tiny.vision,
+                                        tiny.projector)))
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cpu_model = llava.init_params(cfg, g, device="cpu")
+    ids = torch.randint(5, cfg.llama.vocab_size, (2, 10), generator=g)
+    ids[:, 2] = IMAGE_TOKEN_INDEX
+    mask = torch.ones_like(ids)
+    mask[1, 0] = 0
+    images = torch.randn(2, 28, 28, 3, generator=g)
+    return cpu_model, copy.deepcopy(cpu_model).to("cuda"), (ids, mask, images)
+
+
+def _to(tree, dev):
+    """A copy of a prefill result (tensors, lists, tuples, dicts) on dev."""
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, dev) for v in tree)
+    return tree.to(dev, copy=True)
+
+
+def phase_tiny_f32_decode():
+    """Token-exact checks on the tiny LLaVA in f32, greedy.  The flash
+    kernel takes bf16 only, so each prompt pass runs on the CPU
+    (``Sampler.prefill``) and the decode (``Sampler.decode``) runs from a
+    copy of its result on the GPU:
+
+    - ``Sampler(spec_k=3)`` at kv 16 and kv 8 (#8), both advances, equals
+      plain greedy (kv 8: #6) on the GPU;
+    - ``Sampler(kv_bits=4, chunk=256)`` over 300 tokens (one fold; #7)
+      equals the same decode on the CPU."""
+    import torch
+
+    from opadpo_torch.engine.sampler import Sampler
+    from opadpo_torch.engine.sampling import SamplingConfig
+
+    cpu_model, gpu_model, (ids, mask, images) = _tiny_f32(5)
+    res = {}
+    with torch.inference_mode():
+        sampling = SamplingConfig(greedy=True, max_new_tokens=40,
+                                  eos_token_id=-1)
+        for kv_bits in (16, 8):
+            plain = Sampler(sampling, kv_bits=kv_bits)
+            pf = plain.prefill(cpu_model, ids, mask, images)
+            want, _ = plain.decode(gpu_model, _to(pf, "cuda"))
+            for advance in ("shared", "per_row"):
+                spec = Sampler(sampling, kv_bits=kv_bits, spec_k=3,
+                               spec_advance=advance)
+                got, info = spec.decode(gpu_model, _to(pf, "cuda"))
+                check(torch.equal(got, want), f"spec kv{kv_bits} {advance} "
+                      "greedy differs from plain greedy on the GPU")
+                res[f"spec kv{kv_bits} {advance}"] = {
+                    k: info[k] for k in ("spec_groups", "accepted_drafts")}
+        chunked = Sampler(SamplingConfig(greedy=True, max_new_tokens=300,
+                                         eos_token_id=-1),
+                          kv_bits=4, chunk=256)
+        pf = chunked.prefill(cpu_model, ids, mask, images)
+        want, info_c = chunked.decode(cpu_model, _to(pf, "cpu"))
+        got, info_g = chunked.decode(gpu_model, _to(pf, "cuda"))
+        check(info_g["folds"] == 1 and info_g["sp_used"] == [256, 512],
+              f"kv4 chunked decode: {info_g}")
+        check(torch.equal(got.cpu(), want), "kv4 chunk-256 greedy on the "
+              "GPU differs from the CPU")
+        res["kv4 chunk256 300 tokens"] = info_g
+    log(f"[reference] tiny f32 token-exact: {json.dumps(res)}")
+    return res
 
 
 def _rel(a, b) -> float:
@@ -676,10 +838,11 @@ def _post(port, payload):
         return json.loads(r.read())
 
 
-def _serve(model, cfg, reqs, **worker_kw):
-    """Serve ``reqs`` concurrently over HTTP, after one warm-up request,
-    with every kernel counter set to 0 just before them -> (responses,
-    ``Sampler.stats`` of their batches, the counters just after, wall s)."""
+def _serve(model, cfg, reqs, warm=True, **worker_kw):
+    """Serve ``reqs`` concurrently over HTTP, after one warm-up request
+    (unless not ``warm``), with every kernel counter set to 0 just before
+    them -> (responses, ``Sampler.stats`` of their batches, the counters
+    just after, wall s)."""
     from http.server import ThreadingHTTPServer
 
     from opadpo_torch.serve import InferenceWorker, make_handler
@@ -694,8 +857,9 @@ def _serve(model, cfg, reqs, **worker_kw):
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
                                     timeout=60) as r:
             check(json.loads(r.read()).get("status") == "ok", "healthz")
-        warm = _post(port, {"prompt": "warm up", "max_new_tokens": 2})
-        check("error" not in warm, f"warm-up request failed: {warm}")
+        if warm:
+            resp = _post(port, {"prompt": "warm up", "max_new_tokens": 2})
+            check("error" not in resp, f"warm-up request failed: {resp}")
         worker.sampler.stats.clear()
         _reset(counters)
 
@@ -724,11 +888,15 @@ def _serve(model, cfg, reqs, **worker_kw):
 
 
 def _serve_metrics(stats, wall, n_reqs):
+    """Prefill ms per batch, decode ms per forward (a verify group with
+    speculative decode), generated tokens per second of busy time (every
+    batch row's tokens)."""
     n_prefill = len(stats)
     n_steps = sum(s["decode_steps"] for s in stats)
     check(n_prefill >= 1 and n_steps >= 1, "no batch ran")
     busy = sum(s["prefill_s"] + s["decode_s"] for s in stats)
-    gen_tokens = sum(s["batch_rows"] * (s["decode_steps"] + 1)
+    gen_tokens = sum(sum(s["row_tokens"]) if "row_tokens" in s
+                     else s["batch_rows"] * (s["decode_steps"] + 1)
                      for s in stats)
     return {"prefill_ms": 1e3 * sum(s["prefill_s"] for s in stats)
             / n_prefill,
@@ -738,18 +906,27 @@ def _serve_metrics(stats, wall, n_reqs):
             "wall_s": wall, "batches": n_prefill, "decode_steps": n_steps}
 
 
-def _check_attention_launches(cfg, stats, launches):
+DECODE_KERNELS = ("decode_attention_int8", "decode_attention_int4",
+                  "decode_attention_multi")
+
+
+def _check_attention_launches(cfg, stats, launches,
+                              decode="decode_attention_int8"):
     """Flash forward once per CLIP and decoder layer per prefill; the
-    decode kernel once per decoder layer per decode step (int8 KV)."""
+    ``decode`` kernel (#6 over int8 KV, #7 over int4, #8 for verify
+    groups) once per decoder layer per decode forward, the other two
+    never."""
     n_prefill = len(stats)
     n_steps = sum(s["decode_steps"] for s in stats)
     per_prefill = cfg.vision.num_active_layers + cfg.llama.num_layers
     check(launches["flash_fwd"] == per_prefill * n_prefill,
           f"flash kernel launches {launches['flash_fwd']} do not match "
           f"{per_prefill} x {n_prefill} prefills")
-    check(launches["decode_attention_int8"] == cfg.llama.num_layers * n_steps,
-          f"decode kernel launches {launches['decode_attention_int8']} do "
-          f"not match {cfg.llama.num_layers} x {n_steps} decode steps")
+    for key in DECODE_KERNELS:
+        want = cfg.llama.num_layers * n_steps if key == decode else 0
+        check(launches[key] == want,
+              f"{key} launches {launches[key]} do not match {want} "
+              f"({cfg.llama.num_layers} x {n_steps} decode forwards)")
 
 
 def phase_main_path(card):
@@ -812,7 +989,116 @@ def phase_main_path(card):
     kq = pf["kv_list"][0][0]["q"]
     check(tuple(kq.shape) == (8, 32, 768, 128) and kq.dtype == torch.int8,
           f"int8 prompt cache shape {tuple(kq.shape)}")
-    return main, model
+    return main, model, [r["text"] for r in results]
+
+
+ROLLOUT_TOKENS = 896                # configs/llava_online_generation.yaml
+ROLLOUT_CHUNK = 256
+
+
+def phase_rollout_decode(model, card):
+    """Path A, the rollout recipe's decode served
+    (``configs/llava_online_generation.yaml``: int4 prompt KV, int4 head,
+    chunk 256, 896 new tokens at batch 8, temperature 1.0, top-k 30,
+    top-p 0.95): 8 concurrent requests, one batch.  Prompts of qlen 128
+    give 703 positions, an int4 cache preallocated at 768 + 3 x 256 = 1536,
+    four chunks reading to 768, 1024, 1280 and 1536, three folds (fewer if
+    every row ends early: derived from the decode forwards).  #7 must run
+    once per layer per decode forward, #6 and #8 never, #11 (the int4
+    head) once per prefill and per decode forward."""
+    import torch
+
+    cfg = model.cfg
+    prompts = [f"Describe region {i} of the image and what it shows."
+               for i in range(8)]
+    torch.cuda.reset_peak_memory_stats()
+    results, stats, launches, wall = _serve(
+        model, cfg, [{"prompt": p} for p in prompts], warm=False,
+        max_batch=8, max_new_tokens=ROLLOUT_TOKENS, kv_bits=4,
+        decode_chunk=ROLLOUT_CHUNK, head_bits=4, temperature=1.0, top_k=30,
+        top_p=0.95, batch_window_s=0.5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(r["text"] for r in results), "an empty answer")
+    positions = sorted({s["prompt_positions"] for s in stats})
+    want_pos = cfg.num_patches + 128 - 1          # qlen 128
+    check(positions == [want_pos], f"prompt positions {positions}")
+    _check_attention_launches(cfg, stats, launches, "decode_attention_int4")
+    want = expected_quant_serving(model, stats, 4)
+    check(launches["quant_matmul4"] == want["quant_matmul4"],
+          f"int4 head launches {launches['quant_matmul4']} != {want}")
+    n_chunks = -(-ROLLOUT_TOKENS // ROLLOUT_CHUNK)
+    sp_pad0 = -(-want_pos // 256) * 256
+    for s in stats:
+        folds = min(s["decode_steps"] // ROLLOUT_CHUNK, n_chunks - 1)
+        marks = [sp_pad0 + ROLLOUT_CHUNK * i for i in range(folds + 1)]
+        check(s["folds"] == folds and s["sp_used"] == marks,
+              f"folds {s['folds']} and watermarks {s['sp_used']}: derived "
+              f"{folds} and {marks} from {s['decode_steps']} decode "
+              "forwards")
+    res = {**_serve_metrics(stats, wall, len(prompts)),
+           "folds": [s["folds"] for s in stats],
+           "sp_used": [s["sp_used"] for s in stats],
+           "launches": launches, "peak_gb": peak_gb, "card": card}
+    log(f"[rollout-decode] {len(stats)} batch(es), decode forwards "
+        f"{[s['decode_steps'] for s in stats]}, folds {res['folds']}, "
+        f"watermarks {res['sp_used']}; decode {res['decode_ms_per_step']:.2f}"
+        f" ms/step, {res['generated_tok_per_s']:.1f} generated tok/s, peak "
+        f"{peak_gb:.2f} GB; card: {card}")
+    log(f"[rollout-decode] {json.dumps(res)}")
+    return res
+
+
+def _leading_agreement(a: str, b: str) -> int:
+    n = 0
+    for x, y in zip(a.split(), b.split()):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def phase_spec_serve(model, card, plain_answers):
+    """Path B, speculative serving: k = 4 ngram drafts verified per group
+    (G = 5) over the int8 cache, greedy, 64 new tokens, per-row advance at
+    batch 8 on ``phase_main_path``'s 9 requests, then one request alone
+    with the shared advance.  #8 must run once per layer per verify
+    forward, #6 and #7 never; each row's tokens equal 1 + the sum of its
+    per-group advances.  How many leading tokens agree with the plain
+    greedy answers is reported, not required: the verify forward's GEMMs
+    have 5x the rows of a plain step's, so bf16 rounding may part them."""
+    cfg = model.cfg
+    prompts = [f"Describe object {i} in the image in detail."
+               for i in range(8)]
+    reqs = [{"prompt": p} for p in prompts]
+    reqs.append({"prompt": prompts[0], "max_new_tokens": 8})
+    runs = {}
+    for advance, rq in (("per_row", reqs), ("shared", reqs[:1])):
+        results, stats, launches, wall = _serve(
+            model, cfg, rq, max_batch=8, max_new_tokens=64, kv_bits=8,
+            spec_k=4, spec_advance=advance, batch_window_s=0.5)
+        check(all(r["text"] for r in results), "an empty answer")
+        _check_attention_launches(cfg, stats, launches,
+                                  "decode_attention_multi")
+        for s in stats:
+            # the shared advance may run past the budget; the excess is cut
+            sums = [min(64, 1 + a) for a in s["row_advances"]]
+            check(s["row_tokens"] == sums, f"tokens per row "
+                  f"{s['row_tokens']} != 1 + advances {sums}")
+        groups = sum(s["spec_groups"] for s in stats)
+        runs[advance] = {
+            **_serve_metrics(stats, wall, len(rq)),
+            "verify_groups": groups,
+            "accepted_drafts_per_group":
+                sum(s["accepted_drafts"] for s in stats) / groups,
+            "ms_per_verify_group":
+                1e3 * sum(s["decode_s"] for s in stats) / groups,
+            "leading_tokens_agreeing_with_plain": [
+                _leading_agreement(r["text"], a)
+                for r, a in zip(results, plain_answers)],
+            "launches_multi": launches["decode_attention_multi"],
+            "card": card}
+        log(f"[spec-serve] {advance}: {json.dumps(runs[advance])}")
+    return runs
 
 
 def phase_quant_serve(model, card, label, head_bits, max_batch, n_reqs,
@@ -856,6 +1142,9 @@ def _counters():
             "scatter_heads": heads_layout.scatter_heads_cuda,
             "gather_heads": heads_layout.gather_heads_cuda,
             "decode_attention_int8": decode_attention.decode_attention_cuda,
+            "decode_attention_int4": decode_attention.decode_attention4_cuda,
+            "decode_attention_multi":
+                decode_attention.decode_attention_multi_cuda,
             "quant_matmul": quant.quant_matmul_cuda,
             "quant_matmul_t": quant.quant_matmul_t_cuda,
             "quant_matmul4": quant.quant_matmul4_cuda}
@@ -1027,10 +1316,10 @@ def phase_train(model, card, label="train", n_steps: int = 2, b: int = 2,
 
     want_roll = {**expected_launches(cfg, dpo, train=False),
                  **expected_quant_train(model, dpo, b, train=False),
-                 "decode_attention_int8": 0}
+                 **dict.fromkeys(DECODE_KERNELS, 0)}
     want_step = {**expected_launches(cfg, dpo, train=True),
                  **expected_quant_train(model, dpo, b, train=True),
-                 "decode_attention_int8": 0}
+                 **dict.fromkeys(DECODE_KERNELS, 0)}
     log(f"[{label}] launches rollout {launches_rollout} (expect "
         f"{want_roll}); {n_steps} steps {launches_train} (expect {n_steps} "
         f"x {want_step})")
@@ -1157,6 +1446,36 @@ def quant_kernel_entries(qk, q_serve, q_train):
     return out
 
 
+def slice4_kernel_entries(decode, rollout, spec):
+    """The kernels line's entries of #7 and #8: launches over path A / B,
+    numbers at the main-path shape, the other shapes beside."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    out = []
+    for kname, group, line, launches, at in (
+            ("decode_attention_int4", "int4", "97",
+             rollout["launches"]["decode_attention_int4"],
+             "[8,32,768,128] packed int4 (1536 positions), s_used 768 (7B "
+             "rollout decode step, one layer, first chunk)"),
+            ("decode_attention_multi", "multi", "359",
+             sum(r["launches_multi"] for r in spec.values()),
+             "[8,32,768,128] int8, G 5 (k 4), s_used 768 (7B verify "
+             "group, one layer)")):
+        cases = decode[group]
+        main_case = cases[0]
+        out.append({
+            "name": kname, "route": "cuda",
+            "source": "opadpo_torch/csrc/decode_attention.cu",
+            "replaces": f"opadpo_tpu/ops/decode_attention.py:{line}",
+            "launches": launches,
+            "max_abs_err": max(c["err_out"] for c in cases),
+            **{k: main_case[k] for k in keys}, "library_ms": None,
+            "at": at + "; no one PyTorch call computes it",
+            "shapes": [{k: c[k] for k in ("s_used", "G", "err_out", *keys)}
+                       for c in cases]})
+    out[-1]["versus_int8"] = decode["versus_int8"]
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1193,7 +1512,10 @@ def main() -> int:
     for bits in (16, 8, 4):
         phase_reference(bits)
         phase_train_reference(bits)
-    serve, model = phase_main_path(card)
+    phase_tiny_f32_decode()
+    serve, model, plain_answers = phase_main_path(card)
+    rollout = phase_rollout_decode(model, card)
+    spec = phase_spec_serve(model, card, plain_answers)
     torch.cuda.empty_cache()
     train = phase_train(model, card)
     q_serve, q_train = {}, {}
@@ -1206,7 +1528,8 @@ def main() -> int:
     def pick(res, *keys):
         return {k: res[k] for k in keys}
 
-    fl, dc, steps = flash["llama"], decode[0], train["launches_per_step"]
+    fl, dc, steps = (flash["llama"], decode["int8"][0],
+                     train["launches_per_step"])
     times = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
@@ -1264,12 +1587,13 @@ def main() -> int:
          "source": "opadpo_torch/csrc/decode_attention.cu",
          "replaces": "opadpo_tpu/ops/decode_attention.py:51",
          "launches": serve["launches_decode"],
-         "max_abs_err": max(d["err_out"] for d in decode),
+         "max_abs_err": max(d["err_out"] for d in decode["int8"]),
          "ms": dc["ms"], "plain_ms": dc["plain_ms"],
          "bound_ms": dc["bound_ms"], "bound_by": dc["bound_by"],
          "library_ms": None,
          "at": "[8,32,768,128] int8, s_used 768 (7B decode step, one layer)",
-         "s_used_640_ms": decode[1]["ms"]})
+         "s_used_640_ms": decode["int8"][1]["ms"]})
+    kernels += slice4_kernel_entries(decode, rollout, spec)
     kernels += quant_kernel_entries(qk, q_serve, q_train)
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -8,11 +8,17 @@
 - ``forward_prefill_unrolled``: the prompt pass, returning the last
   position's logits and every layer's (k, v), with causal attention on the
   flash kernel (``ops/attention``).
-- ``quantize_prompt_kv``: per-(b, s, h) symmetric int8, head-major, padded
-  to a 128-multiple with zero scales.
-- ``decode_forward_unrolled``: one token through every layer against the
-  prompt KV (bf16, or int8 through the decode-attention kernel) and a small
-  bf16 suffix buffer that the step writes in place, merged by logsumexp.
+- ``quantize_prompt_kv`` / ``quantize_prompt_kv_int4``: per-(b, s, h)
+  symmetric int8 / packed int4, head-major, padded with zero scales to a
+  128 / 256-multiple or preallocated at a chunked decode's final length;
+  ``fold_suffix_into_prompt_kv`` writes a quantized suffix into that cache
+  in place.
+- ``decode_forward_unrolled`` / ``decode_forward_multi``: one token (or a
+  speculative verify group of G) through every layer against the prompt
+  KV (bf16, or int8 / int4 through the decode-attention kernels) and a
+  small bf16 suffix buffer that the step writes in place, merged by
+  logsumexp; ``decode_forward_multi_pr`` the per-row verify over raw and
+  settled suffix regions.
 
 Projections run in the model dtype and widen to f32 for the LoRA sum; the
 decode head returns f32 logits.  RoPE positions come from
@@ -38,12 +44,16 @@ from opadpo_torch.models.lora import (
 from opadpo_torch.ops.attention import (
     flash_attention_fused, flash_attention_fused_shared, multi_head_attention,
 )
-from opadpo_torch.ops.decode_attention import decode_attention_prompt
+from opadpo_torch.ops.decode_attention import ALIGN as KV_ALIGN
+from opadpo_torch.ops.decode_attention import ALIGN4 as KV_ALIGN4
+from opadpo_torch.ops.decode_attention import (
+    decode_attention_prompt, decode_attention_prompt4,
+    decode_attention_prompt_multi, unpack_int4_kv,
+)
 from opadpo_torch.ops.quant import QuantLinear, exact_div
 from opadpo_torch.ops.rope import apply_rope, rope_frequencies
 
 NEG_INF = -1e30
-KV_ALIGN = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,7 +189,7 @@ def quantize_head_for_decode(model: LlamaModel,
 
 
 def _decode_head(x, model: LlamaModel, lora, scaling, head=None):
-    """Final norm + lm_head on [B, 1, D] -> f32 logits [B, V] (the bf16
+    """Final norm + lm_head on [B, G, D] -> f32 logits [B, G, V] (the bf16
     products summed in f32, as the JAX head's f32 accumulation).  ``head``:
     a quantized decode head, through the int8 / int4 kernel with f32
     output."""
@@ -192,7 +202,7 @@ def _decode_head(x, model: LlamaModel, lora, scaling, head=None):
     delta = lora_delta(x, tree_get(lora, "lm_head"), scaling)
     if delta is not None:
         logits = logits + delta
-    return logits[:, 0]
+    return logits
 
 
 def _repeat_kv(t, cfg: LlamaConfig):
@@ -228,8 +238,8 @@ def forward_prefill_unrolled(model: LlamaModel, input_embeds, key_mask,
                             lora_scaling)
         h = rms_norm(x, layer.mlp_norm, cfg.rms_norm_eps)
         x = x + _mlp_block(h, layer, ll, lora_scaling)
-    return (_decode_head(x[:, -1:, :], model, lora, lora_scaling, head),
-            kv_list)
+    return (_decode_head(x[:, -1:, :], model, lora, lora_scaling,
+                         head)[:, 0], kv_list)
 
 
 def _maybe_remat(fn, remat: bool, *args):
@@ -310,85 +320,285 @@ def forward_shared_prefix(model: LlamaModel, prefix_embeds, prefix_mask,
             rms_norm(xr, model.final_norm, cfg.rms_norm_eps))
 
 
-def quantize_prompt_kv(kv: torch.Tensor) -> dict:
-    """[B, Sp, H, hd] -> {"q": int8 [B, H, Sp_pad, hd], "scale": f32
-    [B, H, Sp_pad]}: symmetric per-(b, s, h) int8 with scale
-    max(amax, 1e-8)/127 and round-half-even, HEAD-MAJOR, padded to a
-    128-multiple with zero values and zero scales."""
-    kv32 = kv.float()
-    amax = kv32.abs().amax(dim=-1)
-    scale = exact_div(torch.clamp(amax, min=1e-8), 127.0)
-    q = torch.round(kv32 / scale[..., None]).to(torch.int8)
+def init_suffix_cache(cfg: LlamaConfig, batch: int, n: int,
+                      device) -> list:
+    """Per layer a zero bf16 (model dtype) suffix buffer pair
+    ([B, n, Hkv, hd], the same) for the decode steps to write in place."""
+    shape = (batch, n, cfg.num_kv_heads, cfg.head_dim)
+    return [(torch.zeros(shape, dtype=cfg.dtype, device=device),
+             torch.zeros(shape, dtype=cfg.dtype, device=device))
+            for _ in range(cfg.num_layers)]
+
+
+def _head_major(q, scale, total_len, align):
+    """[B, Sp, H, hd] codes and [B, Sp, H] scales -> head-major, padded
+    with zeros to an ``align``-multiple or to ``total_len``."""
     q = q.permute(0, 2, 1, 3)
     scale = scale.permute(0, 2, 1)
-    pad = -q.shape[2] % KV_ALIGN
-    q = F.pad(q, (0, 0, 0, pad))
-    scale = F.pad(scale, (0, pad))
-    return {"q": q.contiguous(), "scale": scale.contiguous()}
+    sp = q.shape[2]
+    sp_pad = total_len if total_len is not None else -(-sp // align) * align
+    if sp_pad < sp or sp_pad % align:
+        raise ValueError(f"cache length {sp_pad} must be a multiple of "
+                         f"{align} and >= {sp}")
+    q = F.pad(q, (0, 0, 0, sp_pad - sp))
+    scale = F.pad(scale, (0, sp_pad - sp))
+    return q.contiguous(), scale.contiguous()
 
 
-def quantize_prompt_kv_list(kv_list: list) -> list:
-    return [(quantize_prompt_kv(k), quantize_prompt_kv(v))
-            for k, v in kv_list]
+def quantize_prompt_kv(kv: torch.Tensor,
+                       total_len: Optional[int] = None) -> dict:
+    """[B, Sp, H, hd] -> {"q": int8 [B, H, Sp_pad, hd], "scale": f32
+    [B, H, Sp_pad]}: symmetric per-(b, s, h) int8 with scale
+    max(amax, 1e-8)/127 and round-half-even, HEAD-MAJOR, padded with zero
+    values and zero scales to a 128-multiple, or to ``total_len`` (chunked
+    decode preallocates the cache at its final length)."""
+    kv32 = kv.float()
+    scale = exact_div(torch.clamp(kv32.abs().amax(dim=-1), min=1e-8), 127.0)
+    q = torch.round(kv32 / scale[..., None]).to(torch.int8)
+    q, scale = _head_major(q, scale, total_len, KV_ALIGN)
+    return {"q": q, "scale": scale}
+
+
+def quantize_prompt_kv_int4(kv: torch.Tensor,
+                            total_len: Optional[int] = None) -> dict:
+    """int4 variant: [B, Sp, H, hd] -> {"q4": int8 [B, H, Sp_pad/2, hd],
+    "scale": f32 [B, H, Sp_pad]}, scale max(amax, 1e-8)/7, codes clipped
+    to [-8, 7], Sp_pad a 256-multiple (or ``total_len``).  Packed
+    GROUP-LOCAL HALF-SPLIT as the JAX package packs it: byte ``g*128 + r``
+    holds position ``g*256 + r`` in its low nibble and ``g*256 + 128 + r``
+    in its high nibble.  Scales and the mask keep the int8 layout."""
+    kv32 = kv.float()
+    scale = exact_div(torch.clamp(kv32.abs().amax(dim=-1), min=1e-8), 7.0)
+    q = torch.clamp(torch.round(kv32 / scale[..., None]), -8, 7).to(
+        torch.int32)
+    q, scale = _head_major(q, scale, total_len, KV_ALIGN4)
+    b, h, sp, hd = q.shape
+    qg = q.view(b, h, sp // 256, 256, hd)
+    packed = (qg[:, :, :, 128:] * 16 + (qg[:, :, :, :128] & 0xF)).to(
+        torch.int8)
+    return {"q4": packed.reshape(b, h, sp // 2, hd), "scale": scale}
+
+
+def dequantize_prompt_kv_int4(pkq: dict) -> torch.Tensor:
+    """Inverse of ``quantize_prompt_kv_int4`` -> head-major f32
+    [B, H, Sp_pad, hd]."""
+    return unpack_int4_kv(pkq["q4"]).float() * pkq["scale"][..., None]
+
+
+def quantize_prompt_kv_list(kv_list: list, total_len: Optional[int] = None,
+                            kv_bits: int = 8) -> list:
+    """[(k, v), ...] -> the int8 (``kv_bits`` 8) or packed int4 (4) cache
+    of each layer."""
+    if kv_bits not in (8, 4):
+        raise ValueError(f"kv_bits={kv_bits}: the quantized cache is 8 or 4")
+    fn = quantize_prompt_kv if kv_bits == 8 else quantize_prompt_kv_int4
+    return [(fn(k, total_len), fn(v, total_len)) for k, v in kv_list]
+
+
+def fold_suffix_into_prompt_kv(kv_list: list, suffix_list: list,
+                               prompt_mask: torch.Tensor, filled: int,
+                               offset: int) -> tuple:
+    """Chunked decode's fold, IN PLACE: each layer's bf16 suffix
+    ``[B, C, H, hd]`` is quantized like the cache and written into the
+    cache preallocated at its final length at positions
+    ``[offset, offset + C)`` (packed rows ``offset/2`` on for int4), and
+    ``prompt_mask`` (cache layout) is set over ``[offset, offset +
+    filled)``.  The JAX package returns new arrays under buffer donation;
+    here the slice copies are the in-place update, so no cache is ever held
+    twice.  Returns ``(kv_list, prompt_mask)``, the objects given."""
+    c = suffix_list[0][0].shape[1]
+    int4 = "q4" in kv_list[0][0]
+    align = KV_ALIGN4 if int4 else KV_ALIGN
+    if c % align or offset % align:
+        raise ValueError(f"suffix length {c} and offset {offset} must be "
+                         f"multiples of {align}")
+    for pair, suffix in zip(kv_list, suffix_list):
+        for cache, new in zip(pair, suffix):
+            if int4:
+                qn = quantize_prompt_kv_int4(new)
+                cache["q4"][:, :, offset // 2:(offset + c) // 2] = qn["q4"]
+            else:
+                qn = quantize_prompt_kv(new)
+                cache["q"][:, :, offset:offset + c] = qn["q"]
+            cache["scale"][:, :, offset:offset + c] = qn["scale"]
+    prompt_mask[:, offset:offset + filled] = 1
+    return kv_list, prompt_mask
 
 
 def prompt_bias(prompt_mask: torch.Tensor, sp_pad: int) -> torch.Tensor:
-    """Additive f32 bias [B, sp_pad] for the decode kernel: 0 where the
+    """Additive f32 bias [B, sp_pad] for the decode kernels: 0 where the
     prompt is valid, -1e30 on masked positions and on the padding."""
     bias = torch.where(prompt_mask != 0, 0.0, NEG_INF).to(torch.float32)
     return F.pad(bias, (0, sp_pad - prompt_mask.shape[1]), value=NEG_INF)
 
 
-def _decode_layer(x, layer: LlamaLayer, ll, pk, pv, sk, sv, *, cfg,
-                  lora_scaling, positions, step, suf_valid, pm, cos, sin,
-                  pbias=None, sp_used=None):
-    """One layer's single-token step over (prompt, suffix) KV.  Writes the
-    token's k, v into the suffix buffers ``sk``/``sv`` at ``step`` in place.
+def _decode_setup(model: LlamaModel, prompt_kv: list, prompt_mask):
+    """(cos, sin, prompt mask [B, 1, 1, Sp] bool, the kernels' prompt bias
+    or None for a bf16 cache)."""
+    cfg = model.cfg
+    if cfg.num_heads != cfg.num_kv_heads:
+        raise NotImplementedError("grouped-query decode")
+    cos, sin = model.rope_tables()
+    pbias = None
+    if isinstance(prompt_kv[0][0], dict):
+        pbias = prompt_bias(prompt_mask, prompt_kv[0][0]["scale"].shape[2])
+    return cos, sin, (prompt_mask != 0)[:, None, None, :], pbias
 
-    ``pk``/``pv`` are bf16 [B, Sp, H, hd] or int8 dicts from
-    ``quantize_prompt_kv`` (the decode-attention kernel reads those)."""
-    b = x.shape[0]
+
+def _qkv_rope(x, layer: LlamaLayer, ll, cfg, scaling, cos, sin, positions):
+    """G tokens [B, G, D], the first at RoPE position ``positions`` [B] ->
+    (q [B, H, G, hd], k, v [B, G, H, hd]) after RoPE."""
+    b, g = x.shape[:2]
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    scale = hd ** -0.5
     h = rms_norm(x, layer.attn_norm, cfg.rms_norm_eps)
-    q, k, v = _qkv_proj(h, layer, ll, lora_scaling)
-    q = q.view(b, 1, nh, hd)
-    k = k.view(b, 1, nkv, hd)
-    v = v.view(b, 1, nkv, hd)
-    q, k = apply_rope(q, k, cos, sin, positions[:, None])
-    sk[:, step] = k[:, 0].to(sk.dtype)
-    sv[:, step] = v[:, 0].to(sv.dtype)
+    q, k, v = _qkv_proj(h, layer, ll, scaling)
+    pos = positions[:, None] + torch.arange(g, device=x.device)
+    q, k = apply_rope(q.view(b, g, nh, hd), k.view(b, g, nkv, hd), cos, sin,
+                      pos)
+    return q.transpose(1, 2), k, v.view(b, g, nkv, hd)
 
-    qh = q[:, 0]                                            # [B, H, hd]
-    ss = torch.einsum("bhd,bshd->bhs", qh.float(), sk.float()) * scale
-    ss = torch.where(suf_valid, ss, NEG_INF)
-    if isinstance(pk, dict):
-        out_p, m_p, l_p = decode_attention_prompt(
-            qh.to(x.dtype).contiguous(), pk["q"], pk["scale"], pv["q"],
-            pv["scale"], pbias, scale, s_used=sp_used)
-        m = torch.maximum(m_p, ss.amax(dim=-1))
-        alpha_p = torch.exp(m_p - m)
-        p_s = torch.exp(ss - m[..., None])
-        l = l_p * alpha_p + p_s.sum(dim=-1)
-        out_s = torch.einsum("bhs,bshd->bhd", p_s.to(sv.dtype).float(),
-                             sv.float())
-        out = (out_p * alpha_p[..., None] + out_s) / l[..., None]
+
+def _attend(qh, pk, pv, pm, pbias, sp_used, pieces):
+    """Softmax attention of queries ``qh`` [B, H, G, hd] over the prompt
+    cache and the suffix ``pieces`` -> normalised output [B, H, G, hd] f32.
+
+    ``pieces``: [(scores [B, H, G, S] f32, -1e30 where a query does not
+    see a row; values [B, S, H, hd])].  A bf16 cache (``pk``/``pv``
+    [B, Sp, H, hd]) joins one softmax with them; a quantized one (dicts)
+    goes through its kernel, one query per head (#6, or #7 over int4) or
+    G at once (#8), and merges with the pieces by logsumexp."""
+    scale = qh.shape[-1] ** -0.5
+    if not isinstance(pk, dict):
+        sp = torch.einsum("bhgd,bshd->bhgs", qh.float(), pk.float()) * scale
+        sp = torch.where(pm, sp, NEG_INF)
+        pieces = [(sp, pv)] + pieces
+        probs = torch.softmax(torch.cat([s for s, _ in pieces], dim=-1),
+                              dim=-1)
+        out, start = 0.0, 0
+        for s, val in pieces:
+            n = s.shape[-1]
+            out = out + torch.einsum(
+                "bhgs,bshd->bhgd", probs[..., start:start + n].to(
+                    val.dtype).float(), val.float())
+            start += n
+        return out
+    g = qh.shape[2]
+    if "q4" in pk:
+        if g != 1:
+            raise ValueError("the int4 cache takes one query per head")
+        res = decode_attention_prompt4(qh[:, :, 0], pk["q4"], pk["scale"],
+                                       pv["q4"], pv["scale"], pbias, scale,
+                                       s_used=sp_used)
+    elif g == 1:
+        res = decode_attention_prompt(qh[:, :, 0], pk["q"], pk["scale"],
+                                      pv["q"], pv["scale"], pbias, scale,
+                                      s_used=sp_used)
     else:
-        sp_scores = torch.einsum("bhd,bshd->bhs", qh.float(),
-                                 pk.float()) * scale
-        sp_scores = torch.where(pm, sp_scores, NEG_INF)
-        sp_n = pk.shape[1]
-        probs = torch.softmax(torch.cat([sp_scores, ss], dim=-1), dim=-1)
-        out = (torch.einsum("bhs,bshd->bhd",
-                            probs[..., :sp_n].to(pv.dtype).float(),
-                            pv.float())
-               + torch.einsum("bhs,bshd->bhd",
-                              probs[..., sp_n:].to(sv.dtype).float(),
-                              sv.float()))
-    attn = out.reshape(b, 1, nh * hd).to(x.dtype)
-    x = x + layer.dense(attn, "wo", ll, lora_scaling)
+        res = decode_attention_prompt_multi(qh, pk["q"], pk["scale"], pv["q"],
+                                            pv["scale"], pbias, scale,
+                                            s_used=sp_used)
+    out_p, m_p, l_p = (t[:, :, None] for t in res) if g == 1 else res
+    m = m_p
+    for s, _ in pieces:
+        m = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m_p - m)
+    l = l_p * alpha
+    out = out_p * alpha[..., None]
+    for s, val in pieces:
+        p = torch.exp(s - m[..., None])
+        l = l + p.sum(dim=-1)
+        out = out + torch.einsum("bhgs,bshd->bhgd", p.to(val.dtype).float(),
+                                 val.float())
+    return out / l[..., None]
+
+
+def _finish_layer(x, out, layer: LlamaLayer, ll, cfg, scaling):
+    """Attention output [B, H, G, hd] -> o-projection, residual, MLP."""
+    b, g = x.shape[:2]
+    attn = out.transpose(1, 2).reshape(b, g, -1).to(x.dtype)
+    x = x + layer.dense(attn, "wo", ll, scaling)
     h = rms_norm(x, layer.mlp_norm, cfg.rms_norm_eps)
-    return x + _mlp_block(h, layer, ll, lora_scaling)
+    return x + _mlp_block(h, layer, ll, scaling)
+
+
+def _decode_layer(x, layer: LlamaLayer, ll, pk, pv, sk, sv, *, cfg,
+                  lora_scaling, positions, step, pm, pbias, cos, sin,
+                  sp_used=None):
+    """One layer's step for G tokens [B, G, D]: a decode step at G = 1, a
+    speculative verify group above.  Writes their k, v into the suffix
+    buffers at rows ``[step, step + G)`` in place; query g sees suffix rows
+    <= step + g and the whole prompt.
+
+    ``pk``/``pv`` are bf16 [B, Sp, H, hd], or int8 / int4 dicts from
+    ``quantize_prompt_kv`` / ``quantize_prompt_kv_int4``."""
+    g = x.shape[1]
+    qh, k, v = _qkv_rope(x, layer, ll, cfg, lora_scaling, cos, sin,
+                         positions)
+    sk[:, step:step + g] = k.to(sk.dtype)
+    sv[:, step:step + g] = v.to(sv.dtype)
+    ss = torch.einsum("bhgd,bshd->bhgs", qh.float(),
+                      sk.float()) * cfg.head_dim ** -0.5
+    rows = torch.arange(sk.shape[1], device=x.device)
+    seen = rows[None, :] <= step + torch.arange(g, device=x.device)[:, None]
+    ss = torch.where(seen, ss, NEG_INF)
+    out = _attend(qh, pk, pv, pm, pbias, sp_used, [(ss, sv)])
+    return _finish_layer(x, out, layer, ll, cfg, lora_scaling)
+
+
+def _decode_layer_pr(x, layer: LlamaLayer, ll, pk, pv, rk, rv, ck, cv, *,
+                     cfg, lora_scaling, positions, slot, raw_ok, w, pm, pbias,
+                     cos, sin, sp_used=None):
+    """The per-row speculative verify layer (``decode_forward_multi_pr``).
+    Two suffix regions replace the batch-uniform buffer:
+
+    - raw ``rk``/``rv`` [B, Craw, H, hd]: every group writes its G rows at
+      the shared ``slot``; ``raw_ok`` [B, Craw] marks the rows earlier
+      groups accepted, per row, and the group sees its own rows causally;
+    - settled ``ck``/``cv`` [B, Ntot, H, hd]: row t holds generated token
+      t, valid below the per-row watermark ``w`` [B] (written by
+      ``engine/speculative.compact_suffix_pr``)."""
+    g = x.shape[1]
+    qh, k, v = _qkv_rope(x, layer, ll, cfg, lora_scaling, cos, sin,
+                         positions)
+    rk[:, slot:slot + g] = k.to(rk.dtype)
+    rv[:, slot:slot + g] = v.to(rv.dtype)
+    scale = cfg.head_dim ** -0.5
+    dev = x.device
+    rs = torch.einsum("bhgd,bshd->bhgs", qh.float(), rk.float()) * scale
+    col = torch.arange(rk.shape[1], device=dev)[None, :]
+    qi = torch.arange(g, device=dev)[:, None]
+    ingroup = (col >= slot) & (col <= slot + qi)                # [G, Craw]
+    rs = torch.where(raw_ok[:, None, None, :] | ingroup, rs, NEG_INF)
+    cs = torch.einsum("bhgd,bshd->bhgs", qh.float(), ck.float()) * scale
+    settled = torch.arange(ck.shape[1], device=dev)[None, :] < w[:, None]
+    cs = torch.where(settled[:, None, None, :], cs, NEG_INF)
+    out = _attend(qh, pk, pv, pm, pbias, sp_used, [(rs, rv), (cs, cv)])
+    return _finish_layer(x, out, layer, ll, cfg, lora_scaling)
+
+
+def decode_forward_multi(model: LlamaModel, embeds, prompt_kv: list,
+                         prompt_mask, suffix_kv: list, step: int, positions,
+                         lora=None, lora_scaling: float = 1.0,
+                         sp_used: Optional[int] = None,
+                         head: Optional[QuantLinear] = None):
+    """G tokens through every layer -> (logits [B, G, V] f32, suffix_kv).
+
+    embeds [B, G, D], the first at RoPE position ``positions`` [B];
+    prompt_kv: per layer (pk, pv); prompt_mask [B, Sp] (cache layout for a
+    preallocated cache); suffix_kv: per layer (sk, sv) [B, Nmax, Hkv, hd],
+    written at rows ``[step, step + G)`` in place; ``sp_used`` the fill
+    watermark the prompt kernels read to; ``head`` as for
+    ``_decode_head``.  A speculative verify group reads the prompt cache
+    once for all G tokens (kernel #8)."""
+    cos, sin, pm, pbias = _decode_setup(model, prompt_kv, prompt_mask)
+    kw = dict(cfg=model.cfg, lora_scaling=lora_scaling, positions=positions,
+              step=step, pm=pm, pbias=pbias, cos=cos, sin=sin,
+              sp_used=sp_used)
+    x = embeds
+    for i, layer in enumerate(model.layers):
+        x = _decode_layer(x, layer, tree_get(lora, "layers", i),
+                          *prompt_kv[i], *suffix_kv[i], **kw)
+    return _decode_head(x, model, lora, lora_scaling, head), suffix_kv
 
 
 def decode_forward_unrolled(model: LlamaModel, embeds, prompt_kv: list,
@@ -396,30 +606,28 @@ def decode_forward_unrolled(model: LlamaModel, embeds, prompt_kv: list,
                             positions, lora=None, lora_scaling: float = 1.0,
                             sp_used: Optional[int] = None,
                             head: Optional[QuantLinear] = None):
-    """One-token decode -> (logits [B, V] f32, suffix_kv).
+    """One-token decode, embeds [B, 1, D] -> (logits [B, V] f32,
+    suffix_kv); see ``decode_forward_multi``."""
+    logits, suffix_kv = decode_forward_multi(
+        model, embeds, prompt_kv, prompt_mask, suffix_kv, step, positions,
+        lora=lora, lora_scaling=lora_scaling, sp_used=sp_used, head=head)
+    return logits[:, 0], suffix_kv
 
-    embeds [B, 1, D]; prompt_kv: per layer (pk, pv); prompt_mask [B, Sp];
-    suffix_kv: per layer (sk, sv) [B, Nmax, Hkv, hd], written at ``step``
-    in place (the new token attends to suffix slots 0..step); positions
-    [B], the new token's RoPE position; ``head`` as for ``_decode_head``."""
-    cfg = model.cfg
-    if cfg.num_heads != cfg.num_kv_heads:
-        raise NotImplementedError("grouped-query decode")
-    n_max = suffix_kv[0][0].shape[1]
-    cos, sin = model.rope_tables()
-    dev = embeds.device
-    suf_valid = (torch.arange(n_max, device=dev) <= step)[None, None, :]
-    pm = (prompt_mask != 0)[:, None, :]
-    pbias = None
-    if isinstance(prompt_kv[0][0], dict):
-        pbias = prompt_bias(prompt_mask, prompt_kv[0][0]["scale"].shape[2])
-    kw = dict(cfg=cfg, lora_scaling=lora_scaling, positions=positions,
-              step=step, suf_valid=suf_valid, pm=pm, cos=cos, sin=sin,
-              pbias=pbias, sp_used=sp_used)
+
+def decode_forward_multi_pr(model: LlamaModel, embeds, prompt_kv: list,
+                            prompt_mask, raw_kv: list, settled_kv: list,
+                            slot: int, raw_ok, w, positions, lora=None,
+                            lora_scaling: float = 1.0,
+                            sp_used: Optional[int] = None,
+                            head: Optional[QuantLinear] = None):
+    """G-token verify with PER-ROW acceptance (``_decode_layer_pr``) ->
+    (logits [B, G, V] f32, raw_kv, written at ``slot`` in place)."""
+    cos, sin, pm, pbias = _decode_setup(model, prompt_kv, prompt_mask)
+    kw = dict(cfg=model.cfg, lora_scaling=lora_scaling, positions=positions,
+              slot=slot, raw_ok=raw_ok, w=w, pm=pm, pbias=pbias, cos=cos,
+              sin=sin, sp_used=sp_used)
     x = embeds
     for i, layer in enumerate(model.layers):
-        pk, pv = prompt_kv[i]
-        sk, sv = suffix_kv[i]
-        x = _decode_layer(x, layer, tree_get(lora, "layers", i), pk, pv, sk,
-                          sv, **kw)
-    return _decode_head(x, model, lora, lora_scaling, head), suffix_kv
+        x = _decode_layer_pr(x, layer, tree_get(lora, "layers", i),
+                             *prompt_kv[i], *raw_kv[i], *settled_kv[i], **kw)
+    return _decode_head(x, model, lora, lora_scaling, head), raw_kv

@@ -227,10 +227,14 @@ def forward(model: Llava, input_ids: torch.Tensor, text_mask: torch.Tensor,
 def prefill_unrolled(model: Llava, input_ids: torch.Tensor,
                      text_mask: torch.Tensor, images: torch.Tensor,
                      lora=None, lora_scaling: float = 1.0,
-                     quantize_kv: bool = False, head=None) -> dict:
+                     quantize_kv: bool = False,
+                     kv_total_len: Optional[int] = None, kv_bits: int = 8,
+                     head=None) -> dict:
     """Prompt pass -> dict(kv_list, last_logits [B, V] f32, key_mask
     [B, Sp], next_position [B]).  With ``quantize_kv`` the prompt KV comes
-    back as int8 head-major dicts (``llama.quantize_prompt_kv``); ``head``
+    back as int8 (``kv_bits`` 8) or packed int4 (4) head-major dicts
+    (``llama.quantize_prompt_kv_list``), preallocated at ``kv_total_len``
+    positions when given (chunked decode folds into it in place); ``head``
     is a quantized decode head (``llama.quantize_head_for_decode``)."""
     image_feats = encode_images(model, images, lora, lora_scaling)
     text_embeds = llama_model.embed_tokens(model.llama, input_ids)
@@ -242,7 +246,8 @@ def prefill_unrolled(model: Llava, input_ids: torch.Tensor,
         model.llama, embeds, key_mask, positions,
         lora=tree_get(lora, "llama"), lora_scaling=lora_scaling, head=head)
     if quantize_kv:
-        kv_list = llama_model.quantize_prompt_kv_list(kv_list)
+        kv_list = llama_model.quantize_prompt_kv_list(kv_list, kv_total_len,
+                                                      kv_bits)
     return {"kv_list": kv_list, "last_logits": logits, "key_mask": key_mask,
             "next_position": positions[:, -1] + 1}
 
@@ -259,4 +264,34 @@ def decode_step_unrolled(model: Llava, token_ids: torch.Tensor,
     return llama_model.decode_forward_unrolled(
         model.llama, embeds, prompt_kv_list, prompt_mask, suffix_list, step,
         positions, lora=tree_get(lora, "llama"), lora_scaling=lora_scaling,
+        sp_used=sp_used, head=head)
+
+
+def decode_step_multi(model: Llava, token_ids: torch.Tensor,
+                      prompt_kv_list: list, prompt_mask: torch.Tensor,
+                      suffix_list: list, step: int, positions: torch.Tensor,
+                      lora=None, lora_scaling: float = 1.0,
+                      sp_used: Optional[int] = None, head=None):
+    """Speculative verify: [B, G] tokens (the carry token, then G - 1
+    drafts) through the decoder -> (logits [B, G, V], suffix_list)."""
+    embeds = llama_model.embed_tokens(model.llama, token_ids)
+    return llama_model.decode_forward_multi(
+        model.llama, embeds, prompt_kv_list, prompt_mask, suffix_list, step,
+        positions, lora=tree_get(lora, "llama"), lora_scaling=lora_scaling,
+        sp_used=sp_used, head=head)
+
+
+def decode_step_multi_pr(model: Llava, token_ids: torch.Tensor,
+                         prompt_kv_list: list, prompt_mask: torch.Tensor,
+                         raw_list: list, settled_list: list, slot: int,
+                         raw_ok: torch.Tensor, w: torch.Tensor,
+                         positions: torch.Tensor, lora=None,
+                         lora_scaling: float = 1.0,
+                         sp_used: Optional[int] = None, head=None):
+    """Per-row speculative verify step -> (logits [B, G, V], raw_list)."""
+    embeds = llama_model.embed_tokens(model.llama, token_ids)
+    return llama_model.decode_forward_multi_pr(
+        model.llama, embeds, prompt_kv_list, prompt_mask, raw_list,
+        settled_list, slot, raw_ok, w, positions,
+        lora=tree_get(lora, "llama"), lora_scaling=lora_scaling,
         sp_used=sp_used, head=head)

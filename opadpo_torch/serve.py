@@ -10,7 +10,11 @@ One device-owning thread micro-batches queued requests onto the
 ``Sampler``.  Each batch has the fixed shape ``max_batch`` (unused rows get
 zero images), its prompts left-padded to ``qlen = max(128, ceil64(longest))``;
 the batch decodes to the server's ``max_new_tokens`` and each row is cut to
-its own request's budget.  Sampling (greedy by default) is per server.
+its own request's budget.  Sampling (greedy by default) is per server, as
+are the decode modes the ``Sampler`` takes: the prompt cache's bits
+(``kv_bits`` 16 / 8 / 4), the decode head's, chunked folds
+(``decode_chunk``) and speculative decode (``spec_k``, ``spec_draft``,
+``spec_advance``).
 
 The worker runs on the GPU unless it is given ``device="cpu"``.  The CLI
 ``main()`` waits for the HF/PEFT loader of the next slice.
@@ -62,6 +66,7 @@ class InferenceWorker:
                  kv_bits: int = 16, head_bits: int = 16,
                  decode_chunk: int = 0, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 1.0, spec_k: int = 0,
+                 spec_draft: str = "ngram", spec_advance: str = "shared",
                  device: str = "cuda"):
         dev = resolve_device(device)
         p_dev = next(model.parameters()).device
@@ -84,7 +89,9 @@ class InferenceWorker:
             pad_token_id=tokenizer.pad_token_id)
         self.sampler = Sampler(self.sampling, lora_scaling=lora_scaling,
                                kv_bits=kv_bits, head_bits=head_bits,
-                               chunk=decode_chunk, spec_k=spec_k)
+                               chunk=decode_chunk, spec_k=spec_k,
+                               spec_draft=spec_draft,
+                               spec_advance=spec_advance)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(0)
         self.thread = threading.Thread(target=self._loop, daemon=True)

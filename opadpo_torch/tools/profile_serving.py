@@ -1,12 +1,19 @@
 """Where the serving path's time goes: ``torch.profiler`` over one prefill
-and the 16 decode steps after it, on LLaVA-1.5-7B (or ``--model 13b``) at
-full width (random weights from a seed: bf16, or with ``--bits 8`` / ``4``
-an int8 / int4 base, and with ``--head-bits`` a quantized decode head), a
-batch of 8 left-padded prompts of 128 tokens with one image each, int8
-prompt KV, greedy: the shapes of ``chip_smoke.py``'s serving paths.
+and the decode after it (16 tokens by default), on LLaVA-1.5-7B (or
+``--model 13b``) at full width (random weights from a seed: bf16, or with
+``--bits 8`` / ``4`` an int8 / int4 base, and with ``--head-bits`` a
+quantized decode head), a batch of 8 left-padded prompts of 128 tokens
+with one image each, greedy, through the ``Sampler``: an int8 prompt
+cache by default (``--kv-bits 4`` packed int4, 16 bf16), with
+``--chunk N`` chunked decode folding every N steps (set ``--steps`` past
+N to see a fold), with ``--spec-k K`` speculative decode (K drafts per
+verify, ``--spec-advance``).  The defaults are the shapes of
+``chip_smoke.py``'s serving paths.
 
     python -m opadpo_torch.tools.profile_serving [--model 7b|13b]
-        [--bits 16|8|4] [--head-bits 16|8|4] [--json PATH]
+        [--bits 16|8|4] [--head-bits 16|8|4] [--kv-bits 16|8|4]
+        [--chunk N] [--spec-k K] [--spec-advance shared|per_row]
+        [--steps N] [--json PATH]
 
 For each phase it prints the host time (ending in a device synchronise)
 with and without the profiler, the device's busy time (the union of the
@@ -31,9 +38,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from opadpo_torch.constants import IMAGE_TOKEN_INDEX
 from opadpo_torch.device import resolve_device
-from opadpo_torch.engine.sampler import decode_loop_unrolled
+from opadpo_torch.engine.sampler import Sampler
 from opadpo_torch.engine.sampling import SamplingConfig
-from opadpo_torch.models import llama, llava
+from opadpo_torch.models import llava
 
 BATCH = 8
 QLEN = 128
@@ -46,8 +53,11 @@ def kernel_group(name: str) -> str:
                    "scatter_heads", "gather_heads"):
         if kernel + "_kernel" in n:
             return kernel + " (csrc)"
-    if "decode_attn_int8_kernel" in n:
-        return "decode_attention_int8 (csrc)"
+    for kernel, group in (("decode_attn_int8_kernel", "int8"),
+                          ("decode_attn_int4_kernel", "int4"),
+                          ("decode_attn_multi_kernel", "multi")):
+        if kernel in n:
+            return f"decode_attention_{group} (csrc)"
     if "quant_mm_kernel" in n or "splitk_reduce" in n:
         return "quant_matmul (csrc)"
     if any(s in n for s in ("gemm", "gemv", "nvjet", "cutlass", "xmma",
@@ -129,6 +139,16 @@ def main(argv=None) -> int:
                     help="the base's block linears: bf16, int8 or int4")
     ap.add_argument("--head-bits", type=int, choices=(16, 8, 4), default=16,
                     help="the decode head: bf16, int8 or int4")
+    ap.add_argument("--kv-bits", type=int, choices=(16, 8, 4), default=8,
+                    help="the prompt cache: bf16, int8 or packed int4")
+    ap.add_argument("--chunk", type=int, default=0,
+                    help="chunked decode: fold the suffix every N steps")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decode: K drafts per verify")
+    ap.add_argument("--spec-advance", choices=("shared", "per_row"),
+                    default="shared")
+    ap.add_argument("--steps", type=int, default=DECODE_STEPS,
+                    help="decode steps (tokens after the first)")
     ap.add_argument("--json", help="also write the summary here")
     args = ap.parse_args(argv)
 
@@ -136,19 +156,19 @@ def main(argv=None) -> int:
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     cfg, model, _ = make_model(args.model, args.bits, dev, cuda)
-    head = llama.quantize_head_for_decode(model.llama, args.head_bits)
     ids, mask, images = make_inputs(cfg, BATCH, QLEN, dev)
-    sampling = SamplingConfig(greedy=True, max_new_tokens=DECODE_STEPS + 1,
-                              eos_token_id=-1)
+    sampler = Sampler(
+        SamplingConfig(greedy=True, max_new_tokens=args.steps + 1,
+                       eos_token_id=-1),
+        kv_bits=args.kv_bits, head_bits=args.head_bits, chunk=args.chunk,
+        spec_k=args.spec_k, spec_advance=args.spec_advance)
+    head = sampler.decode_head(model)
 
     def prefill():
-        return llava.prefill_unrolled(model, ids, mask, images,
-                                      quantize_kv=True, head=head)
+        return sampler.prefill(model, ids, mask, images, head=head)
 
     def decode(pf):
-        return decode_loop_unrolled(
-            model, pf["kv_list"], pf["key_mask"], pf["next_position"],
-            pf["last_logits"], None, sampling, head=head)
+        return sampler.decode(model, pf, head=head)
 
     def timed(fn, *a):
         t0 = time.perf_counter()
@@ -164,11 +184,15 @@ def main(argv=None) -> int:
     result = {"card": card,
               "model": f"llava_{args.model}" if cuda else "tiny",
               "bits": args.bits, "head_bits": args.head_bits,
-              "batch": BATCH, "qlen": QLEN, "decode_steps": DECODE_STEPS}
+              "kv_bits": args.kv_bits, "chunk": args.chunk,
+              "spec_k": args.spec_k, "spec_advance": args.spec_advance,
+              "batch": BATCH, "qlen": QLEN}
     with torch.inference_mode():
         decode(timed(prefill)[0])                     # warm-up
         pf, pf_s = timed(prefill)
-        (_, n_fwd), dec_s = timed(decode, pf)
+        (_, info), dec_s = timed(decode, pf)
+        n_fwd = info["decode_steps"]
+        result["decode"] = info
         phases = {}
         for name, fn, a, plain_s in (("prefill", prefill, (), pf_s),
                                      ("decode", decode, (pf,), dec_s)):

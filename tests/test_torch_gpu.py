@@ -59,6 +59,48 @@ def test_kernels_match_plain_on_gpu():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("hd", [128, 64])
+def test_int4_and_multi_decode_kernels_match_plain_on_gpu(hd):
+    """The int4 decode kernel (#7) at s_used 512 and 256, and the
+    multi-query kernel (#8) at G 2, 5 and 8, s_used 384 and 512, against
+    their plain versions: (out, m, l) within 1e-4 of each one's largest
+    entry, as for #6."""
+    g = _gen()
+    dev = "cuda"
+    b, h, sp = 2, 4, 512
+    bias = torch.zeros(b, sp, device=dev)
+    bias[1, :30] = -1e30
+    bias[:, 450:] = -1e30
+    ks, vs = (torch.rand(b, h, sp, generator=g, device=dev) * 0.02
+              for _ in range(2))
+    p4k, p4v = (torch.randint(-128, 128, (b, h, sp // 2, hd), generator=g,
+                              device=dev, dtype=torch.int8) for _ in range(2))
+    pk, pv = (torch.randint(-127, 128, (b, h, sp, hd), generator=g,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    q = torch.randn(b, h, 8, hd, generator=g, device=dev).to(torch.bfloat16)
+    cases = []
+    for su in (512, 256):
+        cases.append((t_decode.decode_attention4_cuda(
+            q[:, :, 0], p4k, ks, p4v, vs, bias, hd ** -0.5, su),
+            t_decode.decode_attention_prompt4_plain(
+                q[:, :, 0], p4k, ks, p4v, vs, bias, hd ** -0.5, su)))
+    for gq, su in ((2, 384), (5, 512), (8, 512)):
+        qg = q[:, :, :gq]
+        cases.append((t_decode.decode_attention_multi_cuda(
+            qg, pk, ks, pv, vs, bias, hd ** -0.5, su),
+            t_decode.decode_attention_prompt_multi_plain(
+                qg, pk, ks, pv, vs, bias, hd ** -0.5, su)))
+    for out, ref in cases:
+        for o, r in zip(out, ref):
+            assert o.shape == r.shape
+            assert torch.allclose(o, r, rtol=1e-4,
+                                  atol=1e-4 * r.abs().max().item())
+    with pytest.raises(ValueError, match="queries per head"):
+        t_decode.decode_attention_multi_cuda(
+            torch.zeros(b, h, 9, hd, device=dev), pk, ks, pv, vs, bias, 1.0)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("causal,d,sq,skv", [
     (True, 128, 203, 203), (False, 64, 77, 77), (True, 128, 96, 250),
     (True, 64, 130, 130)])
@@ -155,10 +197,10 @@ def test_quant_kernels_match_plain_on_gpu(m, n, k):
 
 @pytest.mark.gpu
 def test_quantizers_give_the_cpu_codes_on_gpu():
-    """Weight codes and scales (int8 and int4) and the int8 prompt-KV cache
-    made on the GPU equal the CPU's bit for bit (the CPU's equal the JAX
-    package's): a division by a Python number would run as a product by
-    its reciprocal on the GPU and move some codes."""
+    """Weight codes and scales (int8 and int4) and the int8 and int4
+    prompt-KV caches made on the GPU equal the CPU's bit for bit (the CPU's
+    equal the JAX package's): a division by a Python number would run as a
+    product by its reciprocal on the GPU and move some codes."""
     from opadpo_torch.models import llama as t_llama
 
     _gen()                                   # skips without a GPU
@@ -168,7 +210,8 @@ def test_quantizers_give_the_cpu_codes_on_gpu():
     for fn in (t_quant.quantize_weight, t_quant.quantize_weight_int4):
         for c, gpu in zip(fn(w), fn(w.cuda())):
             assert torch.equal(c, gpu.cpu()), fn.__name__
-    c, gpu = t_llama.quantize_prompt_kv(kv), t_llama.quantize_prompt_kv(
-        kv.cuda())
-    for key in ("q", "scale"):
-        assert torch.equal(c[key], gpu[key].cpu()), key
+    for fn, keys in ((t_llama.quantize_prompt_kv, ("q", "scale")),
+                     (t_llama.quantize_prompt_kv_int4, ("q4", "scale"))):
+        c, gpu = fn(kv, 512), fn(kv.cuda(), 512)
+        for key in keys:
+            assert torch.equal(c[key], gpu[key].cpu()), (fn.__name__, key)

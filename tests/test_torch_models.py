@@ -171,12 +171,30 @@ def test_sampled_tokens_stay_in_support():
 
 
 def test_sampler_rejects_unported_modes():
+    """The decode modes are ported (kv4, chunk, spec_k); the combinations
+    the JAX Sampler asserts against are ValueErrors, as are the oracle
+    draft and an unported model variant."""
     s = SamplingConfig(greedy=True)
-    for kw in (dict(kv_bits=4), dict(kv_bits=8, chunk=128), dict(spec_k=2)):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(kv_bits=4), dict(kv_bits=8, chunk=128),
+               dict(kv_bits=4, chunk=256), dict(spec_k=2),
+               dict(kv_bits=8, spec_k=7, spec_advance="per_row",
+                    spec_draft="pad")):
+        Sampler(s, **kw)
+    for kw, match in (
+            (dict(kv_bits=16, chunk=128), "kv_bits 8 or 4"),
+            (dict(kv_bits=8, chunk=64), "multiple of 128"),
+            (dict(kv_bits=4, chunk=128), "multiple of 256"),
+            (dict(kv_bits=8, chunk=128, spec_k=2), "without chunk"),
+            (dict(kv_bits=4, spec_k=2), "kv_bits 16 or 8"),
+            (dict(kv_bits=8, spec_k=8), "at most 8"),
+            (dict(spec_k=2, spec_draft="oracle"), "oracle"),
+            (dict(spec_k=2, spec_advance="row"), "spec_advance"),
+            (dict(kv_bits=2), "kv_bits"), (dict(head_bits=5), "head_bits")):
+        with pytest.raises(ValueError, match=match):
             Sampler(s, **kw)
-    with pytest.raises(ValueError, match="head_bits"):
-        Sampler(s, head_bits=5)
+    with pytest.raises(ValueError, match="top_k > 0"):
+        Sampler(SamplingConfig(temperature=1.0, top_k=0), spec_k=2)
+    Sampler(SamplingConfig(temperature=1.0, top_k=30), spec_k=2)
     import dataclasses
     with pytest.raises(NotImplementedError):
         t_llava.Llava(dataclasses.replace(TCFG32, visual_tokens=64))

@@ -159,7 +159,8 @@ def test_quantize_prompt_kv_bit_exact():
 def test_port_imports_no_jax():
     """Every opadpo_torch module, and chip_smoke.py, imports in a process
     where ``jax`` and ``opadpo_tpu`` cannot be imported; the training
-    slice's and the quantized base's modules are among them."""
+    slice's, the quantized base's and speculative decode's modules are
+    among them."""
     code = (
         "import sys, pkgutil, importlib, runpy\n"
         "sys.modules['jax'] = None\n"
@@ -172,7 +173,8 @@ def test_port_imports_no_jax():
         "assert {'opadpo_torch.engine.dpo', 'opadpo_torch.engine.train_state',"
         " 'opadpo_torch.ops.heads_layout', 'opadpo_torch.ops.logprobs',"
         " 'opadpo_torch.ops.image_ops', 'opadpo_torch.ops.quant',"
-        " 'opadpo_torch.pipeline.runtime'} <= set(names), names\n"
+        " 'opadpo_torch.pipeline.runtime', 'opadpo_torch.engine.speculative'}"
+        " <= set(names), names\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'opadpo_tpu'))"
         " for k, v in sys.modules.items() if v is not None)\n"

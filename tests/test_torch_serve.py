@@ -168,3 +168,39 @@ def test_profile_tool_rehearses_on_cpu(tmp_path, capsys):
     assert dec["host_ms"] > 0 and dec["device_busy_ms"] == 0
     assert dec["host_ms_per_step"] == pytest.approx(
         dec["host_ms"] / profile_serving.DECODE_STEPS)
+
+
+@pytest.mark.parametrize("mode", [
+    dict(kv_bits=4),
+    dict(kv_bits=8, spec_k=2, spec_draft="pad", spec_advance="per_row")])
+def test_worker_decode_modes_match_jax_worker(mode):
+    """The worker passes the int4 cache and speculative decode through to
+    its ``Sampler``: greedy text equal to the JAX worker's with the same
+    options."""
+    tok = FakeTokenizer()
+    req = {"prompt": "describe the picture", "image_b64": _png_b64(3)}
+    jw = JaxWorker(PARAMS, JCFG32, tok, max_batch=2, max_new_tokens=5,
+                   **mode)
+    tw = InferenceWorker(MODEL, TCFG32, tok, max_batch=2, max_new_tokens=5,
+                         device="cpu", **mode)
+    a, b = jw.submit(req), tw.submit(req)
+    tw.close()
+    assert "error" not in a and "error" not in b, (a, b)
+    assert a["text"] == b["text"], (mode, a, b)
+    assert tw.sampler.stats[-1].get("spec_groups", 0) == (
+        4 if "spec_k" in mode else 0)
+
+
+@pytest.mark.parametrize("args,want", [
+    (["--kv-bits", "4", "--chunk", "256", "--steps", "257"],
+     {"decode_steps": 257, "folds": 1, "sp_used": [256, 512]}),
+    (["--spec-k", "3", "--spec-advance", "per_row"],
+     {"decode_steps": 16, "folds": 0, "spec_groups": 16})])
+def test_profile_tool_rehearses_decode_modes_on_cpu(tmp_path, args, want):
+    """The profiling tool's chunked (one fold) and speculative decode on
+    the tiny model on the CPU."""
+    out = tmp_path / "p.json"
+    assert profile_serving.main(["--device", "cpu", "--json", str(out),
+                                 *args]) == 0
+    dec = json.loads(out.read_text())["decode"]
+    assert {k: dec[k] for k in want} == want
