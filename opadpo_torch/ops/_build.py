@@ -8,6 +8,11 @@ call, never at import time, and compiles every source at once, one
 ``build/opadpo_torch_kernels/<hash>/`` at the root of the checkout, keyed
 by a hash of the sources and flags, so an edited kernel rebuilds and an
 unchanged one loads at once.
+
+``flash_fwd.cu`` encodes TMA tensor maps with the driver's
+``cuTensorMapEncodeTiled``, which it takes from ``libcuda.so.1`` by
+``dlopen``/``dlsym`` at its first call, so the libraries link ``-ldl``
+(after the source, so the linker keeps it), not ``-lcuda``.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "heads_layout.cu",
            "decode_attention.cu", "quant_matmul.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-ldl",)              # after the source on the command line
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -46,7 +52,7 @@ def _nvcc() -> str:
 
 
 def build_dir() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -69,7 +75,8 @@ def build_all() -> dict:
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / name)]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / name),
+               *LINK_FLAGS]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target, time.perf_counter())

@@ -27,6 +27,7 @@ is zero on the training path.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -115,25 +116,90 @@ def _check_rows(*tensors):
                              "16-byte aligned rows")
 
 
-def _key_bias(key_mask, b, skv, device):
+def _key_valid(key_mask, b, skv, device):
+    """The key mask as a boolean [B, Skv] on ``device``, or None."""
     if key_mask is None:
         return None
     if key_mask.shape != (b, skv):
         raise ValueError(f"key_mask shape {tuple(key_mask.shape)}")
-    return torch.where(key_mask.to(device) != 0, 0.0,
-                       NEG_INF).to(torch.float32).contiguous()
+    return key_mask.to(device) != 0
+
+
+def _bias_of(valid):
+    """f32 additive key bias: 0 on valid keys, -1e30 on masked ones."""
+    if valid is None:
+        return None
+    return torch.where(valid, 0.0, NEG_INF).to(torch.float32).contiguous()
+
+
+def _key_bias(key_mask, b, skv, device):
+    return _bias_of(_key_valid(key_mask, b, skv, device))
+
+
+# the forward kernel's tiles: query rows per CTA, keys per K/V tile
+FWD_BQ = 128
+FWD_BK = 128
+
+
+@functools.lru_cache(maxsize=64)
+def _diagonal_tiles(sq: int, skv: int, causal: bool, device) -> torch.Tensor:
+    """int32 [1, ceil(Sq / BQ)]: the KV tiles up to each query tile's
+    diagonal, ``min(nkv, ceil((q0 + BQ + offset) / BK))``, or all ``nkv``
+    of them when not causal."""
+    nkv = -(-skv // FWD_BK)
+    nq = -(-sq // FWD_BQ)
+    if not causal:
+        return torch.full((1, nq), nkv, dtype=torch.int32, device=device)
+    first = FWD_BQ + (skv - sq) + FWD_BK - 1            # q0 = 0
+    ends = torch.arange(first, first + nq * FWD_BQ, FWD_BQ,
+                        dtype=torch.int32, device=device)
+    return ends.div_(FWD_BK, rounding_mode="floor").clamp_(max=nkv)[None]
+
+
+def kv_tile_count(valid, sq: int, skv: int, causal: bool,
+                  device=None) -> torch.Tensor:
+    """The KV tiles the forward kernel walks, int32 [B, ceil(Sq / 128)]
+    for a boolean key mask ``valid`` [B, Skv] ([1, ...] for every batch
+    row when ``valid`` is None).  Not causal: all of them.  Causal: those
+    up to the query tile's diagonal, unless the tile's first row (q0 +
+    offset) sees no valid key; then a row of the tile averages over every
+    key (as ``mha_reference_lse`` gives it), and the tile walks them all.
+    The kernel reads the count, so its producer and consumers agree on it
+    before the loop."""
+    diag = _diagonal_tiles(sq, skv, causal,
+                           torch.device(device or valid.device))
+    if valid is None or not causal:
+        return diag
+    # keys valid in [0, q0 + offset], at q0 = 0, BQ, ... (all < Skv)
+    seen = valid.cumsum(1, dtype=torch.int32)[:, skv - sq::FWD_BQ]
+    return torch.where(seen == 0, -(-skv // FWD_BK), diag)
+
+
+def _fwd_error(err: int) -> None:
+    if err == -1:
+        raise RuntimeError("flash_fwd: libcuda.so.1 has no "
+                           "cuTensorMapEncodeTiled")
+    if err >= 100000:
+        raise RuntimeError(f"flash_fwd: cuTensorMapEncodeTiled failed with "
+                           f"CUresult {err - 100000}")
+    _build.check(err, "flash_fwd")
 
 
 def flash_fwd_cuda(q, k, v, key_mask=None, causal=True, scale=None):
     """Launch the flash forward kernel -> (o [B, Sq, H, D] bf16 contiguous,
     lse [B, H, Sq] f32).  q: bf16 CUDA [B, Sq, H, D], k, v: [B, Skv, H, D],
-    unit stride on D, any strides on B, S and H."""
+    unit stride on D, any strides on B, S and H (multiples of 8 elements),
+    read by TMA through tensor maps the C launcher encodes.  The kernel
+    reads the key mask as an additive f32 bias [B, Skv] and its tile counts
+    from ``kv_tile_count``."""
     _check_cuda_qkv(q, k, v, (32, 64, 128))
     b, sq, h, d = q.shape
     skv = k.shape[1]
     if scale is None:
         scale = d ** -0.5
-    kbias = _key_bias(key_mask, b, skv, q.device)
+    valid = _key_valid(key_mask, b, skv, q.device)
+    kbias = _bias_of(valid)
+    ntiles = kv_tile_count(valid, sq, skv, causal, q.device)
     o = torch.empty((b, sq, h, d), dtype=torch.bfloat16, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
@@ -141,10 +207,11 @@ def flash_fwd_cuda(q, k, v, key_mask=None, causal=True, scale=None):
     err = _fwd_lib().opadpo_flash_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         kbias.data_ptr() if kbias is not None else None,
+        ntiles.data_ptr(), ntiles.shape[1] if ntiles.shape[0] > 1 else 0,
         o.data_ptr(), lse.data_ptr(), b, sq, skv, h, d, strides, int(causal),
         skv - sq, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_fwd")
+    _fwd_error(err)
     flash_fwd_cuda.launches += 1
     return o, lse
 
@@ -232,7 +299,7 @@ def _fwd_lib():
     fn = lib.opadpo_flash_fwd_bf16
     if not fn.argtypes:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i,
+        fn.argtypes = [vp, vp, vp, vp, vp, i, vp, vp, i, i, i, i, i,
                        ctypes.POINTER(ctypes.c_int64), i, i, ctypes.c_float,
                        vp]
         fn.restype = ctypes.c_int

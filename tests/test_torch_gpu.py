@@ -100,10 +100,66 @@ def test_int4_and_multi_decode_kernels_match_plain_on_gpu(hd):
             torch.zeros(b, h, 9, hd, device=dev), pk, ks, pv, vs, bias, 1.0)
 
 
+def _flash_inputs(g, sq, skv, d, head_major):
+    """q [3, sq, 2, d] over k, v [3, skv, 2, d], bf16; head-major tensors
+    are passed as the permuted [B, S, H, D] view ``_kernel_view`` gives.
+    Keys: row 0 loses a block in the middle (CoPO-style), row 1 is
+    left-padded by 50, row 2 is masked everywhere."""
+    def make(s):
+        if head_major:
+            return torch.randn(3, 2, s, d, generator=g, device="cuda",
+                               dtype=torch.bfloat16).permute(0, 2, 1, 3)
+        return torch.randn(3, s, 2, d, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+    q, k, v = make(sq), make(skv), make(skv)
+    mask = torch.ones(3, skv, dtype=torch.int32, device="cuda")
+    mask[0, skv // 3: skv // 3 + skv // 4 + 1] = 0
+    mask[1, :min(50, skv - 1)] = 0
+    mask[2] = 0
+    return q, k, v, mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sq,skv", [(1, 1), (1, 129), (65, 65), (129, 129),
+                                    (129, 300), (703, 703), (896, 1599)])
+def test_flash_fwd_shapes_match_plain_on_gpu(d, sq, skv):
+    """The TMA/wgmma forward at head widths 32, 64 and 128, lengths around
+    its 128-row tiles, the response stream's 896 over 1599 keys, causal
+    (offset Skv - Sq) and bidirectional, contiguous and head-major views,
+    with middle-masked keys, left padding and a fully masked row: o within
+    2e-2 and lse within 1e-3 of the plain version, as above, and each
+    (b, q, h) row of o within 2e-2 of that row's largest |o_ref| (bf16
+    rounding of o on both sides is about 7.8e-3 of it, and the H100's
+    readings were at most 9.05e-3; a fault in P V moves entries by their
+    own size, which the absolute bound misses on rows that average over
+    many keys)."""
+    g = _gen()
+    for head_major in (False, True):
+        q, k, v, mask = _flash_inputs(g, sq, skv, d, head_major)
+        for causal in (True, False):
+            o, lse = t_attention.flash_fwd_cuda(q, k, v, mask, causal)
+            o_ref, lse_ref = t_attention.mha_reference_lse(q, k, v, mask,
+                                                           causal)
+            assert o.shape == o_ref.shape and lse.shape == lse_ref.shape
+            err_o = (o.float() - o_ref.float()).abs().max().item()
+            err_lse = (lse - lse_ref).abs().max().item()
+            ref = o_ref.float()
+            err_row = ((o.float() - ref).abs().amax(-1)
+                       / ref.abs().amax(-1).clamp_min(1e-30)).max().item()
+            print(f"flash d {d} sq {sq} skv {skv} head_major {head_major} "
+                  f"causal {causal}: o {err_o:.3e} row {err_row:.3e} "
+                  f"lse {err_lse:.3e}")
+            assert err_o < 2e-2, (head_major, causal, err_o)
+            assert err_row < 2e-2, (head_major, causal, err_row)
+            assert err_lse < 1e-3, (head_major, causal, err_lse)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal,d,sq,skv", [
     (True, 128, 203, 203), (False, 64, 77, 77), (True, 128, 96, 250),
-    (True, 64, 130, 130)])
+    (True, 64, 130, 130), (True, 64, 65, 65),
+    (True, 128, 129, 300)])
 def test_flash_rect_and_backward_match_plain_on_gpu(causal, d, sq, skv):
     """The forward at Sq < Skv (offset Skv - Sq) and both backward kernels
     against the plain backward, bf16, with left padding and one fully
