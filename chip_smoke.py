@@ -14,9 +14,13 @@ Phases, each fatal on failure:
      left-padded key masks and one fully masked row; its ptxas report
      (registers, spills, C7508), shared memory, and each shape's share of
      its bound beside SDPA and the WMMA kernel's earlier time;
-  4. the flash backward kernels, dQ (#2) and dK/dV (#3), against the plain
-     backward at the training shapes ([2, 703, 32, 128] causal prefix, the
-     response stream at [6, 896 over 1599, 32, 128]);
+  4. the flash backward kernels, dQ (#2) and dK/dV (#3, both TMA rings
+     and warp-specialised wgmma), against the plain backward at the
+     training shapes ([2, 703, 32, 128] causal prefix, the response stream
+     at [6, 896 over 1599, 32, 128]): each output and each of its rows, two
+     launches bitwise equal; their ptxas report (a spill, C7508 or C7514
+     fails), shared memory, and each kernel's share of its bound beside
+     SDPA's backward and the WMMA kernels' earlier times;
   5. the head-layout kernels, scatter (#4, RoPE) and gather (#5, inverse
      RoPE), against their plain versions at [2, 703, 4096] and
      [6, 896, 4096];
@@ -301,11 +305,36 @@ def phase_flash(g, flush):
     return res
 
 
+# dq per query row, dk and dv per key row, against that row's largest
+# |ref|; a row whose largest entry is under BWD_ROW_FLOOR of the tensor's
+# (a query that sees one key has dq ~ 0: its dS is dP - delta, which
+# cancels) is held against BWD_ROW_FLOOR of it.  bf16 rounding of the
+# output on both sides is about one unit in the last place (7.8e-3 of the
+# row's largest entry), and P and dS are rounded to bf16 before their
+# products on both sides; the H100 readings at the two shapes and in
+# tests/test_torch_gpu.py were at most 7.75e-3 (PERF.md), so the limit is
+# 2.6 times that; a fault in a tile (a slab, a stage, a walk) moves a
+# row's entries by their own size.
+BWD_ROW_FLOOR = 1e-2
+BWD_ROW_TOL = 2e-2
+
+
+def bwd_row_err(a, ref):
+    """max over rows [..., D] of max |a - ref| / max(max |ref_row|,
+    BWD_ROW_FLOOR max |ref|)."""
+    r = ref.float()
+    den = r.abs().amax(-1).clamp_min(BWD_ROW_FLOOR * r.abs().max().item())
+    return ((a.float() - r).abs().amax(-1)
+            / den.clamp_min(1e-30)).max().item()
+
+
 def _bwd_case(b, sq, skv, h, d, g, flush):
     """Both backward kernels against the plain backward, causal, keys
     left-padded by 29 per row (so the square case has fully masked rows,
     as a left-padded prefix does, with a zero output gradient, as nothing
-    on the training path reads them)."""
+    on the training path reads them): each output within 2e-2 of its
+    largest |ref|, each row within BWD_ROW_TOL (``bwd_row_err``), and a
+    second launch bitwise equal to the first."""
     import torch
     import torch.nn.functional as F
 
@@ -322,22 +351,33 @@ def _bwd_case(b, sq, skv, h, d, g, flush):
         do[i, :max(0, 29 * i - (skv - sq))] = 0
     scale = d ** -0.5
     o, lse = attention.flash_fwd_cuda(q, k, v, mask, True, scale)
-    inputs = attention.flash_bwd_inputs(q, k, v, mask, o, lse, do)
-    dq = attention.flash_bwd_dq_cuda(q, k, v, mask, True, scale, o, lse, do,
-                                     inputs)
-    dk, dv = attention.flash_bwd_dkv_cuda(q, k, v, mask, True, scale, o, lse,
-                                          do, inputs)
+    inputs = attention.flash_bwd_inputs(q, k, v, mask, True, o, lse, do)
+
+    def kernels():
+        dq = attention.flash_bwd_dq_cuda(q, k, v, mask, True, scale, o, lse,
+                                         do, inputs)
+        dk, dv = attention.flash_bwd_dkv_cuda(q, k, v, mask, True, scale, o,
+                                              lse, do, inputs)
+        return dq, dk, dv
+
+    got, again = kernels(), kernels()
     ref = attention.flash_bwd_reference(q, k, v, mask, True, scale, o, lse,
                                         do)
     torch.cuda.synchronize()
-    errs = {}
-    for name, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+    errs, row_errs = {}, {}
+    for name, a, a2, r in zip(("dq", "dk", "dv"), got, again, ref):
         check(torch.isfinite(a.float()).all().item(), f"{name} not finite")
+        check(torch.equal(a, a2), f"flash bwd {name}: two launches differ "
+              f"at {[b, sq, skv, h, d]}")
         err = (a.float() - r.float()).abs().max().item()
         top = r.float().abs().max().item()
         check(err <= 2e-2 * top, f"flash bwd {name} error {err} > 2e-2 x "
               f"{top} at {[b, sq, skv, h, d]}")
-        errs[name] = err
+        row = bwd_row_err(a, r)
+        check(row <= BWD_ROW_TOL, f"flash bwd {name} row error {row} > "
+              f"{BWD_ROW_TOL} of the row's largest entry at "
+              f"{[b, sq, skv, h, d]}")
+        errs[name], row_errs[name] = err, row
     dq_ms = time_ms(lambda: attention.flash_bwd_dq_cuda(
         q, k, v, mask, True, scale, o, lse, do, inputs), flush)
     dkv_ms = time_ms(lambda: attention.flash_bwd_dkv_cuda(
@@ -356,17 +396,68 @@ def _bwd_case(b, sq, skv, h, d, g, flush):
     stats = 2 * b * h * sq * 4 + b * skv * 4
     dq_bound = _bound(3 * q_bytes + 2 * kv_bytes + stats, 6 * d * pairs)
     dkv_bound = _bound(2 * q_bytes + 4 * kv_bytes + stats, 8 * d * pairs)
-    res = {"shape": [b, sq, skv, h, d], "err": errs, "dq_ms": dq_ms,
-           "dkv_ms": dkv_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    res = {"shape": [b, sq, skv, h, d], "err": errs, "row_err": row_errs,
+           "dq_ms": dq_ms, "dkv_ms": dkv_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
            "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
-           "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1]}
+           "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
+           "dq_share_of_bound": dq_bound[0] / dq_ms,
+           "dkv_share_of_bound": dkv_bound[0] / dkv_ms}
     log(f"[flash_bwd] {json.dumps(res)}")
     return res
 
 
+# #2 and #3 before their TMA/wgmma redesign (the WMMA kernels; chip runs of
+# chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, recorded in PERF.md)
+FLASH_BWD_WAS_MS = {"prefix": (0.348, 0.375), "response": (3.050, 3.188)}
+
+
+def ptxas_findings(src):
+    """The ptxas report of one source: (its register, shared memory and
+    spill lines and its C7512 "wgmma serialized for register resources"
+    lines, a finding recorded in PERF.md; the lines that are faults: a
+    spill, a C7508 "setmaxnreg ignored", a C7514 "wgmma serialized" for
+    accumulators read in flight, any other ptxas warning)."""
+    from opadpo_torch.ops import _build
+
+    ptxas = _build.last_build.get(src, {}).get("ptxas", "")
+    shown, faults = [], []
+    for line in ptxas.splitlines():
+        line = line.strip()
+        if any(w in line for w in ("registers", "spill", "smem", "C7512")):
+            shown.append(line)
+        spills = "spill stores" in line and not (
+            "0 bytes spill stores, 0 bytes spill loads" in line)
+        if spills or "C7508" in line or "C7514" in line \
+                or line.startswith("ptxas warning"):
+            faults.append(line)
+    return shown, faults
+
+
 def phase_flash_bwd(g, flush):
-    return {"prefix": _bwd_case(2, 703, 703, 32, 128, g, flush),
-            "response": _bwd_case(6, 896, 1599, 32, 128, g, flush)}
+    from opadpo_torch.ops import attention
+
+    shown, faults = ptxas_findings("flash_bwd.cu")
+    for line in shown + faults:
+        log(f"[flash_bwd] ptxas: {line}")
+    check(not faults, f"flash_bwd.cu: ptxas reports {faults}")
+    lib = attention._bwd_lib()
+    log("[flash_bwd] dynamic shared memory: " + ", ".join(
+        f"{name} D {d}: {lib.opadpo_flash_bwd_smem_bytes(which, d)} B"
+        for which, name in ((0, "dQ"), (1, "dK/dV")) for d in (64, 128)))
+    res = {"prefix": _bwd_case(2, 703, 703, 32, 128, g, flush),
+           "response": _bwd_case(6, 896, 1599, 32, 128, g, flush)}
+    for name, r in res.items():
+        was_dq, was_dkv = FLASH_BWD_WAS_MS[name]
+        log(f"[flash_bwd] {name}: dQ {r['dq_ms']:.4f} ms = "
+            f"{100 * r['dq_share_of_bound']:.1f} % of its "
+            f"{r['dq_bound_ms']:.4f} ms bound ({r['dq_bound_by']}), dK/dV "
+            f"{r['dkv_ms']:.4f} ms = {100 * r['dkv_share_of_bound']:.1f} % "
+            f"of {r['dkv_bound_ms']:.4f} ({r['dkv_bound_by']}); pair "
+            f"{r['dq_ms'] + r['dkv_ms']:.4f} ms, SDPA backward "
+            f"{r['library_ms']:.4f} ms; the WMMA kernels {was_dq} + "
+            f"{was_dkv} ms (PERF.md); row errors {r['row_err']}")
+    return res
 
 
 def _heads_case(b, s, g, flush):
@@ -1102,6 +1193,108 @@ def _leading_agreement(a: str, b: str) -> int:
     return n
 
 
+def _server_batch(cfg, prompts, rows, dev):
+    """(ids, mask, images) as ``serve.InferenceWorker`` builds a batch of
+    ``rows`` rows for these prompts: left-padded to qlen 128 (or the next
+    multiple of 64), black images."""
+    import numpy as np
+    import torch
+
+    from opadpo_torch.data.image_processing import black_image
+    from opadpo_torch.data.tokenization import tokenizer_image_token
+    from opadpo_torch.serve import build_prompt
+
+    tok = [np.asarray(tokenizer_image_token(build_prompt(p),
+                                            WordTokenizer()), np.int64)
+           for p in prompts]
+    qlen = max(128, -(-max(len(r) for r in tok) // 64) * 64)
+    ids = np.zeros((rows, qlen), np.int64)
+    mask = np.zeros((rows, qlen), np.int64)
+    for i, r in enumerate(tok):
+        ids[i, -len(r):] = r
+        mask[i, -len(r):] = 1
+    size = cfg.vision.image_size
+    images = np.stack([black_image(size)] * rows).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(dev) for x in (ids, mask, images))
+
+
+def spec_departure(model, prompts, rows=8, max_new=64, k=4):
+    """Where speculative greedy (k drafts, ngram, per-row advance, int8 KV:
+    the verify kernel #8) first departs from plain greedy (#6) on one
+    server-shaped batch of ``prompts``, decoded from one prefill, and the
+    two numbers that tell rounding from a fault there: plain greedy's
+    top-2 logit gap at that position, and the largest |logits(#8) -
+    logits(#6)| over the vocabulary at it (both paths emitted the same
+    tokens before it).  The departure is rounding only where the gap is
+    the smaller.  Returns the first departure of each row that departs and
+    the verdict."""
+    import torch
+
+    from opadpo_torch.engine import speculative
+    from opadpo_torch.engine.sampler import Sampler, decode_loop_unrolled
+    from opadpo_torch.engine.serving_config import make_serving_sampling
+    from opadpo_torch.models import llava
+
+    dev = next(model.parameters()).device
+    sampling = make_serving_sampling(greedy=True, max_new_tokens=max_new,
+                                     eos_token_id=2, pad_token_id=0)
+    ids, mask, images = _server_batch(model.cfg, prompts, rows, dev)
+    rec_plain, rec_spec = [], []
+    step_fn, multi_fn = llava.decode_step_unrolled, llava.decode_step_multi_pr
+
+    def plain_step(*a, **kw):
+        logits, suffix = step_fn(*a, **kw)
+        rec_plain.append(logits.float())
+        return logits, suffix
+
+    def multi_step(*a, **kw):
+        logits, raw = multi_fn(*a, **kw)
+        rec_spec.append(logits.float())
+        return logits, raw
+
+    with torch.inference_mode():
+        pf = Sampler(sampling, kv_bits=8).prefill(model, ids, mask, images)
+        args = (model, pf["kv_list"], pf["key_mask"], pf["next_position"],
+                pf["last_logits"], None, sampling)
+        try:
+            llava.decode_step_unrolled = plain_step
+            llava.decode_step_multi_pr = multi_step
+            out_plain, _ = decode_loop_unrolled(*args)
+            out_spec, st = speculative.decode_loop_spec(
+                *args, speculative.SpecConfig(k=k, advance="per_row"))
+        finally:
+            llava.decode_step_unrolled = step_fn
+            llava.decode_step_multi_pr = multi_fn
+    departures = []
+    for b in range(len(prompts)):
+        differ = torch.nonzero(out_plain[b] != out_spec[b])
+        if not len(differ):
+            continue
+        pos = int(differ[0])
+        if pos == 0 or pos > len(rec_plain):
+            continue            # from the shared prefill, or past plain's end
+        lp = rec_plain[pos - 1][b]
+        e = 1
+        for gi, adv in enumerate(st["advances"]):
+            if e <= pos < e + adv[b]:
+                ls = rec_spec[gi][b, pos - e]
+                break
+            e += adv[b]
+        top2 = lp.topk(2).values
+        departures.append({
+            "row": b, "position": pos,
+            "tokens_plain_spec": [int(out_plain[b, pos]),
+                                  int(out_spec[b, pos])],
+            "plain_top2_gap": float(top2[0] - top2[1]),
+            "max_abs_logit_diff": float((ls - lp).abs().max())})
+    rounding = all(d["plain_top2_gap"] < d["max_abs_logit_diff"]
+                   for d in departures)
+    return {"rows_departing": len(departures), "of": len(prompts),
+            "departures": departures,
+            "verdict": ("no departure" if not departures else
+                        "rounding" if rounding else "fault")}
+
+
 def phase_spec_serve(model, card, plain_answers):
     """Path B, speculative serving: k = 4 ngram drafts verified per group
     (G = 5) over the int8 cache, greedy, 64 new tokens, per-row advance at
@@ -1143,6 +1336,9 @@ def phase_spec_serve(model, card, plain_answers):
             "launches_multi": launches["decode_attention_multi"],
             "card": card}
         log(f"[spec-serve] {advance}: {json.dumps(runs[advance])}")
+    runs["departure"] = spec_departure(model, prompts)
+    log(f"[spec-serve] where speculative greedy departs from plain greedy: "
+        f"{json.dumps(runs['departure'])}")
     return runs
 
 
@@ -1502,7 +1698,7 @@ def slice4_kernel_entries(decode, rollout, spec):
              "[8,32,768,128] packed int4 (1536 positions), s_used 768 (7B "
              "rollout decode step, one layer, first chunk)"),
             ("decode_attention_multi", "multi", "359",
-             sum(r["launches_multi"] for r in spec.values()),
+             sum(spec[a]["launches_multi"] for a in ("per_row", "shared")),
              "[8,32,768,128] int8, G 5 (k 4), s_used 768 (7B verify "
              "group, one layer)")):
         cases = decode[group]
@@ -1593,6 +1789,7 @@ def main() -> int:
     ]
     for kname, key in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dkv")):
         r, p = bwd["response"], bwd["prefix"]
+        outs = (key,) if key == "dq" else ("dk", "dv")
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "opadpo_torch/csrc/flash_bwd.cu",
@@ -1600,19 +1797,22 @@ def main() -> int:
                         + ("263" if key == "dq" else "302"),
             "launches": train["launches"][kname],
             "launches_per_train_step": steps[kname],
-            "max_abs_err": max(x["err"][n] for x in (r, p)
-                               for n in ((key,) if key == "dq"
-                                         else ("dk", "dv"))),
+            "max_abs_err": max(x["err"][n] for x in (r, p) for n in outs),
+            "max_row_rel_err": max(x["row_err"][n] for x in (r, p)
+                                   for n in outs),
             "ms": r[key + "_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r[key + "_bound_ms"],
             "bound_by": r[key + "_bound_by"], "library_ms": r["library_ms"],
+            "share_of_bound": r[key + "_share_of_bound"],
+            "design": "tma+wgmma",
             "at": "[6,896 over 1599,32,128] bf16 causal offset 703 "
                   "(response stream); plain and library compute dq, dk, dv "
                   "together",
             "prefix": {"ms": p[key + "_ms"], "plain_ms": p["plain_ms"],
                        "library_ms": p["library_ms"],
                        "bound_ms": p[key + "_bound_ms"],
-                       "bound_by": p[key + "_bound_by"]}})
+                       "bound_by": p[key + "_bound_by"],
+                       "share_of_bound": p[key + "_share_of_bound"]}})
     for kname, key, line in (("scatter_heads", "scatter", "582"),
                              ("gather_heads", "gather", "602")):
         r, p = heads["response"][key], heads["prefix"][key]

@@ -54,27 +54,20 @@
 // - the causal test runs only on tiles that reach past the tile's first
 //   row's diagonal; the bias is added on every tile.
 // Not done yet: a persistent grid, clusters and multicast, ping-pong of
-// the consumer warpgroups.
+// the consumer warpgroups.  The mbarrier, TMA, wgmma and tensor-map helpers
+// are in hopper.cuh, shared with flash_bwd.cu.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
-#include <math.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int BQ = 128;            // query rows per CTA, 64 per consumer warpgroup
 constexpr int BK = 128;            // keys per K/V tile
 constexpr int NST = 3;             // stages of the K/V ring (227 KB at D 128)
 constexpr int NTHREADS = 384;      // consumer warpgroups 0, 1; producer 2
 constexpr int SLAB = 128 * 128;    // 128 rows of 64 bf16: one swizzle span wide
-constexpr float kMask = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 // shared memory, byte offsets from a 1024-aligned base (the swizzle's period)
 template <int DP>
@@ -91,174 +84,6 @@ struct Smem {
   static constexpr int ALLOC = BYTES + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// raise the transaction bytes the barrier's current phase waits for,
-// without arriving
-__device__ __forceinline__ void mbar_add_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// wait for the completion of the barrier's phase of this parity
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets (K-major: SBO = 1024 between 8-row groups; MN-major:
-// LBO between 64-column slabs, SBO = 1024 between 8-row groups of K)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return uint64_t((addr & 0x3FFFF) >> 4) |
-         (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
-         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed wgmma groups are still running
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keep the compiler from moving register reads or writes across an
-// asynchronous wgmma's issue or wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define F4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
-#define F16(a, i) F4(a, i), F4(a, i + 4), F4(a, i + 8), F4(a, i + 12)
-
-// d[64x128] (+)= A[64x16] B[16x128], both from shared memory, K-major
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : F16(d, 0), F16(d, 16), F16(d, 32), F16(d, 48)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64x128] += A[64x16] (registers) B[16x128] (shared memory, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, "
-      "1, 1;\n}\n"
-      : F16(d, 0), F16(d, 16), F16(d, 32), F16(d, 48)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[64x64] += A[64x16] (registers) B[16x64] (shared memory, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : F16(d, 0), F16(d, 16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef F16
-#undef F4
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Accumulator fragments (wgmma m64nN, f32): thread t of a warpgroup holds
-// rows (t/32)*16 + (t%32)/4 (+8) and, for each 8-column block n, columns
-// 8n + 2(t%4) (+1): d[4n], d[4n+1] on the first row, d[4n+2], d[4n+3] on
-// the second.  The same pairs, as bf16, are the A fragments of P V.
-
 // issue S = Q K^T for one tile: D/16 steps of 16 columns, 32 bytes apart in
 // a 64-column slab
 template <int DP>
@@ -269,24 +94,6 @@ __device__ __forceinline__ void issue_scores(float (&sc)[64], uint32_t qa,
     const uint32_t off = (kk / 4) * SLAB + (kk % 4) * 32;
     wgmma_ss_n128(sc, sw128_desc(qa + off, 16, 1024),
                   sw128_desc(ka + off, 16, 1024), kk > 0);
-  }
-  wgmma_commit();
-}
-
-// issue O += P V for one tile: 16 keys a step, 16 rows of 128 bytes apart
-template <int DP>
-__device__ __forceinline__ void issue_pv(float (&oacc)[DP / 2],
-                                         const uint32_t (&pa)[32],
-                                         uint32_t va) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    const uint32_t af[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
-                            pa[4 * kk + 3]};
-    const uint64_t db = sw128_desc(va + kk * 2048, SLAB, 1024);
-    if constexpr (DP == 128)
-      wgmma_rs_n128(oacc, af, db);
-    else
-      wgmma_rs_n64(oacc, af, db);
   }
   wgmma_commit();
 }
@@ -341,16 +148,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64],
   }
   l[0] = l[0] * a[0] + ps0;        // quads sum their shares at the end
   l[1] = l[1] * a[1] + ps1;
-}
-
-// P (f32 fragments) to the bf16 A fragments of P V
-__device__ __forceinline__ void pack_p(const float (&sc)[64],
-                                       uint32_t (&pa)[32]) {
-#pragma unroll
-  for (int n = 0; n < 16; ++n) {
-    pa[2 * n] = pack_bf16(sc[4 * n], sc[4 * n + 1]);
-    pa[2 * n + 1] = pack_bf16(sc[4 * n + 2], sc[4 * n + 3]);
-  }
 }
 
 template <int D>
@@ -460,7 +257,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<0>();
     fence_regs(sc);
     softmax_tile(sc, bias_tile(0), c2, 0 >= inner, lim, scale_log2, m, l, a);
-    pack_p(sc, pa);
+    pack_acc(sc, pa);
 
     for (int j = 0; j + 1 < ntiles; ++j) {
       const int s = j % NST;
@@ -472,7 +269,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(pa);
       wgmma_fence();
       issue_scores<DP>(sc, qa, sbase + L::K + sn * L::TILE);
-      issue_pv<DP>(oacc, pa, sbase + L::V + s * L::TILE);
+      issue_rs<DP, BK / 16>(oacc, pa, sbase + L::V + s * L::TILE, SLAB);
       wgmma_wait<1>();                   // the scores; P V may still run
       fence_regs(sc);
       softmax_tile(sc, bias_tile(j + 1), c2, j + 1 >= inner,
@@ -488,7 +285,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
         oacc[4 * n + 2] *= a[1];
         oacc[4 * n + 3] *= a[1];
       }
-      pack_p(sc, pa);
+      pack_acc(sc, pa);
     }
     {                                    // the last tile's P V
       const int s = (ntiles - 1) % NST;
@@ -496,7 +293,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(oacc);
       fence_regs(pa);
       wgmma_fence();
-      issue_pv<DP>(oacc, pa, sbase + L::V + s * L::TILE);
+      issue_rs<DP, BK / 16>(oacc, pa, sbase + L::V + s * L::TILE, SLAB);
       wgmma_wait<0>();
       fence_regs(oacc);
       mbar_arrive(empty(s));
@@ -526,50 +323,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in the driver (libcuda), which the CUDA
-// runtime has loaded already; taking it by dlsym needs no -lcuda at build
-// time and no particular runtime version's entry-point API.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    if (lib != nullptr)
-      fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
-// 4-D map over a bf16 [B, S, H, D] view with element strides st = (b, s,
-// h), unit stride on D: dims (D, S, H, B), a box of 64 columns x 128 rows
-constexpr int kErrNoEncode = -1;        // returned when the driver lacks it
-constexpr int kErrEncodeBase = 100000;  // + the CUresult of a failed encode
-
-int make_map(CUtensorMap* map, const void* base, int S, int H, int B, int D,
-             const int64_t* st) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return kErrNoEncode;
-  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(S), cuuint64_t(H),
-                              cuuint64_t(B)};
-  const cuuint64_t strides[3] = {cuuint64_t(st[1]) * 2, cuuint64_t(st[2]) * 2,
-                                 cuuint64_t(st[0]) * 2};
-  const cuuint32_t box[4] = {64, 128, 1, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(base), dims, strides, box, estr,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrEncodeBase + int(r);
-}
-
 template <int D>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
            const float* kbias, const int* tile_counts, int counts_ld, void* o,
@@ -577,13 +330,8 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
            float scale_log2, cudaStream_t stream) {
   constexpr int smem = Smem<(D < 64 ? 64 : D)>::ALLOC;
   static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return int(e);
-    configured = true;
-  }
+  const int err = allow_smem(flash_fwd_kernel<D>, smem, configured);
+  if (err != 0) return err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
       tq, tk, tv, kbias, tile_counts, counts_ld, static_cast<bf16*>(o), lse,
@@ -617,9 +365,9 @@ extern "C" int opadpo_flash_fwd_bf16(const void* q, const void* k,
                                      int offset, float scale, void* stream) {
   if (D != 32 && D != 64 && D != 128) return int(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
-  int err = make_map(&tq, q, Sq, H, B, D, strides);
-  if (err == 0) err = make_map(&tk, k, Skv, H, B, D, strides + 3);
-  if (err == 0) err = make_map(&tv, v, Skv, H, B, D, strides + 6);
+  int err = make_map(&tq, q, Sq, H, B, D, strides, BQ);
+  if (err == 0) err = make_map(&tk, k, Skv, H, B, D, strides + 3, BK);
+  if (err == 0) err = make_map(&tv, v, Skv, H, B, D, strides + 6, BK);
   if (err != 0) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* kb = static_cast<const float*>(kbias);

@@ -9,9 +9,10 @@ call, never at import time, and compiles every source at once, one
 by a hash of the sources and flags, so an edited kernel rebuilds and an
 unchanged one loads at once.
 
-``flash_fwd.cu`` encodes TMA tensor maps with the driver's
-``cuTensorMapEncodeTiled``, which it takes from ``libcuda.so.1`` by
-``dlopen``/``dlsym`` at its first call, so the libraries link ``-ldl``
+The two flash sources share ``csrc/hopper.cuh`` (mbarrier, TMA and wgmma
+helpers), which the hash covers too.  They encode TMA tensor maps with the
+driver's ``cuTensorMapEncodeTiled``, taken from ``libcuda.so.1`` by
+``dlopen``/``dlsym`` at the first call, so the libraries link ``-ldl``
 (after the source, so the linker keeps it), not ``-lcuda``.
 """
 
@@ -31,6 +32,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
     "opadpo_torch_kernels"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "heads_layout.cu",
            "decode_attention.cu", "quant_matmul.cu")
+# included by the sources, so hashed with them: an edited header rebuilds
+HEADERS = ("hopper.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-ldl",)              # after the source on the command line
@@ -53,7 +56,7 @@ def _nvcc() -> str:
 
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

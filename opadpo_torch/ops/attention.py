@@ -132,57 +132,130 @@ def _bias_of(valid):
     return torch.where(valid, 0.0, NEG_INF).to(torch.float32).contiguous()
 
 
-def _key_bias(key_mask, b, skv, device):
-    return _bias_of(_key_valid(key_mask, b, skv, device))
-
-
 # the forward kernel's tiles: query rows per CTA, keys per K/V tile
 FWD_BQ = 128
 FWD_BK = 128
+# the backward kernels' tiles: each CTA owns 128 rows (queries in dQ, keys
+# in dK/dV) and walks tiles of 64 of the others
+BWD_OWN = 128
+BWD_WALK = 64
 
 
 @functools.lru_cache(maxsize=64)
-def _diagonal_tiles(sq: int, skv: int, causal: bool, device) -> torch.Tensor:
-    """int32 [1, ceil(Sq / BQ)]: the KV tiles up to each query tile's
-    diagonal, ``min(nkv, ceil((q0 + BQ + offset) / BK))``, or all ``nkv``
+def _steps(n: int, step: int, shift: int, device) -> torch.Tensor:
+    """int32 [n]: shift, shift + step, ..., shift + (n - 1) step."""
+    return torch.arange(shift, shift + n * step, step, dtype=torch.int32,
+                        device=device)
+
+
+def blind_rows(valid, sq: int, skv: int,
+               causal: bool) -> Optional[torch.Tensor]:
+    """The query rows of each batch row that see no valid key, int32 [B],
+    for a boolean key mask ``valid`` [B, Skv] (None when ``valid`` is None:
+    then every row sees key 0).  They always lead: causal, row r sees keys
+    [0, r + offset] (offset Skv - Sq), so with its first valid key at f
+    (Skv if none) it is blind iff f > r + offset, and the blind rows are
+    [0, clamp(f - offset, 0, Sq)); without causal masking, all Sq rows or
+    none.  Such a row comes out uniform over every key, and the backward's
+    P for it is 1 on every key.  The forward's and both backward kernels'
+    walks follow from it (``kv_tile_count``, ``q_tile_walk``)."""
+    if valid is None:
+        return None
+    if not causal:
+        return torch.full((valid.shape[0],), sq, dtype=torch.int32,
+                          device=valid.device).masked_fill_(valid.any(1), 0)
+    # min over valid keys c of clamp(c - offset, 0, Sq), Sq if none: no key
+    # index exceeds Skv - 1 - offset = Sq - 1, so the cached index needs
+    # only its lower clamp, and a row with no valid key takes Sq
+    return torch.where(valid, _key_rows(skv, skv - sq, valid.device),
+                       sq).amin(1)
+
+
+@functools.lru_cache(maxsize=64)
+def _key_rows(skv: int, offset: int, device) -> torch.Tensor:
+    """int32 [Skv]: max(c - offset, 0), the query rows a valid key c
+    leaves blind."""
+    return _steps(skv, 1, -offset, device).clamp(min=0)
+
+
+@functools.lru_cache(maxsize=64)
+def _diagonal_tiles(sq: int, skv: int, causal: bool, bq: int, bk: int,
+                    device) -> torch.Tensor:
+    """int32 [1, ceil(Sq / bq)]: the key tiles up to each query tile's
+    diagonal, ``min(nkv, ceil((q0 + bq + offset) / bk))``, or all ``nkv``
     of them when not causal."""
-    nkv = -(-skv // FWD_BK)
-    nq = -(-sq // FWD_BQ)
+    nkv = -(-skv // bk)
+    nq = -(-sq // bq)
     if not causal:
         return torch.full((1, nq), nkv, dtype=torch.int32, device=device)
-    first = FWD_BQ + (skv - sq) + FWD_BK - 1            # q0 = 0
-    ends = torch.arange(first, first + nq * FWD_BQ, FWD_BQ,
-                        dtype=torch.int32, device=device)
-    return ends.div_(FWD_BK, rounding_mode="floor").clamp_(max=nkv)[None]
+    ends = _steps(nq, bq, bq + (skv - sq) + bk - 1, device)   # q0 = 0, bq, ...
+    return ends.div(bk, rounding_mode="floor").clamp_(max=nkv)[None]
 
 
-def kv_tile_count(valid, sq: int, skv: int, causal: bool,
-                  device=None) -> torch.Tensor:
-    """The KV tiles the forward kernel walks, int32 [B, ceil(Sq / 128)]
-    for a boolean key mask ``valid`` [B, Skv] ([1, ...] for every batch
-    row when ``valid`` is None).  Not causal: all of them.  Causal: those
-    up to the query tile's diagonal, unless the tile's first row (q0 +
-    offset) sees no valid key; then a row of the tile averages over every
-    key (as ``mha_reference_lse`` gives it), and the tile walks them all.
-    The kernel reads the count, so its producer and consumers agree on it
-    before the loop."""
-    diag = _diagonal_tiles(sq, skv, causal,
-                           torch.device(device or valid.device))
-    if valid is None or not causal:
+def kv_tile_count(blind, sq: int, skv: int, causal: bool, device=None,
+                  bq: int = FWD_BQ, bk: int = FWD_BK) -> torch.Tensor:
+    """The key tiles (of ``bk``) a query tile (of ``bq`` rows) walks, int32
+    [B, ceil(Sq / bq)] for the blind rows ``blind`` [B] of ``blind_rows``
+    ([1, ...] for every batch row when ``blind`` is None).  Not causal: all
+    of them.  Causal: those up to the tile's diagonal, unless the tile's
+    first row is blind; then a row of the tile averages over every key (as
+    ``mha_reference_lse`` gives it), and the tile walks them all.  The
+    forward kernel reads it at its 128 x 128 tiles and the dQ kernel at
+    128 x 64 (``BWD_OWN`` x ``BWD_WALK``), so their producers and consumers
+    agree on it before the loop."""
+    diag = _diagonal_tiles(sq, skv, causal, bq, bk,
+                           torch.device(device or blind.device))
+    if blind is None or not causal:
         return diag
-    # keys valid in [0, q0 + offset], at q0 = 0, BQ, ... (all < Skv)
-    seen = valid.cumsum(1, dtype=torch.int32)[:, skv - sq::FWD_BQ]
-    return torch.where(seen == 0, -(-skv // FWD_BK), diag)
+    q0 = _steps(diag.shape[1], bq, 0, blind.device)
+    return torch.where(q0 < blind[:, None], -(-skv // bk), diag)
 
 
-def _fwd_error(err: int) -> None:
+@functools.lru_cache(maxsize=64)
+def _walk_starts(sq: int, skv: int, causal: bool, bq: int, bk: int,
+                 device) -> torch.Tensor:
+    """int32 [ceil(Skv / bk)]: the first query tile (of ``bq``) that key
+    tile t (of ``bk``) is visible to, ``max(0, t bk - offset) // bq``, or 0
+    when not causal."""
+    k0 = _steps(-(-skv // bk), bk, -(skv - sq), device)
+    if not causal:
+        return torch.zeros_like(k0)
+    return k0.clamp(min=0).div_(bq, rounding_mode="floor")
+
+
+def q_tile_walk(blind, sq: int, skv: int, causal: bool, device=None,
+                bq: int = BWD_WALK, bk: int = BWD_OWN) -> torch.Tensor:
+    """The query tiles (of ``bq`` rows) the dK/dV kernel's key tile (of
+    ``bk``) visits, int32 [B, ceil(Skv / bk), 2] of pairs (lead, start):
+    the tiles [0, lead) and then [start, ceil(Sq / bq)).  ``start`` is the
+    first tile the key tile is visible to (causal; 0 otherwise); before it,
+    the tiles that hold blind rows (``blind_rows``: [0, ceil(blind / bq)))
+    see it too, through their P = 1.  [1, ...] for every batch row when
+    ``blind`` is None."""
+    start = _walk_starts(sq, skv, causal, bq, bk,
+                         torch.device(device or blind.device))
+    if blind is None or not causal:
+        return torch.stack([torch.zeros_like(start), start], -1)[None]
+    lead = torch.minimum(
+        torch.div(blind + (bq - 1), bq, rounding_mode="floor")[:, None],
+        start)
+    return torch.stack([lead, start.expand_as(lead)], -1)
+
+
+def _ld(counts: torch.Tensor) -> int:
+    """The row stride a kernel reads ``counts`` [B or 1, ...] with: 0 for
+    one row shared by every batch row."""
+    return counts[0].numel() if counts.shape[0] > 1 else 0
+
+
+def _tma_check(err: int, what: str) -> None:
     if err == -1:
-        raise RuntimeError("flash_fwd: libcuda.so.1 has no "
+        raise RuntimeError(f"{what}: libcuda.so.1 has no "
                            "cuTensorMapEncodeTiled")
     if err >= 100000:
-        raise RuntimeError(f"flash_fwd: cuTensorMapEncodeTiled failed with "
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed with "
                            f"CUresult {err - 100000}")
-    _build.check(err, "flash_fwd")
+    _build.check(err, what)
 
 
 def flash_fwd_cuda(q, k, v, key_mask=None, causal=True, scale=None):
@@ -199,7 +272,9 @@ def flash_fwd_cuda(q, k, v, key_mask=None, causal=True, scale=None):
         scale = d ** -0.5
     valid = _key_valid(key_mask, b, skv, q.device)
     kbias = _bias_of(valid)
-    ntiles = kv_tile_count(valid, sq, skv, causal, q.device)
+    # without causal masking every tile is walked: no blind rows needed
+    blind = blind_rows(valid, sq, skv, causal) if causal else None
+    ntiles = kv_tile_count(blind, sq, skv, causal, q.device)
     o = torch.empty((b, sq, h, d), dtype=torch.bfloat16, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
@@ -207,11 +282,11 @@ def flash_fwd_cuda(q, k, v, key_mask=None, causal=True, scale=None):
     err = _fwd_lib().opadpo_flash_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         kbias.data_ptr() if kbias is not None else None,
-        ntiles.data_ptr(), ntiles.shape[1] if ntiles.shape[0] > 1 else 0,
+        ntiles.data_ptr(), _ld(ntiles),
         o.data_ptr(), lse.data_ptr(), b, sq, skv, h, d, strides, int(causal),
         skv - sq, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _fwd_error(err)
+    _tma_check(err, "flash_fwd")
     flash_fwd_cuda.launches += 1
     return o, lse
 
@@ -219,39 +294,47 @@ def flash_fwd_cuda(q, k, v, key_mask=None, causal=True, scale=None):
 flash_fwd_cuda.launches = 0
 
 
-def flash_bwd_inputs(q, k, v, key_mask, o, lse, do):
+def flash_bwd_inputs(q, k, v, key_mask, causal, o, lse, do):
     """What both backward kernels read besides q, k, v and dO: (key bias,
-    lse, delta = rowsum(dO * O) as f32 [B, H, Sq], the strides)."""
+    lse, delta = rowsum(dO * O) as f32 [B, H, Sq], the strides, the dQ
+    kernel's tile counts, the dK/dV kernel's walks), the walks from one
+    ``blind_rows``."""
     _check_cuda_qkv(q, k, v, (64, 128))
     if do.shape != q.shape or do.dtype != torch.bfloat16:
         raise ValueError("dO must be bf16 and shaped like q")
     _check_rows(do)
     b, sq, h, _ = q.shape
+    skv = k.shape[1]
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
         raise ValueError("lse must be f32 [B, H, Sq]")
     delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
     strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
                                     *v.stride()[:3], *do.stride()[:3])
-    return (_key_bias(key_mask, b, k.shape[1], q.device),
-            lse.contiguous(), delta, strides)
+    valid = _key_valid(key_mask, b, skv, q.device)
+    blind = blind_rows(valid, sq, skv, causal)
+    dq_tiles = kv_tile_count(blind, sq, skv, causal, q.device, BWD_OWN,
+                             BWD_WALK)
+    dkv_walk = q_tile_walk(blind, sq, skv, causal, q.device)
+    return (_bias_of(valid), lse.contiguous(), delta, strides, dq_tiles,
+            dkv_walk)
 
 
 def flash_bwd_dq_cuda(q, k, v, key_mask, causal, scale, o, lse, do,
                       inputs=None):
     """Launch the dQ kernel -> dq bf16 [B, Sq, H, D] contiguous;
     ``inputs`` from ``flash_bwd_inputs``, made here when None."""
-    kbias, lse, delta, strides = inputs or flash_bwd_inputs(
-        q, k, v, key_mask, o, lse, do)
+    kbias, lse, delta, strides, dq_tiles, _ = inputs or flash_bwd_inputs(
+        q, k, v, key_mask, causal, o, lse, do)
     b, sq, h, d = q.shape
     skv = k.shape[1]
     dq = torch.empty((b, sq, h, d), dtype=torch.bfloat16, device=q.device)
     err = _bwd_lib().opadpo_flash_bwd_dq_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         kbias.data_ptr() if kbias is not None else None, lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), b, sq, skv, h, d, strides,
-        int(causal), skv - sq, float(scale),
+        delta.data_ptr(), dq_tiles.data_ptr(), _ld(dq_tiles), dq.data_ptr(),
+        b, sq, skv, h, d, strides, int(causal), skv - sq, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_bwd_dq")
+    _tma_check(err, "flash_bwd_dq")
     flash_bwd_dq_cuda.launches += 1
     return dq
 
@@ -263,8 +346,8 @@ def flash_bwd_dkv_cuda(q, k, v, key_mask, causal, scale, o, lse, do,
                        inputs=None):
     """Launch the dK/dV kernel -> (dk, dv) bf16 [B, Skv, H, D] contiguous;
     ``inputs`` as for ``flash_bwd_dq_cuda``."""
-    kbias, lse, delta, strides = inputs or flash_bwd_inputs(
-        q, k, v, key_mask, o, lse, do)
+    kbias, lse, delta, strides, _, dkv_walk = inputs or flash_bwd_inputs(
+        q, k, v, key_mask, causal, o, lse, do)
     b, sq, h, d = q.shape
     skv = k.shape[1]
     dk = torch.empty((b, skv, h, d), dtype=torch.bfloat16, device=q.device)
@@ -272,10 +355,10 @@ def flash_bwd_dkv_cuda(q, k, v, key_mask, causal, scale, o, lse, do,
     err = _bwd_lib().opadpo_flash_bwd_dkv_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         kbias.data_ptr() if kbias is not None else None, lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, d,
-        strides, int(causal), skv - sq, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_bwd_dkv")
+        delta.data_ptr(), dkv_walk.data_ptr(), _ld(dkv_walk), dk.data_ptr(),
+        dv.data_ptr(), b, sq, skv, h, d, strides, int(causal), skv - sq,
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    _tma_check(err, "flash_bwd_dkv")
     flash_bwd_dkv_cuda.launches += 1
     return dk, dv
 
@@ -284,9 +367,9 @@ flash_bwd_dkv_cuda.launches = 0
 
 
 def flash_bwd_cuda(q, k, v, key_mask, causal, scale, o, lse, do):
-    """Both backward kernels, sharing delta and the key bias -> (dq, dk,
-    dv)."""
-    inputs = flash_bwd_inputs(q, k, v, key_mask, o, lse, do)
+    """Both backward kernels, sharing delta, the key bias and the walks ->
+    (dq, dk, dv)."""
+    inputs = flash_bwd_inputs(q, k, v, key_mask, causal, o, lse, do)
     dq = flash_bwd_dq_cuda(q, k, v, key_mask, causal, scale, o, lse, do,
                            inputs)
     dk, dv = flash_bwd_dkv_cuda(q, k, v, key_mask, causal, scale, o, lse, do,
@@ -310,10 +393,14 @@ def _bwd_lib():
     lib = _build.load("flash_bwd.cu")
     if not lib.opadpo_flash_bwd_dq_bf16.argtypes:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        common = [i, i, i, i, ctypes.POINTER(ctypes.c_int64), i, i,
+        common = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int64), i, i,
                   ctypes.c_float, vp]
-        lib.opadpo_flash_bwd_dq_bf16.argtypes = [vp] * 8 + [i] + common
-        lib.opadpo_flash_bwd_dkv_bf16.argtypes = [vp] * 9 + [i] + common
+        # q, k, v, dO, bias, lse, delta, counts / walk, their ld, outputs
+        lib.opadpo_flash_bwd_dq_bf16.argtypes = [vp] * 8 + [i, vp] + common
+        lib.opadpo_flash_bwd_dkv_bf16.argtypes = [vp] * 8 + [i, vp, vp] \
+            + common
+        lib.opadpo_flash_bwd_smem_bytes.argtypes = [i, i]
+        lib.opadpo_flash_bwd_smem_bytes.restype = ctypes.c_int
         lib.opadpo_flash_bwd_dq_bf16.restype = ctypes.c_int
         lib.opadpo_flash_bwd_dkv_bf16.restype = ctypes.c_int
     return lib

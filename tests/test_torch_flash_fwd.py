@@ -4,11 +4,12 @@ CPU.  The kernel (``opadpo_torch/csrc/flash_fwd.cu``) runs only on the GPU
 held here against brute force and against the plain version and the JAX
 package's Pallas ``_flash_fwd`` (interpret mode):
 
-- ``kv_tile_count``, which the wrapper computes and the kernel reads: the
-  KV tiles a 128-row query tile walks cover every (row, key) pair with a
-  non-zero weight in ``mha_reference_lse``, a tile holding a row with no
-  valid key walks every tile, and the rule is exactly "some row of the
-  tile sees no valid key";
+- ``kv_tile_count``, which the wrapper computes (from ``blind_rows``, the
+  leading rows that see no valid key) and the kernel reads: the KV tiles a
+  128-row query tile walks cover every (row, key) pair with a non-zero
+  weight in ``mha_reference_lse``, a tile holding a row with no valid key
+  walks every tile, and the rule is exactly "some row of the tile sees no
+  valid key";
 - the kernel's arithmetic in f32: scores in log2 units (scale times log2 e,
   exp2), the bias -inf from Skv to the end of the last tile, the causal
   rule only on tiles past the first row's diagonal, a masked score of
@@ -54,7 +55,8 @@ def test_kv_tile_count_walks_all_iff_first_row_sees_no_key(skv):
     the row's first valid key."""
     mask = _masks(skv)
     nkv = -(-skv // BK)
-    got = t_attention.kv_tile_count(mask != 0, skv, skv, True)
+    got = t_attention.kv_tile_count(
+        t_attention.blind_rows(mask != 0, skv, skv, True), skv, skv, True)
     assert got.dtype == torch.int32 and got.shape == (4, -(-skv // BQ))
     for b, first in enumerate(_first_valid(mask, skv)):
         for i, q0 in enumerate(range(0, skv, BQ)):
@@ -70,8 +72,8 @@ def test_kv_tile_count_without_mask_is_one_row():
                              for q0 in (0, 128)]]
     got = t_attention.kv_tile_count(None, 200, 450, False, "cpu")
     assert got.tolist() == [[4, 4]]
-    mask = _masks(450) != 0
-    assert torch.equal(t_attention.kv_tile_count(mask, 200, 450, False),
+    blind = t_attention.blind_rows(_masks(450) != 0, 200, 450, False)
+    assert torch.equal(t_attention.kv_tile_count(blind, 200, 450, False),
                        torch.tensor([[4, 4]], dtype=torch.int32))
 
 
@@ -88,8 +90,9 @@ def test_kv_tile_count_covers_every_weighted_pair(sq, skv, causal):
     for mask in (_masks(skv), None):
         vis = t_attention._visible(sq, skv, mask, causal, "cpu")[:, 0]
         vis = vis.expand(4, sq, skv)
-        counts = t_attention.kv_tile_count(
-            None if mask is None else mask != 0, sq, skv, causal, "cpu")
+        blind = None if mask is None else t_attention.blind_rows(
+            mask != 0, sq, skv, causal)
+        counts = t_attention.kv_tile_count(blind, sq, skv, causal, "cpu")
         counts = counts.expand(4, -1)
         for b in range(4):
             for i, q0 in enumerate(range(0, sq, BQ)):
@@ -116,8 +119,9 @@ def _tiled_forward(q, k, v, mask, causal, scale):
     nkv = -(-skv // BK)
     # the producer's bias tiles: -inf from Skv on
     bias = torch.full((b, nkv * BK), -math.inf)
-    bias[:, :skv] = t_attention._key_bias(mask, b, skv, "cpu")
-    counts = t_attention.kv_tile_count(mask != 0, sq, skv, causal)
+    bias[:, :skv] = t_attention._bias_of(mask != 0)
+    counts = t_attention.kv_tile_count(
+        t_attention.blind_rows(mask != 0, sq, skv, causal), sq, skv, causal)
     counts = counts.expand(b, -1)
     scale_log2 = scale * math.log2(math.e)
     o = torch.zeros(b, sq, h, d)

@@ -191,6 +191,67 @@ def test_flash_rect_and_backward_match_plain_on_gpu(causal, d, sq, skv):
             (name, err)
 
 
+# the backward's outputs per row (dq per query row, dk and dv per key row,
+# each [.., D]) against that row's largest |ref|; a row whose largest entry
+# is under ROW_FLOOR of the tensor's (a query that sees one key has dq ~ 0:
+# its dS is dP - delta, which cancels) is held against ROW_FLOOR of it.
+# The limit is 2.6 times the largest H100 reading (7.75e-3, about one bf16
+# unit in the last place; chip_smoke.BWD_ROW_TOL, PERF.md)
+ROW_FLOOR = 1e-2
+BWD_ROW_TOL = 2e-2
+
+
+def _bwd_row_err(a, ref):
+    r = ref.float()
+    den = r.abs().amax(-1).clamp_min(ROW_FLOOR * r.abs().max().item())
+    den = den.clamp_min(1e-30)
+    return ((a.float() - r).abs().amax(-1) / den).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,skv", [(63, 63), (64, 64), (65, 65),
+                                    (127, 127), (129, 129), (64, 129),
+                                    (127, 300), (703, 703), (896, 1599)])
+def test_flash_bwd_shapes_match_plain_on_gpu(d, sq, skv):
+    """The TMA/wgmma dQ and dK/dV kernels at head widths 64 and 128,
+    lengths around their 64- and 128-row tiles and the DPO shapes, causal
+    (offset Skv - Sq) and bidirectional, contiguous and head-major views,
+    keys with a middle block masked, left padding and a batch row masked
+    everywhere (its dO nonzero): each of dq, dk, dv within 2e-2 of its
+    largest |ref| (as ``chip_smoke._bwd_case``), each row within
+    ``BWD_ROW_TOL`` of its own largest |ref| (``_bwd_row_err``), and a
+    second launch bitwise equal to the first (no atomics: each output is
+    summed by one CTA in a fixed order)."""
+    g = _gen()
+    scale = d ** -0.5
+    for head_major in (False, True):
+        q, k, v, mask = _flash_inputs(g, sq, skv, d, head_major)
+        do = torch.randn(q.shape, generator=g, device="cuda",
+                         dtype=torch.bfloat16)
+        for causal in (True, False):
+            o, lse = t_attention.flash_fwd_cuda(q, k, v, mask, causal, scale)
+            got = t_attention.flash_bwd_cuda(q, k, v, mask, causal, scale, o,
+                                             lse, do)
+            again = t_attention.flash_bwd_cuda(q, k, v, mask, causal, scale,
+                                               o, lse, do)
+            ref = t_attention.flash_bwd_reference(q, k, v, mask, causal,
+                                                  scale, o, lse, do)
+            line = []
+            for name, a, a2, r in zip(("dq", "dk", "dv"), got, again, ref):
+                assert a.shape == r.shape and torch.isfinite(a.float()).all()
+                assert torch.equal(a, a2), (name, "not deterministic")
+                top = r.float().abs().max().item()
+                err = (a.float() - r.float()).abs().max().item()
+                row = _bwd_row_err(a, r)
+                line.append(f"{name} {err / max(top, 1e-30):.3e} row "
+                            f"{row:.3e}")
+                assert err <= 2e-2 * top, (name, head_major, causal, err, top)
+                assert row <= BWD_ROW_TOL, (name, head_major, causal, row)
+            print(f"flash bwd d {d} sq {sq} skv {skv} head_major "
+                  f"{head_major} causal {causal}: " + ", ".join(line))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("rep,hd", [(1, 128), (2, 64)])
 def test_heads_layout_match_plain_on_gpu(rep, hd):
