@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the five CUDA sources of ``opadpo_torch/csrc``, one nvcc each,
+  2. build: the six CUDA sources of ``opadpo_torch/csrc``, one nvcc each,
      all at once;
   3. the flash forward kernel (#1, TMA K/V ring and warp-specialised
      wgmma) against its plain version at the serving shapes (LLaMA prefill
@@ -29,11 +29,14 @@ Phases, each fatal on failure:
      cache of an 896-token chunk-256 rollout ([8, 32, 768, 128] packed,
      1536 positions) at s_used 768, 512 and 1536; multi-query (#8) at G 5
      (s_used 768, 640), 2 and 8, and beside five launches of #6;
-  7. the quantized matmuls against their plain versions: int8 (#9) at the
-     7B decode (M 8), head (f32 out), prefix (M 703) and CLIP (M 577)
-     shapes, its transpose (#10) at M 703, int4 (#11) at the 13B decode
-     (M 1, 8), head and prefix shapes; and #9 / #11 beside
-     dequantize-then-matmul at M 8, 703, 1024 and 1406;
+  7. the quantized matmuls against their plain versions: int8 (#9, TMA
+     and wgmma, ``int8_matmul.cu``) at the 7B decode (M 8), head (f32
+     out), prefix (M 703) and CLIP (M 577) shapes, its transpose (#10,
+     the same file) at M 703, int4 (#11) at the 13B decode (M 1, 8), head
+     and prefix shapes; #9 and #10 also at the tile edges (M 1 ... 1024),
+     two launches bitwise equal, with int8_matmul.cu's ptxas report (a
+     spill, C7508 or C7514 fails); and #9 / #10 / #11 beside
+     dequantize-then-matmul and the int8 GEMM route at M 8 ... 2688;
   8. small-input references, the GPU (kernels) against the same weights on
      the CPU (plain), on the tiny LLaVA with a bf16, an int8 and an int4
      base (and a decode head of that width): prefill, two decode steps over
@@ -72,7 +75,9 @@ Phases, each fatal on failure:
      7B model freed, LLaVA-1.5-13B drawn straight into int4
      (``llava_dpo_13b_singlechip.yaml``, batch 1, r 64) serves 3 requests
      one at a time with an int4 head and trains; each run's counters of
-     #1, #6 and #9-#11 equal to the counts derived from its batches;
+     #1, #6 and #9-#11 (and of #9 / #10's kernel variants) equal to the
+     counts derived from its batches, the odd-shape variant never
+     launched (also in the tiny references of step 8);
   14. one JSON line of the 11 kernels' numbers, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -628,12 +633,16 @@ def _library_int8(x, q, scale, out_dtype, deq):
     return deq, "dequantize + torch.matmul (two calls)"
 
 
-def _quant_case(kind, m, k, n, g, flush, out_f32=False):
+def _quant_case(kind, m, k, n, g, flush, out_f32=False, timed=True):
     """One kernel (#9 ``q8``, #10 ``q8t``, #11 ``q4``) at [M, K] x [K, N]
     (for #10 the gradient is [M, N] and dx [M, K]) against its plain
     version: f32 output within 1e-5 of the largest entry, bf16 within one
-    bf16 step (2^-7) of it; its time, the plain version's, the library
-    call's, dequantize-then-matmul's (the path above the 1024-row rule) and
+    bf16 step (2^-7) of it; two launches bitwise equal.  With ``timed``:
+    its time, the plain version's, the library call's, dequantize-then-
+    matmul's (the path above the 1024-row rule; for #10 with the scale
+    folded into g outside the timed call, as the port's earlier yardstick
+    did, while the library call folds inside it) and, from M 1024 on, the
+    int8 GEMM route's (``w8a8_nd`` / ``int8_dx`` on ``torch._int_mm``), and
     the bound."""
     import torch
 
@@ -647,6 +656,7 @@ def _quant_case(kind, m, k, n, g, flush, out_f32=False):
     else:
         q, s = quant.quantize_weight(w)
     del w
+    int8_route = None
     if kind == "q8t":
         a = torch.randn(m, n, generator=g, device=dev).to(torch.bfloat16)
         kernel = lambda: quant.quant_matmul_t_cuda(a, q, s)   # noqa: E731
@@ -654,7 +664,12 @@ def _quant_case(kind, m, k, n, g, flush, out_f32=False):
         gs = (a.float() * s).to(torch.bfloat16)
         deq = lambda: torch.matmul(                           # noqa: E731
             gs, quant.dequantize_weight(q, s))
-        library = (deq, "dequantize + torch.matmul (two calls)")
+        library = (lambda: torch.matmul(                      # noqa: E731
+            (a.float() * s).to(torch.bfloat16), q.to(torch.bfloat16)),
+            "fold + widen + torch.matmul (three calls)")
+        if m >= 1024:
+            int8_route = lambda: quant.int8_dx(a, q, s)        # noqa: E731
+        variant = quant.q8t_variant(m, n, k)
         out_elems, in_bytes = m * k, m * n * 2 + n * 4 + n * k
     else:
         a = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
@@ -665,15 +680,19 @@ def _quant_case(kind, m, k, n, g, flush, out_f32=False):
                 a, quant.dequantize_weight4(q, s).t()).to(od)
             library = (deq, "dequantize + torch.matmul (two calls)")
             in_bytes = m * k * 2 + n * k // 2 + s.numel() * 4
+            variant = "q4"
         else:
             kernel = lambda: quant.quant_matmul_cuda(a, q, s, od)  # noqa
             plain = lambda: quant.quant_matmul_plain(a, q, s, od)  # noqa
             deq = lambda: torch.matmul(                       # noqa: E731
                 a, quant.dequantize_weight(q, s).t()).to(od)
             library = _library_int8(a, q, s, od, deq)
+            if m >= 1024:
+                int8_route = lambda: quant.w8a8_nd(a, q, s)    # noqa: E731
             in_bytes = m * k * 2 + n * k + n * 4
+            variant = quant.q8_variant(m, n, k)
         out_elems = m * n
-    out, ref = kernel(), plain()
+    out, ref, again = kernel(), plain(), kernel()
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out.float()).all()), f"{kind} not finite")
     err = (out.float() - ref.float()).abs().max().item()
@@ -681,45 +700,94 @@ def _quant_case(kind, m, k, n, g, flush, out_f32=False):
     tol = 1e-5 if out.dtype == torch.float32 else 2.0 ** -7
     check(out.dtype == ref.dtype and err <= tol * top,
           f"{kind} at M {m} K {k} N {n}: error {err} > {tol} x {top}")
+    check(torch.equal(out, again),
+          f"{kind} at M {m} K {k} N {n}: two launches differ")
+    res = {"kernel": kind, "variant": variant, "m": m, "k": k, "n": n,
+           "out": "f32" if out_f32 else "bf16", "err": err, "top": top}
+    if not timed:
+        return res
     nbytes = in_bytes + out_elems * out.element_size()
     bound_ms, bound_by = _bound(nbytes, 2 * m * n * k)
     res_lib = time_ms(library[0], flush)
-    res = {"kernel": kind, "m": m, "k": k, "n": n,
-           "out": "f32" if out_f32 else "bf16", "err": err, "top": top,
-           "ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush),
-           "library_ms": res_lib,
-           "library_call": library[1],
-           "dequant_matmul_ms": (res_lib if library[0] is deq
-                                 else time_ms(deq, flush)),
-           "bound_ms": bound_ms,
-           "bound_by": bound_by, "bytes": nbytes}
+    res.update({
+        "ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush),
+        "library_ms": res_lib, "library_call": library[1],
+        "dequant_matmul_ms": (res_lib if library[0] is deq
+                              else time_ms(deq, flush)),
+        "int8_gemm_ms": time_ms(int8_route, flush) if int8_route else None,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes})
     log(f"[quant] {json.dumps(res)}")
     return res
+
+
+# #9 / #10 before their TMA/wgmma redesign (quant_matmul.cu's mma.sync
+# kernel; chip runs of chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W,
+# recorded in PERF.md), by (kernel, M, K, N)
+QUANT_WAS_MS = {("q8", 8, 4096, 4096): 0.0187, ("q8", 8, 4096, 32000): 0.0704,
+                ("q8", 703, 4096, 4096): 0.1636,
+                ("q8", 577, 1024, 1024): 0.0267,
+                ("q8", 577, 1024, 4096): 0.0512,
+                ("q8t", 703, 4096, 4096): 0.2154,
+                ("q8t", 703, 4096, 11008): 0.5535,
+                ("q8t", 703, 11008, 4096): 0.4921}
+QUANT_EDGE_ROWS = (1, 8, 9, 16, 17, 64, 65, 128, 129, 577, 703, 1024)
 
 
 def phase_quant(g, flush):
     """Kernels #9-#11 at the shapes of the quantized paths: 7B int8 decode
     (M 8) and its head, the 7B prefix (M 703), CLIP at B = 1 (M 577), the
-    13B int4 decode (M 1, 8), head and prefix; and #9 / #11 against
-    dequantize-then-matmul at M 8, 703, 1024 and 1406, either side of the
-    1024-row rule."""
+    13B int4 decode (M 1, 8), head and prefix; #9 and #10 at the tile
+    edges (M 1 ... 1024, 4096 x 4096) against their plain versions; and
+    #9 / #10 / #11 beside dequantize-then-matmul and the int8 GEMM route
+    at M 8 ... 2688, either side of the 1024-row rule.  The ptxas report
+    of int8_matmul.cu: a spill, C7508 or C7514 fails."""
+    from opadpo_torch.ops import _build
+
+    shown, faults = ptxas_findings("int8_matmul.cu")
+    for line in shown + faults:
+        log(f"[quant] ptxas int8_matmul.cu: {line}")
+    check(not faults, f"int8_matmul.cu: ptxas reports {faults}")
+    lib = _build.load("int8_matmul.cu")
+    log("[quant] int8_matmul.cu dynamic shared memory: " + ", ".join(
+        f"{name} {lib.opadpo_int8_matmul_smem_bytes(i)} B" for i, name in
+        enumerate(("q8_tile 64", "q8_tile 256", "q8_decode", "q8t_tile"))))
     q8 = [_quant_case("q8", 8, k, n, g, flush)
           for k, n in ((4096, 4096), (4096, 11008), (11008, 4096))]
     q8.append(_quant_case("q8", 8, 4096, 32000, g, flush, out_f32=True))
     q8 += [_quant_case("q8", 703, k, n, g, flush)
            for k, n in ((4096, 4096), (4096, 11008), (11008, 4096))]
     q8 += [_quant_case("q8", 577, 1024, n, g, flush) for n in (1024, 4096)]
+    # the gradient is [M, n], dx [M, k]: q is [n, k]
     q8t = [_quant_case("q8t", 703, k, n, g, flush)
            for k, n in ((4096, 4096), (4096, 11008), (11008, 4096))]
+    edges = [_quant_case(kind, m, 4096, 4096, g, flush, timed=False)
+             for kind in ("q8", "q8t") for m in QUANT_EDGE_ROWS]
+    edges += [_quant_case("q8", m, 4096, 32000, g, flush, out_f32=True,
+                          timed=False) for m in (1, 9, 16)]
+    log(f"[quant] #9 / #10 at the tile edges, bitwise repeatable: "
+        + ", ".join(f"{c['kernel']} M {c['m']} N {c['n']} ({c['variant']}) "
+                    f"{c['err']:.3g} of {c['top']:.3g}" for c in edges))
+    for c in q8 + q8t:
+        was = QUANT_WAS_MS.get((c["kernel"], c["m"], c["k"], c["n"]))
+        log(f"[quant] {c['kernel']} M {c['m']} K {c['k']} N {c['n']} "
+            f"({c['variant']}): {c['ms']:.4f} ms = "
+            f"{100 * c['bound_ms'] / c['ms']:.1f} % of its {c['bound_ms']:.4f}"
+            f" ms bound ({c['bound_by']}); {c['library_call']} "
+            f"{c['library_ms']:.4f}, dequantize + matmul "
+            f"{c['dequant_matmul_ms']:.4f}; the mma.sync kernel {was} ms")
     q4 = [_quant_case("q4", m, k, n, g, flush)
           for m in (1, 8, 703)
           for k, n in ((5120, 5120), (5120, 13824), (13824, 5120))]
     q4 += [_quant_case("q4", m, 5120, 32000, g, flush, out_f32=True)
            for m in (1, 8)]
     crossover = [_quant_case(kind, m, k, k, g, flush)
-                 for kind, k in (("q8", 4096), ("q4", 5120))
-                 for m in (8, 703, 1024, 1406)]
-    return {"q8": q8, "q8t": q8t, "q4": q4, "crossover": crossover}
+                 for kind, k, rows in (("q8", 4096, (8, 703, 1024, 1406,
+                                                     2688)),
+                                       ("q8t", 4096, (1024, 1406, 2688)),
+                                       ("q4", 5120, (8, 703, 1024, 1406)))
+                 for m in rows]
+    return {"q8": q8, "q8t": q8t, "q4": q4, "crossover": crossover,
+            "edges": edges}
 
 
 def _tiny_pair(bits, seed):
@@ -760,6 +828,8 @@ def phase_reference(bits=16):
     images = torch.randn(4, 28, 28, 3, generator=g)
     verify = torch.randint(5, cfg.llama.vocab_size, (4, 3), generator=g)
     outs = []
+    counters = _counters()
+    _reset(counters)
     with torch.inference_mode():
         for model, dev in ((gpu_model, "cuda"), (cpu_model, "cpu")):
             head = llama.quantize_head_for_decode(model.llama, bits)
@@ -792,6 +862,13 @@ def phase_reference(bits=16):
                     got["verify G3 kv8"] = lg.float().cpu()
             outs.append(got)
     gpu, cpu = outs
+    launches = _read(counters)
+    _check_no_odd(launches, f"tiny bits {bits} prefill and decode")
+    for call in ("quant_matmul", "quant_matmul_t"):
+        by_variant = sum(v for k, v in launches.items()
+                         if k.startswith(call + "."))
+        check(by_variant == launches[call], f"{call}: variants {launches} "
+              "do not add up to the calls")
     errs = {}
     for key, ref in cpu.items():
         check(torch.isfinite(gpu[key]).all(), f"reference {key} not finite")
@@ -923,10 +1000,13 @@ def phase_train_reference(bits=16):
     def to(tree, dev):
         return tree_map(lambda x: x.to(dev), tree)
 
+    counters = _counters()
+    _reset(counters)
     roll = {dev: dpo_engine.rollout_score(
         model, dpo, to(ref, dev), to(batch, dev),
         torch.Generator(device=dev).manual_seed(3))
         for dev, model in (("cuda", gpu_model), ("cpu", cpu_model))}
+    launches = {"rollout": _read(counters)}
     keys = [k for k in roll["cpu"] if k.startswith("ref_base")]
     e_roll = max((roll["cuda"][k].cpu() - roll["cpu"][k]).abs().max().item()
                  / roll["cpu"][k].abs().max().item() for k in keys)
@@ -934,11 +1014,20 @@ def phase_train_reference(bits=16):
     opt = AdamW(OptimizerConfig(learning_rate=1e-2, warmup_steps=0,
                                 total_steps=10))
     out = {}
+    _reset(counters)
     for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
         state = TrainState.create(make_trainable(to(ref, dev)), opt.cfg)
         loss, stats, grads = dpo_engine.loss_and_grads(state, model, dpo,
                                                        to(full, dev))
         out[dev] = (loss.item(), grads, state, stats)
+    launches["step"] = _read(counters)
+    for key, train in (("rollout", False), ("step", True)):
+        want = expected_quant_train(gpu_model, dpo, 2, train)
+        got = {k: launches[key][k] for k in want}
+        log(f"[reference] tiny bits {bits} {key} quant launches {got}")
+        check(got == want, f"tiny bits {bits} {key}: quant launches {got} "
+              f"differ from the derived {want}")
+        _check_no_odd(launches[key], f"tiny bits {bits} {key}")
     (l_g, g_g, st_g, s_g), (l_c, g_c, st_c, _) = out["cuda"], out["cpu"]
     opt.apply_gradients(st_g, g_g)
     opt.apply_gradients(st_c, [x.cpu() for x in g_g])
@@ -1364,6 +1453,7 @@ def phase_quant_serve(model, card, label, head_bits, max_batch, n_reqs,
         f"{[s['decode_steps'] for s in stats]}; quant launches {got} "
         f"(expect {want})")
     check(got == want, "quant kernel launches differ from the batches'")
+    _check_no_odd(launches, label)
     res = {**_serve_metrics(stats, wall, n_reqs), "batch_rows": max_batch,
            "head_bits": head_bits, "launches": launches, "card": card}
     log(f"[{label}] prefill {res['prefill_ms']:.1f} ms/batch, decode "
@@ -1388,7 +1478,10 @@ def _counters():
                 decode_attention.decode_attention_multi_cuda,
             "quant_matmul": quant.quant_matmul_cuda,
             "quant_matmul_t": quant.quant_matmul_t_cuda,
-            "quant_matmul4": quant.quant_matmul4_cuda}
+            "quant_matmul4": quant.quant_matmul4_cuda,
+            **{f"quant_matmul{'_t' if v.startswith('q8t') else ''}."
+               f"{v.split('_')[1]}": c
+               for v, c in quant.variant_launches.items()}}
 
 
 def _reset(counters):
@@ -1400,25 +1493,52 @@ def _read(counters):
     return {k: fn.launches for k, fn in counters.items()}
 
 
-def _quant_bits(model):
-    """(bits of each quantized CLIP block linear, of each decoder one, of
-    the first decoder layer's q, k, v)."""
+def _quant_layers(model):
+    """(the quantized CLIP block linears, the decoder's, the first decoder
+    layer's q, k, v)."""
     from opadpo_torch.ops.quant import QuantLinear
 
-    def bits(blocks):
-        return [m.bits for blk in blocks for m in blk.children()
+    def lins(blocks):
+        return [m for blk in blocks for m in blk.children()
                 if isinstance(m, QuantLinear)]
 
     first = model.llama.layers[0]
-    return (bits(model.vision.layers), bits(model.llama.layers),
-            [m.bits for m in (first.wq, first.wk, first.wv)
+    return (lins(model.vision.layers), lins(model.llama.layers),
+            [m for m in (first.wq, first.wk, first.wv)
              if isinstance(m, QuantLinear)])
 
 
-def _add(counts, bits_list, times=1):
-    for bits in bits_list:
-        key = "quant_matmul" if bits == 8 else "quant_matmul4"
-        counts[key] += times
+QUANT_KEYS = ("quant_matmul", "quant_matmul_t", "quant_matmul4",
+              "quant_matmul.tile", "quant_matmul.decode", "quant_matmul.odd",
+              "quant_matmul_t.tile", "quant_matmul_t.odd")
+
+
+def _add(counts, lins, rows, times=1, dx=False):
+    """Count the launches of ``lins`` (quantized linears) at ``rows`` rows,
+    ``times`` over: #9 or #11 forward, or with ``dx`` #10 through the int8
+    ones; #9 and #10 also under the variant ``quant.q8_variant`` /
+    ``q8t_variant`` names for the shape."""
+    from opadpo_torch.ops import quant
+
+    for lin in lins:
+        n, k = lin.out_features, lin.in_features
+        if dx:
+            if lin.bits == 8:
+                counts["quant_matmul_t"] += times
+                counts["quant_matmul_t." + quant.q8t_variant(rows, n, k)] \
+                    += times
+        elif lin.bits == 8:
+            counts["quant_matmul"] += times
+            counts["quant_matmul." + quant.q8_variant(rows, n, k)] += times
+        else:
+            counts["quant_matmul4"] += times
+
+
+def _check_no_odd(launches, label):
+    """Every #9 / #10 call of a path takes the TMA/wgmma kernels: the
+    mma.sync kernel for odd shapes is launched no time."""
+    odd = {k: launches[k] for k in ("quant_matmul.odd", "quant_matmul_t.odd")}
+    check(not any(odd.values()), f"{label}: odd-shape launches {odd}")
 
 
 def expected_quant_serving(model, stats, head_bits) -> dict:
@@ -1430,18 +1550,22 @@ def expected_quant_serving(model, stats, head_bits) -> dict:
     B rows; each decode step the decoder and the head on B rows."""
     from opadpo_torch.ops.quant import _STREAMING_MAX_M as max_m
 
-    clip, dec, _ = _quant_bits(model)
-    counts = {"quant_matmul": 0, "quant_matmul_t": 0, "quant_matmul4": 0}
+    clip, dec, _ = _quant_layers(model)
+    lm = model.cfg.llama
+    head = [types.SimpleNamespace(bits=head_bits, out_features=lm.vocab_size,
+                                  in_features=lm.hidden_size)]
+    counts = dict.fromkeys(QUANT_KEYS, 0)
     for s in stats:
         b, steps = s["batch_rows"], s["decode_steps"]
-        if b * (model.cfg.num_patches + 1) <= max_m:
-            _add(counts, clip)
+        clip_rows = b * (model.cfg.num_patches + 1)
+        if clip_rows <= max_m:
+            _add(counts, clip, clip_rows)
         if b * s["prompt_positions"] <= max_m:
-            _add(counts, dec)
+            _add(counts, dec, b * s["prompt_positions"])
         if b <= max_m:
-            _add(counts, dec, steps)
+            _add(counts, dec, b, steps)
         if head_bits != 16:
-            _add(counts, [head_bits], 1 + steps)
+            _add(counts, head, b, 1 + steps)
     return counts
 
 
@@ -1457,22 +1581,24 @@ def expected_quant_train(model, dpo, b, train: bool) -> dict:
     from opadpo_torch.engine.dpo import RESPONSE_KEYS
     from opadpo_torch.ops.quant import _STREAMING_MAX_M as max_m
 
-    clip, dec, first_qkv = _quant_bits(model)
-    counts = {"quant_matmul": 0, "quant_matmul_t": 0, "quant_matmul4": 0}
+    clip, dec, first_qkv = _quant_layers(model)
+    counts = dict.fromkeys(QUANT_KEYS, 0)
     prefix = b * (model.cfg.num_patches + dpo.query_len - 1)
     streams = [(prefix, len(RESPONSE_KEYS) * b * dpo.response_len)]
     if dpo.CoPO:
         streams.append((prefix, 2 * b * dpo.response_len))
     for p_rows, r_rows in streams:
-        if b * (model.cfg.num_patches + 1) <= max_m:
-            _add(counts, clip)
+        clip_rows = b * (model.cfg.num_patches + 1)
+        if clip_rows <= max_m:
+            _add(counts, clip, clip_rows)
         for rows in (p_rows, r_rows):
             if rows > max_m:
                 continue
-            _add(counts, dec, 2 if train else 1)
+            _add(counts, dec, rows, 2 if train else 1)
             if train:
-                counts["quant_matmul_t"] += (dec.count(8)
-                                             - first_qkv.count(8))
+                _add(counts, [m for m in dec
+                              if not any(m is f for f in first_qkv)],
+                     rows, dx=True)
     return counts
 
 
@@ -1568,6 +1694,8 @@ def phase_train(model, card, label="train", n_steps: int = 2, b: int = 2,
           "rollout launch counts differ from the configuration's")
     check(launches_train == {k: n_steps * v for k, v in want_step.items()},
           "train step launch counts differ from the configuration's")
+    _check_no_odd(launches_rollout, label)
+    _check_no_odd(launches_train, label)
     check(moved > 0, "the adapter did not move in the last step")
 
     positions = (b * prefix + len(dpo_engine.RESPONSE_KEYS) * b
@@ -1653,37 +1781,44 @@ def phase_13b_int4(card):
 
 def quant_kernel_entries(qk, q_serve, q_train):
     """The kernels line's entries of #9-#11: launches over the quantized
-    paths' runs, numbers at a main-path shape, every shape beside."""
+    paths' runs (and by variant), numbers at a main-path shape, every
+    shape beside."""
     def runs(kname):
         return sum(r["launches"][kname]
                    for r in list(q_serve.values()) + list(q_train.values()))
 
     keys = ("ms", "plain_ms", "library_ms", "library_call",
-            "dequant_matmul_ms", "bound_ms", "bound_by")
+            "dequant_matmul_ms", "int8_gemm_ms", "bound_ms", "bound_by")
     out = []
-    for kname, group, main_i, line in (
-            ("quant_matmul", "q8", 0, "opadpo_tpu/ops/quant.py:60"),
-            ("quant_matmul_t", "q8t", 0, "opadpo_tpu/ops/quant.py:155"),
-            ("quant_matmul4", "q4", 3, "opadpo_tpu/ops/quant.py:495")):
+    for kname, group, main_i, line, src in (
+            ("quant_matmul", "q8", 0, "opadpo_tpu/ops/quant.py:60",
+             "int8_matmul.cu"),
+            ("quant_matmul_t", "q8t", 0, "opadpo_tpu/ops/quant.py:155",
+             "int8_matmul.cu"),
+            ("quant_matmul4", "q4", 3, "opadpo_tpu/ops/quant.py:495",
+             "quant_matmul.cu")):
         cases = qk[group] + [c for c in qk["crossover"]
                              if c["kernel"] == group]
+        checked = cases + [c for c in qk["edges"] if c["kernel"] == group]
         main = qk[group][main_i]
+        variants = sorted(k for k in QUANT_KEYS if k.startswith(kname + "."))
         out.append({
             "name": kname, "route": "cuda",
-            "source": "opadpo_torch/csrc/quant_matmul.cu", "replaces": line,
+            "source": f"opadpo_torch/csrc/{src}", "replaces": line,
             "launches": runs(kname),
+            "launches_by_variant": {v: runs(v) for v in variants},
             "launches_by_run": {
                 **{f"serve {k}": r["launches"][kname]
                    for k, r in q_serve.items()},
                 **{f"train {k} (rollout + {SINGLE_CHIP_STEPS} steps)":
                    r["launches"][kname]
                    for k, r in q_train.items()}},
-            "max_abs_err": max(c["err"] for c in cases),
+            "max_abs_err": max(c["err"] for c in checked),
             **{k: main[k] for k in keys},
             "at": f"M {main['m']} K {main['k']} N {main['n']} "
                   f"{main['out']} out",
-            "shapes": [{k: c[k] for k in ("m", "k", "n", "out", "err",
-                                          *keys)} for c in cases]})
+            "shapes": [{k: c[k] for k in ("m", "k", "n", "out", "variant",
+                                          "err", *keys)} for c in cases]})
     return out
 
 

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the flash kernels
-// (flash_fwd.cu, flash_bwd.cu): mbarriers, TMA tensor loads, 128-byte
-// swizzled wgmma descriptors and the wgmma forms they use, the
-// accumulator-fragment helpers, and the host-side encoding of the 4-D
-// tensor maps over strided [B, S, H, D] bf16 views.
+// (flash_fwd.cu, flash_bwd.cu) and the int8 matmuls (int8_matmul.cu):
+// mbarriers, TMA tensor loads, 128-byte swizzled wgmma descriptors and the
+// wgmma forms they use, the accumulator-fragment helpers, and the
+// host-side encoding of the 4-D tensor maps over strided [B, S, H, D] bf16
+// views and of the 2-D maps over contiguous bf16 / int8 matrices.
 //
 // Fragment layout (wgmma m64nN, f32 accumulators): thread t of a
 // warpgroup holds rows (t/32)*16 + (t%32)/4 (+8) and, for each 8-column
@@ -90,6 +91,35 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+
+// make this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma operands read from shared memory)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barrier `id` over the first `count` threads of the block
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
 // and stride byte offsets (K-major: SBO = 1024 between 8-row groups; MN-major:
 // LBO between 64-column slabs, SBO = 1024 between 8-row groups of K)
@@ -157,6 +187,17 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
       "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : HOPPER_F16(d, 0), HOPPER_F16(d, 16)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64x16] (+)= A[64x16] B[16x16], both from shared memory, K-major
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_F4(d, 0), HOPPER_F4(d, 4)
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -313,6 +354,48 @@ inline int make_map(CUtensorMap* map, const void* base, int S, int H, int B,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncodeBase + int(r);
+}
+
+// 2-D map over a contiguous row-major matrix of `rows` x `cols` elements
+// of `elem_bytes` bytes (bf16 or int8; the row, cols * elem_bytes bytes,
+// a multiple of 16): dims (cols, rows), a box of `box_cols` x `box_rows`,
+// 128-byte swizzled or not; elements past either end load as zeros
+inline int make_map_2d(CUtensorMap* map, const void* base, int elem_bytes,
+                       int64_t cols, int64_t rows, int box_cols, int box_rows,
+                       bool swizzle128) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kErrNoEncode;
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(cols) * elem_bytes};
+  const cuuint32_t box[2] = {cuuint32_t(box_cols), cuuint32_t(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = fn(
+      map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                           : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      2, const_cast<void*>(base), dims, strides, box, estr,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncodeBase + int(r);
+}
+
+// 1-D map over a contiguous f32 vector of n values, a box of `box`;
+// values past n load as zeros
+inline int make_map_1d_f32(CUtensorMap* map, const void* base, int64_t n,
+                           int box) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kErrNoEncode;
+  const cuuint64_t dims[1] = {cuuint64_t(n)};
+  const cuuint64_t strides[1] = {0};  // none for rank 1
+  const cuuint32_t boxd[1] = {cuuint32_t(box)};
+  const cuuint32_t estr[1] = {1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
+                        const_cast<void*>(base), dims, strides, boxd, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_NONE,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncodeBase + int(r);
 }

@@ -2,7 +2,9 @@
 // bf16 activations, weights widened to bf16 in shared memory, tensor-core
 // mma.sync (m16n8k16, bf16 -> f32), f32 accumulation.
 //
-// Replaces three Pallas kernels of opadpo_tpu/ops/quant.py:
+// Replaces three Pallas kernels of opadpo_tpu/ops/quant.py (Q8 and Q8T
+// only at shapes whose rows are not a multiple of 16 bytes long, which
+// int8_matmul.cu's TMA loads cannot take; ops/quant.py chooses):
 // - Q8  (_q8_matmul_kernel):   y[M, N] = (x[M, K] @ q[N, K]^T) * scale[N]
 // - Q8T (_q8_matmul_t_kernel): dx[M, K] = gs[M, N] @ q[N, K], where the
 //   caller has folded the weight scale into gs = bf16(g * scale)

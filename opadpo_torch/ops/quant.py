@@ -10,15 +10,23 @@ keeps the weights in ``nn.Linear``'s ``[out, in]`` layout, K contiguous:
   K: within each group of g (128) byte r holds k = r in its low nibble and
   k = r + g/2 in its high nibble, both signed; ``scale`` f32 ``[N, K/g]``.
 
-Three kernels (``csrc/quant_matmul.cu``) replace the Pallas ones, each
-behind a wrapper that launches it for CUDA tensors and runs its plain
-version for CPU tensors (never a fallback on CUDA):
+Hand-written kernels replace the three Pallas ones, each behind a wrapper
+that launches it for CUDA tensors and runs its plain version for CPU
+tensors (never a fallback on CUDA):
 
-- ``quant_matmul`` (``_q8_matmul_kernel``): ``(x @ bf16(q)^T) * scale``;
-- ``quant_matmul_transposed`` (``_q8_matmul_t_kernel``): ``bf16(g * scale)
-  @ bf16(q)``, the dx through the frozen int8 weight;
-- ``quant_matmul4`` (``_q4_matmul_kernel``): per group, ``x_g @ q4_g^T`` in
-  f32 times that group's scale, summed over groups.
+- ``quant_matmul`` (#9, ``_q8_matmul_kernel``): ``(x @ bf16(q)^T) *
+  scale``;
+- ``quant_matmul_transposed`` (#10, ``_q8_matmul_t_kernel``): ``bf16(g *
+  scale) @ bf16(q)``, the dx through the frozen int8 weight;
+- ``quant_matmul4`` (#11, ``_q4_matmul_kernel``): per group, ``x_g @
+  q4_g^T`` in f32 times that group's scale, summed over groups.
+
+#9 and #10 run on ``csrc/int8_matmul.cu`` (TMA, wgmma) where every matrix
+row is a multiple of 16 bytes long: #9 on its ``tile`` kernel above 16
+rows and its ``decode`` kernel at or below, #10 on its ``tile`` kernel.
+Other shapes, and #11, run on ``csrc/quant_matmul.cu`` (``mma.sync``).
+``q8_variant`` / ``q8t_variant`` choose by shape before the launch, and
+``variant_launches`` counts each variant's launches.
 
 ``q8_dense`` / ``q4_dense`` dispatch on the rows (product of the leading
 dims) as the JAX package does: at most ``_STREAMING_MAX_M`` rows take the
@@ -34,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -174,16 +183,77 @@ def quant_matmul4_plain(x, q4, scale, out_dtype=None):
 # The kernels
 # ---------------------------------------------------------------------------
 
-_Q8, _Q8T, _Q4 = 0, 1, 2
-_BN, _BK = 64, 128
+_Q8, _Q8T, _Q4 = 0, 1, 2        # modes of quant_matmul.cu
+_BN, _BK = 64, 128              # its output and contraction tiles
+TILE_M, TILE_K = 128, 64        # int8_matmul.cu: rows per CTA, tile depth
+DECODE_ROWS = 16                # #9 at or below: the transposed kernel
+DECODE_N = 128                  # weight rows per decode CTA
+DECODE_CTAS_PER_SM = 2          # decode CTAs resident on one SM
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def q8_variant(m: int, n: int, k: int) -> str:
+    """The kernel #9 takes at x [M, K], q [N, K]: ``"decode"`` (M <= 16)
+    or ``"tile"`` on ``int8_matmul.cu``, whose TMA loads need rows a
+    multiple of 16 bytes long (K % 16 == 0); else ``"odd"``, the
+    ``mma.sync`` kernel of ``quant_matmul.cu``."""
+    if k % 16:
+        return "odd"
+    return "decode" if m <= DECODE_ROWS else "tile"
+
+
+def q8t_variant(m: int, n: int, k: int) -> str:
+    """The kernel #10 takes at g [M, N], q [N, K]: ``"tile"`` on
+    ``int8_matmul.cu`` when K % 16 == 0 and N % 8 == 0 (g's rows), else
+    ``"odd"``."""
+    return "odd" if k % 16 or n % 8 else "tile"
+
+
+def tile_bn(m: int, n: int, sms: int) -> int:
+    """Weight rows per CTA of #9's tile kernel (128 x rows each): 256,
+    or 64 where 256 would give fewer than one CTA per two SMs.  On an H100
+    at M 703 the kernel is bound by its tiles' L2 traffic, and 256 rows a
+    CTA, which read each x tile for four times the work of 64, ran 18-39 %
+    faster; at CLIP's 577 x 1024 -> 1024, 64 rows on 80 CTAs took half the
+    time of 256 on 20 (``tools/time_quant.py --bn``, PERF.md)."""
+    return 256 if -(-m // TILE_M) * -(-n // 256) * 2 >= sms else 64
+
+
+def decode_splits(n: int, k: int, sms: int) -> int:
+    """Contraction splits of #9's decode kernel: as many as fit
+    ``DECODE_CTAS_PER_SM`` CTAs of ``DECODE_N`` weight rows on each SM
+    (1 when the weight tiles alone fill them); split z walks the 64-deep
+    contraction tiles ``[z * per, min(nk, (z + 1) * per))``, ``per =
+    ceil(nk / splits)``, and none is empty."""
+    tiles = -(-n // DECODE_N)
+    nk = -(-k // TILE_K)
+    splits = max(1, min(nk, DECODE_CTAS_PER_SM * sms // tiles))
+    per = -(-nk // splits)
+    return -(-nk // per)
+
+
+class LaunchCount:
+    """Launches of one kernel variant (``chip_smoke.py`` resets and reads
+    ``launches``)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+variant_launches = {name: LaunchCount() for name in (
+    "q8_tile", "q8_decode", "q8_odd", "q8t_tile", "q8t_odd")}
 
 
 def _splits(m: int, n: int, k: int, device) -> int:
-    """Contraction splits so that about four CTAs per SM are in flight
-    (the kernel's 16- or 64-row by 64-column output tiles)."""
+    """Contraction splits of quant_matmul.cu so that about four CTAs per
+    SM are in flight (its 16- or 64-row by 64-column output tiles)."""
     bm = 16 if m <= 16 else 64
     ctas = -(-m // bm) * -(-n // _BN)
-    target = 4 * torch.cuda.get_device_properties(device).multi_processor_count
+    target = 4 * _sm_count(device.index)
     nk = -(-k // _BK)
     if ctas >= target:
         return 1
@@ -219,14 +289,79 @@ def _launch(mode, a, w, scale, n_out, out_dtype):
     return out
 
 
+# decode tickets, zero between launches, per (device, stream)
+_tickets: dict = {}
+
+
+def _tickets_for(device, stream: int, tiles: int) -> torch.Tensor:
+    t = _tickets.get((device.index, stream))
+    if t is None or t.numel() < tiles:
+        t = torch.zeros(max(tiles, 256), dtype=torch.int32, device=device)
+        _tickets[(device.index, stream)] = t
+    return t
+
+
+def _int8_lib():
+    lib = _build.load("int8_matmul.cu")
+    if not lib.opadpo_q8_tile.argtypes:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.opadpo_q8_tile.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
+        lib.opadpo_q8_decode.argtypes = [vp, vp, vp, vp, i, vp, vp, i, i,
+                                         i, i, vp]
+        lib.opadpo_q8t_tile.argtypes = [vp, vp, vp, vp, i, i, i, vp]
+        for fn in (lib.opadpo_q8_tile, lib.opadpo_q8_decode,
+                   lib.opadpo_q8t_tile):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _q8_int8(variant, x, q, scale, out):
+    """#9 on int8_matmul.cu into ``out``."""
+    (m, k), n = x.shape, q.shape[0]
+    dev = x.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    f32 = int(out.dtype == torch.float32)
+    sms = _sm_count(dev.index)
+    lib = _int8_lib()
+    if variant == "tile":
+        err = lib.opadpo_q8_tile(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                                 out.data_ptr(), f32, m, n, k,
+                                 tile_bn(m, n, sms), stream)
+    else:
+        splits = decode_splits(n, k, sms)
+        ws = tickets = None
+        if splits > 1:
+            tiles = -(-n // DECODE_N)
+            ws = torch.empty(splits * tiles * DECODE_ROWS * DECODE_N,
+                             dtype=torch.float32, device=dev)
+            tickets = _tickets_for(dev, stream, tiles)
+        err = lib.opadpo_q8_decode(
+            x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), f32,
+            ws.data_ptr() if ws is not None else None,
+            tickets.data_ptr() if tickets is not None else None, m, n, k,
+            splits, stream)
+    _build.check(err, f"quant_matmul ({variant})")
+
+
 def quant_matmul_cuda(x, q, scale, out_dtype=None):
     """Launch #9: x bf16 [M, K], q int8 [N, K], scale f32 [N] -> [M, N]
-    bf16 (or ``out_dtype`` f32)."""
+    bf16 (or ``out_dtype`` f32), on the kernel ``q8_variant`` names."""
     n, k = q.shape
     _check("x", x, torch.bfloat16, (x.shape[0], k))
     _check("q", q, torch.int8, (n, k))
     _check("scale", scale, torch.float32, (n,))
-    out = _launch(_Q8, x, q, scale, n, out_dtype or torch.bfloat16)
+    od = out_dtype or torch.bfloat16
+    m = x.shape[0]
+    variant = q8_variant(m, n, k)
+    if variant == "odd" or m == 0:
+        out = _launch(_Q8, x, q, scale, n, od)
+    else:
+        if od not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"out_dtype {od} (bf16 or f32)")
+        out = torch.empty((m, n), dtype=od, device=x.device)
+        _q8_int8(variant, x, q, scale, out)
+    if m:
+        variant_launches["q8_" + variant].launches += 1
     quant_matmul_cuda.launches += 1
     return out
 
@@ -236,14 +371,26 @@ quant_matmul_cuda.launches = 0
 
 def quant_matmul_t_cuda(g, q, scale):
     """Launch #10: g bf16 [M, N], q int8 [N, K], scale f32 [N] -> dx bf16
-    [M, K]; the scale is folded into g (f32 product, rounded to bf16) by
-    one op before the kernel, as the JAX wrapper folds it."""
+    [M, K].  The tile kernel folds the scale into g itself (f32 product,
+    rounded to bf16, as the JAX wrapper folds it); for the odd kernel one
+    op folds it first."""
     n, k = q.shape
     _check("g", g, torch.bfloat16, (g.shape[0], n))
     _check("q", q, torch.int8, (n, k))
     _check("scale", scale, torch.float32, (n,))
-    gs = (g.float() * scale).to(torch.bfloat16)
-    out = _launch(_Q8T, gs, q, None, k, torch.bfloat16)
+    m = g.shape[0]
+    variant = q8t_variant(m, n, k)
+    if variant == "odd" or m == 0:
+        gs = (g.float() * scale).to(torch.bfloat16)
+        out = _launch(_Q8T, gs, q, None, k, torch.bfloat16)
+    else:
+        out = torch.empty((m, k), dtype=torch.bfloat16, device=g.device)
+        err = _int8_lib().opadpo_q8t_tile(
+            g.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), m,
+            n, k, torch.cuda.current_stream(g.device).cuda_stream)
+        _build.check(err, "quant_matmul_t (tile)")
+    if m:
+        variant_launches["q8t_" + variant].launches += 1
     quant_matmul_t_cuda.launches += 1
     return out
 

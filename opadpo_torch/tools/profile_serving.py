@@ -58,7 +58,9 @@ def kernel_group(name: str) -> str:
                           ("decode_attn_multi_kernel", "multi")):
         if kernel in n:
             return f"decode_attention_{group} (csrc)"
-    if "quant_mm_kernel" in n or "splitk_reduce" in n:
+    if any(k in n for k in ("quant_mm_kernel", "splitk_reduce",
+                            "q8_tile_kernel", "q8_decode_kernel",
+                            "q8t_tile_kernel")):
         return "quant_matmul (csrc)"
     if any(s in n for s in ("gemm", "gemv", "nvjet", "cutlass", "xmma",
                             "splitk")):

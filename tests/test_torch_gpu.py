@@ -313,6 +313,44 @@ def test_quant_kernels_match_plain_on_gpu(m, n, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 9, 16, 17, 64, 65, 128, 129, 577, 703,
+                               1024])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 11008), (1024, 1024),
+                                 (128, 352)])
+def test_int8_kernels_tile_edges_on_gpu(m, k, n):
+    """#9 and #10 on the TMA/wgmma kernels (int8_matmul.cu) at the tile
+    edges of M and at path widths: against their plain versions (f32
+    within 1e-5 of the largest entry, bf16 within one bf16 step), two
+    launches bitwise equal, each call counted on the variant
+    ``q8_variant`` / ``q8t_variant`` names (never the odd-shape one)."""
+    g = _gen()
+    x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+    gr = torch.randn(m, n, generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn(n, k, generator=g, device="cuda") * 0.02
+    q, s = t_quant.quantize_weight(w)
+    counts = t_quant.variant_launches
+    before = {v: c.launches for v, c in counts.items()}
+    runs = [(lambda od=od: t_quant.quant_matmul_cuda(x, q, s, od),
+             t_quant.quant_matmul_plain(x, q, s, od))
+            for od in (torch.bfloat16, torch.float32)]
+    runs.append((lambda: t_quant.quant_matmul_t_cuda(gr, q, s),
+                 t_quant.quant_matmul_t_plain(gr, q, s)))
+    for kernel, ref in runs:
+        out, again = kernel(), kernel()
+        assert out.dtype == ref.dtype and out.shape == ref.shape
+        assert torch.equal(out, again)
+        err = (out.float() - ref.float()).abs().max().item()
+        top = ref.float().abs().max().item()
+        tol = 1e-5 if out.dtype == torch.float32 else 2.0 ** -7
+        assert err <= tol * top, (out.dtype, err, top)
+    got = {v: c.launches - before[v] for v, c in counts.items()}
+    want = dict.fromkeys(counts, 0)
+    want["q8_" + t_quant.q8_variant(m, n, k)] += 4
+    want["q8t_" + t_quant.q8t_variant(m, n, k)] += 2
+    assert got == want and not got["q8_odd"] and not got["q8t_odd"]
+
+
+@pytest.mark.gpu
 def test_quantizers_give_the_cpu_codes_on_gpu():
     """Weight codes and scales (int8 and int4) and the int8 and int4
     prompt-KV caches made on the GPU equal the CPU's bit for bit (the CPU's

@@ -9,6 +9,8 @@ Tolerances: codes equal exactly; f32 products within 1e-5 of the largest
 entry (the same exact products summed in another order); bf16 outputs
 within one bf16 step of each other (both round the same f32 sum)."""
 
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -231,3 +233,173 @@ def test_quantize_params_same_leaves_as_jax(bits):
         assert ref[("vision", "wq")] == "q" and ref[("llama", "w_down")] == "q"
         assert ref[("llama", "wq")] == "q4"
     assert tq.quantized_bytes(model) == jq.quantized_bytes(jq_params)
+
+
+# ---------------------------------------------------------------------------
+# The Hopper int8 kernels (csrc/int8_matmul.cu): their arithmetic and rules,
+# emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def _byte_perm(x, y, sel):
+    """CUDA's ``__byte_perm(x, y, sel)`` on uint32 arrays: result byte i is
+    byte ``(sel >> 4i) & 7`` of the eight bytes of (y:x), x the low four."""
+    x = np.asarray(x, np.uint64)
+    y = np.asarray(y, np.uint64)
+    both = x | (y << np.uint64(32))
+    out = np.zeros(np.broadcast(x, y).shape, np.uint64)
+    for i in range(4):
+        src = (sel >> (4 * i)) & 7
+        byte = (both >> np.uint64(8 * src)) & np.uint64(0xFF)
+        out |= byte << np.uint64(8 * i)
+    return out.astype(np.uint32)
+
+
+def _widen4(words):
+    """The kernel's ``widen4``: four int8 codes per uint32 -> two uint32 of
+    bf16 pairs, by byte_perm into 2^23 + 128 + b, an f32 subtract and the
+    high halves (the selectors and constants of int8_matmul.cu)."""
+    u = np.asarray(words, np.uint32) ^ np.uint32(0x80808080)
+    magic = np.float32(8388736.0)
+    f = [(_byte_perm(u, 0x4B000000, sel).view(np.float32) - magic)
+         .view(np.uint32) for sel in (0x7540, 0x7541, 0x7542, 0x7543)]
+    return (_byte_perm(f[0], f[1], 0x7632), _byte_perm(f[2], f[3], 0x7632))
+
+
+def test_int8_widening_exact_for_all_256_codes():
+    """The kernels' int8 -> bf16 widening (no int-to-float convert) gives
+    ``q.to(torch.bfloat16)`` bit for bit for every code, -128 included;
+    the emulation's constants are the ones ``widen4`` uses."""
+    src = (pathlib.Path(tq.__file__).parent.parent / "csrc"
+           / "int8_matmul.cu").read_text()
+    body = src[src.index("uint2 widen4("):src.index("void widen16(")]
+    for const in ("0x80808080u", "8388736.f", "0x4B000000u", "0x7540",
+                  "0x7541", "0x7542", "0x7543", "0x7632"):
+        assert const in body, const
+    codes = np.arange(-128, 128, dtype=np.int8)
+    words = codes.view(np.uint8).reshape(-1, 4).copy().view(np.uint32)[:, 0]
+    lo, hi = _widen4(words)
+    got = np.stack([lo, hi], axis=1).reshape(-1).view(np.uint16)
+    want = torch.from_numpy(codes).to(torch.bfloat16).view(torch.int16)
+    np.testing.assert_array_equal(got, want.numpy().view(np.uint16))
+
+
+def _decode_walk(k, splits):
+    """The contraction tiles split z of #9's decode kernel walks, by the
+    kernel's rule: ``range(z * per, min(nk, (z + 1) * per))``, ``per =
+    ceil(nk / splits)``."""
+    nk = -(-k // tq.TILE_K)
+    per = -(-nk // splits)
+    return [range(z * per, min(nk, (z + 1) * per)) for z in range(splits)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 8])
+def test_decode_split_rule_and_walk_against_brute_force(sms):
+    """#9's decode kernel: the split count is the fewest splits of the
+    smallest equal share that fits ``DECODE_CTAS_PER_SM`` CTAs on each SM
+    (found by trying every share), every split walks a non-empty run of
+    the contraction tiles by the kernel's rule, and the runs cover each
+    tile once in order."""
+    for n in (64, 128, 352, 1024, 4096, 11008, 13824, 32000):
+        for k in (16, 64, 128, 352, 1024, 4096, 5120, 11008, 13824):
+            nk = -(-k // tq.TILE_K)
+            tiles = -(-n // tq.DECODE_N)
+            cap = max(1, min(nk, tq.DECODE_CTAS_PER_SM * sms // tiles))
+            share = next(p for p in range(1, nk + 1) if -(-nk // p) <= cap)
+            splits = tq.decode_splits(n, k, sms)
+            assert splits == -(-nk // share), (n, k)
+            walk = _decode_walk(k, splits)
+            assert len(walk) == splits and all(len(r) for r in walk)
+            assert [t for r in walk for t in r] == list(range(nk))
+            assert (splits - 1) * -(-nk // splits) < nk   # the kernel's check
+            assert tiles * splits <= max(tiles, tq.DECODE_CTAS_PER_SM * sms)
+
+
+def test_kernel_choice_and_tile_width_rules():
+    """Which kernel each shape takes: the TMA kernels wherever every row
+    (x or g bf16, q int8) is a multiple of 16 bytes long, the decode
+    kernel at M <= 16; and #9's tile width is 256 where its grid gives at
+    least one CTA per two SMs, else 64, checked by counting CTAs.  Every
+    shape of the 7B / 13B / CLIP and tiny int8 paths takes a TMA kernel."""
+    for m in (1, 8, 16, 17, 577, 703, 1024):
+        for k in (8, 16, 64, 72, 100, 128, 352, 4096, 11008):
+            for n in (4, 8, 100, 128, 300, 1024, 4096, 32000):
+                tma9 = (2 * k) % 16 == 0 and k % 16 == 0
+                want9 = "odd" if not tma9 else (
+                    "decode" if m <= 16 else "tile")
+                assert tq.q8_variant(m, n, k) == want9
+                tma10 = (2 * n) % 16 == 0 and k % 16 == 0
+                assert tq.q8t_variant(m, n, k) == ("tile" if tma10
+                                                   else "odd")
+                ctas = len(range(0, m, 128)) * len(range(0, n, 256))
+                assert tq.tile_bn(m, n, 132) == (256 if 2 * ctas >= 132
+                                                 else 64)
+    for k, n in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
+                 (1024, 1024), (1024, 4096), (4096, 1024), (64, 128),
+                 (128, 64), (128, 352), (352, 128), (128, 512)):
+        for m in (1, 8, 577, 703):
+            assert tq.q8_variant(m, n, k) != "odd"
+            assert tq.q8t_variant(m, n, k) == "tile"
+
+
+def _tiled_q8(x, q, scale, splits=1):
+    """#9 in the kernels' order: f32 products of 64-deep tiles summed in
+    tile order, per split; the splits' partials summed in split order;
+    then the scale."""
+    k = x.shape[1]
+    xf, wf = x.float(), q.float()
+    parts = []
+    for run in _decode_walk(k, splits):
+        acc = torch.zeros(x.shape[0], q.shape[0])
+        for t in run:
+            sl = slice(t * tq.TILE_K, (t + 1) * tq.TILE_K)
+            acc += xf[:, sl] @ wf[:, sl].t()
+        parts.append(acc)
+    total = torch.zeros_like(parts[0])
+    for p in parts:
+        total += p
+    return total * scale
+
+
+def _tiled_q8t(g, q, scale):
+    """#10 in the kernel's order: gs = bf16(f32(g) * scale) folded per
+    tile, then f32 products of 64-deep contraction tiles in order."""
+    n = g.shape[1]
+    gs = (g.float() * scale).to(torch.bfloat16).float()
+    acc = torch.zeros(g.shape[0], q.shape[1])
+    for t in range(-(-n // 64)):
+        sl = slice(t * 64, (t + 1) * 64)
+        acc += gs[:, sl] @ q[sl].float()
+    return acc.to(torch.bfloat16)
+
+
+def test_tiled_sum_order_matches_plain_and_pallas():
+    """The kernels' sum order (#9 tile, #9 decode split two and three
+    ways, #10 with its in-kernel scale fold) against the plain versions
+    and the interpret-mode Pallas kernels: f32 within 1e-5 of the largest
+    entry, bf16 within one bf16 step."""
+    rng = np.random.default_rng(7)
+    n = 200
+    for m, k in ((1, 256), (9, 384), (37, 384)):
+        w = _weight(rng, k, n)
+        wt = torch.from_numpy(_jax_t(w).copy())
+        q, s = tq.quantize_weight(wt)
+        wq = jq.quantize_weight(jnp.asarray(w))
+        x = _jnp_bf16(rng.normal(size=(m, k)).astype(np.float32))
+        xt = torch.tensor(np.asarray(x.astype(jnp.float32))).to(
+            torch.bfloat16)
+        ref_j = np.asarray(jq.quant_matmul(x, wq, block_k=128,
+                                           out_dtype=jnp.float32))
+        plain = tq.quant_matmul_plain(xt, q, s, torch.float32)
+        for splits in (1, 2, 3):
+            got = _tiled_q8(xt, q, s, splits)
+            _assert_f32(got.numpy(), ref_j)
+            _assert_f32(got.numpy(), plain.numpy())
+            _assert_bf16_step(got.to(torch.bfloat16).float().numpy(),
+                              plain.to(torch.bfloat16).float().numpy())
+        gj = _jnp_bf16(rng.normal(size=(m, n)).astype(np.float32))
+        gt = torch.tensor(np.asarray(gj.astype(jnp.float32))).to(
+            torch.bfloat16)
+        got = _tiled_q8t(gt, q, s).float().numpy()
+        _assert_bf16_step(got, tq.quant_matmul_t_plain(gt, q, s).float())
+        _assert_bf16_step(got, np.asarray(jq.quant_matmul_transposed(
+            gj, wq, block_k=128).astype(jnp.float32)))
