@@ -5,8 +5,8 @@
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the six CUDA sources of ``opadpo_torch/csrc``, one nvcc each,
-     all at once;
+  2. build: the seven CUDA sources of ``opadpo_torch/csrc``, one nvcc
+     each, all at once;
   3. the flash forward kernel (#1, TMA K/V ring and warp-specialised
      wgmma) against its plain version at the serving shapes (LLaMA prefill
      [8, 703, 32, 128] causal, CLIP [8, 577, 16, 64] bidirectional) and
@@ -32,11 +32,15 @@ Phases, each fatal on failure:
   7. the quantized matmuls against their plain versions: int8 (#9, TMA
      and wgmma, ``int8_matmul.cu``) at the 7B decode (M 8), head (f32
      out), prefix (M 703) and CLIP (M 577) shapes, its transpose (#10,
-     the same file) at M 703, int4 (#11) at the 13B decode (M 1, 8), head
-     and prefix shapes; #9 and #10 also at the tile edges (M 1 ... 1024),
-     two launches bitwise equal, with int8_matmul.cu's ptxas report (a
-     spill, C7508 or C7514 fails); and #9 / #10 / #11 beside
-     dequantize-then-matmul and the int8 GEMM route at M 8 ... 2688;
+     the same file) at M 703, int4 (#11, TMA and wgmma,
+     ``int4_matmul.cu``) at the 13B decode (M 1, 8), prefix (M 703) and
+     CLIP (M 577) shapes, the 13B head (M 1) and path A's head (M 8, 4096
+     -> 32000, f32 out), each beside the mma.sync kernel's earlier time;
+     all three also at the tile edges (M 1 ... 1024), two launches bitwise
+     equal in every case, with int8_matmul.cu's ptxas report (a spill,
+     C7508 or C7514 fails) and int4_matmul.cu's (C7512 and C7513 fail
+     too); and #9 / #10 / #11 beside dequantize-then-matmul and the int8
+     GEMM route at M 8 ... 2688;
   8. small-input references, the GPU (kernels) against the same weights on
      the CPU (plain), on the tiny LLaVA with a bf16, an int8 and an int4
      base (and a decode head of that width): prefill, two decode steps over
@@ -75,9 +79,10 @@ Phases, each fatal on failure:
      7B model freed, LLaVA-1.5-13B drawn straight into int4
      (``llava_dpo_13b_singlechip.yaml``, batch 1, r 64) serves 3 requests
      one at a time with an int4 head and trains; each run's counters of
-     #1, #6 and #9-#11 (and of #9 / #10's kernel variants) equal to the
-     counts derived from its batches, the odd-shape variant never
-     launched (also in the tiny references of step 8);
+     #1, #6 and #9-#11 (and of their kernel variants) equal to the counts
+     derived from its batches, #9 / #10's odd-shape variant never launched
+     (also in the tiny references of step 8), and the 13B run launching
+     both of #11's kernels;
   14. one JSON line of the 11 kernels' numbers, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -417,24 +422,27 @@ def _bwd_case(b, sq, skv, h, d, g, flush):
 FLASH_BWD_WAS_MS = {"prefix": (0.348, 0.375), "response": (3.050, 3.188)}
 
 
-def ptxas_findings(src):
+def ptxas_findings(src, fatal=()):
     """The ptxas report of one source: (its register, shared memory and
     spill lines and its C7512 "wgmma serialized for register resources"
     lines, a finding recorded in PERF.md; the lines that are faults: a
     spill, a C7508 "setmaxnreg ignored", a C7514 "wgmma serialized" for
-    accumulators read in flight, any other ptxas warning)."""
+    accumulators read in flight, any other ptxas warning, and a line
+    naming any code in ``fatal``)."""
     from opadpo_torch.ops import _build
 
     ptxas = _build.last_build.get(src, {}).get("ptxas", "")
     shown, faults = [], []
     for line in ptxas.splitlines():
         line = line.strip()
-        if any(w in line for w in ("registers", "spill", "smem", "C7512")):
+        if any(w in line for w in ("registers", "spill", "smem", "C7512",
+                                   "C7513")):
             shown.append(line)
         spills = "spill stores" in line and not (
             "0 bytes spill stores, 0 bytes spill loads" in line)
         if spills or "C7508" in line or "C7514" in line \
-                or line.startswith("ptxas warning"):
+                or line.startswith("ptxas warning") \
+                or any(code in line for code in fatal):
             faults.append(line)
     return shown, faults
 
@@ -680,7 +688,7 @@ def _quant_case(kind, m, k, n, g, flush, out_f32=False, timed=True):
                 a, quant.dequantize_weight4(q, s).t()).to(od)
             library = (deq, "dequantize + torch.matmul (two calls)")
             in_bytes = m * k * 2 + n * k // 2 + s.numel() * 4
-            variant = "q4"
+            variant = quant.q4_variant(m, n, k)
         else:
             kernel = lambda: quant.quant_matmul_cuda(a, q, s, od)  # noqa
             plain = lambda: quant.quant_matmul_plain(a, q, s, od)  # noqa
@@ -720,37 +728,51 @@ def _quant_case(kind, m, k, n, g, flush, out_f32=False, timed=True):
     return res
 
 
-# #9 / #10 before their TMA/wgmma redesign (quant_matmul.cu's mma.sync
-# kernel; chip runs of chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W,
-# recorded in PERF.md), by (kernel, M, K, N)
+# #9 / #10 / #11 before their TMA/wgmma redesign (quant_matmul.cu's
+# mma.sync kernel; chip runs of chip_smoke.py on an NVIDIA H100 80GB HBM3
+# at 700 W, recorded in PERF.md), by (kernel, M, K, N)
 QUANT_WAS_MS = {("q8", 8, 4096, 4096): 0.0187, ("q8", 8, 4096, 32000): 0.0704,
                 ("q8", 703, 4096, 4096): 0.1636,
                 ("q8", 577, 1024, 1024): 0.0267,
                 ("q8", 577, 1024, 4096): 0.0512,
                 ("q8t", 703, 4096, 4096): 0.2154,
                 ("q8t", 703, 4096, 11008): 0.5535,
-                ("q8t", 703, 11008, 4096): 0.4921}
+                ("q8t", 703, 11008, 4096): 0.4921,
+                ("q4", 1, 5120, 5120): 0.0196, ("q4", 8, 5120, 5120): 0.0209,
+                ("q4", 703, 5120, 5120): 0.2391,
+                ("q4", 1, 5120, 32000): 0.0686}
 QUANT_EDGE_ROWS = (1, 8, 9, 16, 17, 64, 65, 128, 129, 577, 703, 1024)
+# #11's decoder shapes at 13B (K, N): q, k, v, o; gate, up; down
+Q4_DECODER = ((5120, 5120), (5120, 13824), (13824, 5120))
+# CLIP ViT-L's block linears (K, N): attention; fc1; fc2
+Q4_CLIP = ((1024, 1024), (1024, 4096), (4096, 1024))
 
 
 def phase_quant(g, flush):
     """Kernels #9-#11 at the shapes of the quantized paths: 7B int8 decode
     (M 8) and its head, the 7B prefix (M 703), CLIP at B = 1 (M 577), the
-    13B int4 decode (M 1, 8), head and prefix; #9 and #10 at the tile
-    edges (M 1 ... 1024, 4096 x 4096) against their plain versions; and
-    #9 / #10 / #11 beside dequantize-then-matmul and the int8 GEMM route
-    at M 8 ... 2688, either side of the 1024-row rule.  The ptxas report
-    of int8_matmul.cu: a spill, C7508 or C7514 fails."""
+    13B int4 decode (M 1, 8), prefix and CLIP, the 13B head (M 1) and path
+    A's int4 head (M 8); all three at the tile edges (M 1 ... 1024)
+    against their plain versions; and #9 / #10 / #11 beside
+    dequantize-then-matmul and the int8 GEMM route at M 8 ... 2688, either
+    side of the 1024-row rule.  The ptxas reports of int8_matmul.cu (a
+    spill, C7508 or C7514 fails) and int4_matmul.cu (C7512 and C7513
+    fail too)."""
     from opadpo_torch.ops import _build
 
-    shown, faults = ptxas_findings("int8_matmul.cu")
-    for line in shown + faults:
-        log(f"[quant] ptxas int8_matmul.cu: {line}")
-    check(not faults, f"int8_matmul.cu: ptxas reports {faults}")
-    lib = _build.load("int8_matmul.cu")
-    log("[quant] int8_matmul.cu dynamic shared memory: " + ", ".join(
-        f"{name} {lib.opadpo_int8_matmul_smem_bytes(i)} B" for i, name in
-        enumerate(("q8_tile 64", "q8_tile 256", "q8_decode", "q8t_tile"))))
+    for src, fatal, names in (
+            ("int8_matmul.cu", (), ("q8_tile 64", "q8_tile 256", "q8_decode",
+                                    "q8t_tile")),
+            ("int4_matmul.cu", ("C7512", "C7513"),
+             ("q4_tile 64", "q4_tile 128", "q4_decode"))):
+        shown, faults = ptxas_findings(src, fatal)
+        for line in shown + faults:
+            log(f"[quant] ptxas {src}: {line}")
+        check(not faults, f"{src}: ptxas reports {faults}")
+        smem = getattr(_build.load(src),
+                       f"opadpo_{src.split('_')[0]}_matmul_smem_bytes")
+        log(f"[quant] {src} dynamic shared memory: " + ", ".join(
+            f"{name} {smem(i)} B" for i, name in enumerate(names)))
     q8 = [_quant_case("q8", 8, k, n, g, flush)
           for k, n in ((4096, 4096), (4096, 11008), (11008, 4096))]
     q8.append(_quant_case("q8", 8, 4096, 32000, g, flush, out_f32=True))
@@ -764,10 +786,19 @@ def phase_quant(g, flush):
              for kind in ("q8", "q8t") for m in QUANT_EDGE_ROWS]
     edges += [_quant_case("q8", m, 4096, 32000, g, flush, out_f32=True,
                           timed=False) for m in (1, 9, 16)]
-    log(f"[quant] #9 / #10 at the tile edges, bitwise repeatable: "
+    edges += [_quant_case("q4", m, 5120, 5120, g, flush, timed=False)
+              for m in QUANT_EDGE_ROWS]
+    edges += [_quant_case("q4", m, 5120, 32000, g, flush, out_f32=True,
+                          timed=False) for m in (9, 16)]
+    log(f"[quant] #9 / #10 / #11 at the tile edges, bitwise repeatable: "
         + ", ".join(f"{c['kernel']} M {c['m']} N {c['n']} ({c['variant']}) "
                     f"{c['err']:.3g} of {c['top']:.3g}" for c in edges))
-    for c in q8 + q8t:
+    q4 = [_quant_case("q4", m, k, n, g, flush)
+          for m in (1, 8, 703) for k, n in Q4_DECODER]
+    q4 += [_quant_case("q4", 577, k, n, g, flush) for k, n in Q4_CLIP]
+    q4 += [_quant_case("q4", 1, 5120, 32000, g, flush, out_f32=True),
+           _quant_case("q4", 8, 4096, 32000, g, flush, out_f32=True)]
+    for c in q8 + q8t + q4:
         was = QUANT_WAS_MS.get((c["kernel"], c["m"], c["k"], c["n"]))
         log(f"[quant] {c['kernel']} M {c['m']} K {c['k']} N {c['n']} "
             f"({c['variant']}): {c['ms']:.4f} ms = "
@@ -775,16 +806,12 @@ def phase_quant(g, flush):
             f" ms bound ({c['bound_by']}); {c['library_call']} "
             f"{c['library_ms']:.4f}, dequantize + matmul "
             f"{c['dequant_matmul_ms']:.4f}; the mma.sync kernel {was} ms")
-    q4 = [_quant_case("q4", m, k, n, g, flush)
-          for m in (1, 8, 703)
-          for k, n in ((5120, 5120), (5120, 13824), (13824, 5120))]
-    q4 += [_quant_case("q4", m, 5120, 32000, g, flush, out_f32=True)
-           for m in (1, 8)]
     crossover = [_quant_case(kind, m, k, k, g, flush)
                  for kind, k, rows in (("q8", 4096, (8, 703, 1024, 1406,
                                                      2688)),
                                        ("q8t", 4096, (1024, 1406, 2688)),
-                                       ("q4", 5120, (8, 703, 1024, 1406)))
+                                       ("q4", 5120, (8, 703, 1024, 1406,
+                                                     2688)))
                  for m in rows]
     return {"q8": q8, "q8t": q8t, "q4": q4, "crossover": crossover,
             "edges": edges}
@@ -1249,8 +1276,9 @@ def phase_rollout_decode(model, card):
     check(positions == [want_pos], f"prompt positions {positions}")
     _check_attention_launches(cfg, stats, launches, "decode_attention_int4")
     want = expected_quant_serving(model, stats, 4)
-    check(launches["quant_matmul4"] == want["quant_matmul4"],
-          f"int4 head launches {launches['quant_matmul4']} != {want}")
+    q4 = {k: launches[k] for k in want if k.startswith("quant_matmul4")}
+    check(q4 == {k: want[k] for k in q4} and q4["quant_matmul4.decode"] > 0,
+          f"int4 head launches {q4} != {want}")
     n_chunks = -(-ROLLOUT_TOKENS // ROLLOUT_CHUNK)
     sp_pad0 = -(-want_pos // 256) * 256
     for s in stats:
@@ -1479,9 +1507,13 @@ def _counters():
             "quant_matmul": quant.quant_matmul_cuda,
             "quant_matmul_t": quant.quant_matmul_t_cuda,
             "quant_matmul4": quant.quant_matmul4_cuda,
-            **{f"quant_matmul{'_t' if v.startswith('q8t') else ''}."
-               f"{v.split('_')[1]}": c
+            **{f"{VARIANT_OF[v.split('_')[0]]}.{v.split('_')[1]}": c
                for v, c in quant.variant_launches.items()}}
+
+
+# the wrapper whose launches each prefix of quant.variant_launches splits
+VARIANT_OF = {"q8": "quant_matmul", "q8t": "quant_matmul_t",
+              "q4": "quant_matmul4"}
 
 
 def _reset(counters):
@@ -1510,14 +1542,15 @@ def _quant_layers(model):
 
 QUANT_KEYS = ("quant_matmul", "quant_matmul_t", "quant_matmul4",
               "quant_matmul.tile", "quant_matmul.decode", "quant_matmul.odd",
-              "quant_matmul_t.tile", "quant_matmul_t.odd")
+              "quant_matmul_t.tile", "quant_matmul_t.odd",
+              "quant_matmul4.tile", "quant_matmul4.decode")
 
 
 def _add(counts, lins, rows, times=1, dx=False):
     """Count the launches of ``lins`` (quantized linears) at ``rows`` rows,
     ``times`` over: #9 or #11 forward, or with ``dx`` #10 through the int8
-    ones; #9 and #10 also under the variant ``quant.q8_variant`` /
-    ``q8t_variant`` names for the shape."""
+    ones; each also under the variant ``quant.q8_variant`` /
+    ``q8t_variant`` / ``q4_variant`` names for the shape."""
     from opadpo_torch.ops import quant
 
     for lin in lins:
@@ -1532,6 +1565,7 @@ def _add(counts, lins, rows, times=1, dx=False):
             counts["quant_matmul." + quant.q8_variant(rows, n, k)] += times
         else:
             counts["quant_matmul4"] += times
+            counts["quant_matmul4." + quant.q4_variant(rows, n, k)] += times
 
 
 def _check_no_odd(launches, label):
@@ -1776,13 +1810,19 @@ def phase_13b_int4(card):
     serving = phase_quant_serve(model, card, "13b-int4", 4, 1, 3, 32)
     training = phase_train(model, card, "13b-int4-train", SINGLE_CHIP_STEPS,
                            1, SINGLE_CHIP_LORA)
+    q4 = {v: serving["launches"][f"quant_matmul4.{v}"]
+          + training["launches"][f"quant_matmul4.{v}"]
+          for v in ("decode", "tile")}
+    log(f"[13b-int4] #11 launches by kernel: {q4}")
+    check(q4["decode"] > 0 and q4["tile"] > 0,
+          f"13B int4: #11 did not run both kernels: {q4}")
     return serving, training
 
 
 def quant_kernel_entries(qk, q_serve, q_train):
     """The kernels line's entries of #9-#11: launches over the quantized
-    paths' runs (and by variant), numbers at a main-path shape, every
-    shape beside."""
+    paths' runs (path A's int4 head among the serving runs), and by
+    variant, numbers at a main-path shape, every shape beside."""
     def runs(kname):
         return sum(r["launches"][kname]
                    for r in list(q_serve.values()) + list(q_train.values()))
@@ -1795,8 +1835,8 @@ def quant_kernel_entries(qk, q_serve, q_train):
              "int8_matmul.cu"),
             ("quant_matmul_t", "q8t", 0, "opadpo_tpu/ops/quant.py:155",
              "int8_matmul.cu"),
-            ("quant_matmul4", "q4", 3, "opadpo_tpu/ops/quant.py:495",
-             "quant_matmul.cu")):
+            ("quant_matmul4", "q4", 0, "opadpo_tpu/ops/quant.py:495",
+             "int4_matmul.cu")):
         cases = qk[group] + [c for c in qk["crossover"]
                              if c["kernel"] == group]
         checked = cases + [c for c in qk["edges"] if c["kernel"] == group]
@@ -1976,7 +2016,8 @@ def main() -> int:
          "at": "[8,32,768,128] int8, s_used 768 (7B decode step, one layer)",
          "s_used_640_ms": decode["int8"][1]["ms"]})
     kernels += slice4_kernel_entries(decode, rollout, spec)
-    kernels += quant_kernel_entries(qk, q_serve, q_train)
+    kernels += quant_kernel_entries(qk, {"path-a": rollout, **q_serve},
+                                    q_train)
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

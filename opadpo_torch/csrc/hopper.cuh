@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the flash kernels
-// (flash_fwd.cu, flash_bwd.cu) and the int8 matmuls (int8_matmul.cu):
-// mbarriers, TMA tensor loads, 128-byte swizzled wgmma descriptors and the
-// wgmma forms they use, the accumulator-fragment helpers, and the
+// (flash_fwd.cu, flash_bwd.cu) and the quant matmuls (int8_matmul.cu,
+// int4_matmul.cu): mbarriers, TMA tensor loads, 128-byte swizzled wgmma
+// descriptors and the wgmma forms they use, the accumulator-fragment
+// helpers, the matmuls' stage ring and output store, and the
 // host-side encoding of the 4-D tensor maps over strided [B, S, H, D] bf16
 // views and of the 2-D maps over contiguous bf16 / int8 matrices.
 //
@@ -233,6 +234,20 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[64x16] (+)= A[64x16] (registers) B[16x16] (shared memory, K-major)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "0;\n}\n"
+      : HOPPER_F4(d, 0), HOPPER_F4(d, 4)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
 #undef HOPPER_F16
 #undef HOPPER_F4
 
@@ -310,6 +325,86 @@ __device__ __forceinline__ void store_rows(const float (&acc)[DN / 2],
   }
 }
 
+// ---- the quant matmuls' stage ring (int8_matmul.cu, int4_matmul.cu) ----
+
+// shared memory: byte offsets from a 1024-aligned base.  NST stages, each
+// the activation tile (A bytes) then the raw weight tile (W); then two
+// widened tiles (WIDE_ each), NS scale slices (S each: #10 one a stage,
+// #11's tile kernel two), the full and empty barriers, and a word for the
+// decode kernels' ticket.
+template <int A_, int W_, int WIDE_, int NST_, int S_ = 0, int NS_ = NST_>
+struct Layout {
+  static constexpr int A = A_, W = W_, S = S_, NST = NST_;
+  static constexpr int STAGE = A + W;
+  static constexpr int WIDE = NST * STAGE;
+  static constexpr int SC = WIDE + 2 * WIDE_;
+  static constexpr int BAR = SC + NS_ * S;
+  static constexpr int FLAG = BAR + 16 * NST;
+  static constexpr int BYTES = FLAG + 16;
+  static constexpr int ALLOC = BYTES + 1024;
+  static_assert(A % 1024 == 0 && W % 1024 == 0 && WIDE_ % 1024 == 0,
+                "tiles keep the 1024-byte swizzle period");
+  static_assert(ALLOC <= 232448, "more than a block's shared memory");
+};
+
+// the full and empty barriers of an NST-stage ring at byte `bar` of the
+// 1024-aligned base
+template <int NST>
+struct Ring {
+  unsigned char* smem;
+  uint32_t base;
+  int bar;
+  __device__ uint32_t full(int s) const { return base + bar + 8 * s; }
+  __device__ uint32_t empty(int s) const {
+    return base + bar + 8 * (NST + s);
+  }
+};
+
+// align the dynamic shared memory to 1024 bytes and initialise the ring of
+// layout L: one arrival (the producer's, with the transaction bytes) fills
+// a stage, CONSUMERS arrivals empty it
+template <typename L, int CONSUMERS = 256>
+__device__ __forceinline__ Ring<L::NST> ring_setup(unsigned char* raw_smem) {
+  const uint32_t raw = smem_u32(raw_smem);
+  Ring<L::NST> r;
+  r.smem = raw_smem + ((1024 - (raw & 1023)) & 1023);
+  r.base = smem_u32(r.smem);
+  r.bar = L::BAR;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::NST; ++s) {
+      mbar_init(r.full(s), 1);
+      mbar_init(r.empty(s), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return r;
+}
+
+// out[o] (and out[o + 1]) of a bf16 or f32 output; `pair` when both lie in
+// the row and the pair is aligned
+__device__ __forceinline__ void store2(void* out, int out_f32, int64_t o,
+                                       float v0, float v1, bool has1,
+                                       bool pair) {
+  if (out_f32) {
+    float* p = static_cast<float*>(out) + o;
+    if (pair) {
+      *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+    } else {
+      p[0] = v0;
+      if (has1) p[1] = v1;
+    }
+  } else {
+    bf16* p = static_cast<bf16*>(out) + o;
+    if (pair) {
+      *reinterpret_cast<uint32_t*>(p) = pack_bf16(v0, v1);
+    } else {
+      p[0] = __float2bfloat16(v0);
+      if (has1) p[1] = __float2bfloat16(v1);
+    }
+  }
+}
+
 // ---- host side: tensor maps ----
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -361,10 +456,10 @@ inline int make_map(CUtensorMap* map, const void* base, int S, int H, int B,
 // 2-D map over a contiguous row-major matrix of `rows` x `cols` elements
 // of `elem_bytes` bytes (bf16 or int8; the row, cols * elem_bytes bytes,
 // a multiple of 16): dims (cols, rows), a box of `box_cols` x `box_rows`,
-// 128-byte swizzled or not; elements past either end load as zeros
-inline int make_map_2d(CUtensorMap* map, const void* base, int elem_bytes,
-                       int64_t cols, int64_t rows, int box_cols, int box_rows,
-                       bool swizzle128) {
+// with the swizzle `sw`; elements past either end load as zeros
+inline int make_map_2d_sw(CUtensorMap* map, const void* base, int elem_bytes,
+                          int64_t cols, int64_t rows, int box_cols,
+                          int box_rows, CUtensorMapSwizzle sw) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return kErrNoEncode;
   const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
@@ -375,10 +470,18 @@ inline int make_map_2d(CUtensorMap* map, const void* base, int elem_bytes,
       map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                            : CU_TENSOR_MAP_DATA_TYPE_UINT8,
       2, const_cast<void*>(base), dims, strides, box, estr,
-      CU_TENSOR_MAP_INTERLEAVE_NONE,
-      swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncodeBase + int(r);
+}
+
+// the same, 128-byte swizzled or not
+inline int make_map_2d(CUtensorMap* map, const void* base, int elem_bytes,
+                       int64_t cols, int64_t rows, int box_cols, int box_rows,
+                       bool swizzle128) {
+  return make_map_2d_sw(
+      map, base, elem_bytes, cols, rows, box_cols, box_rows,
+      swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // 1-D map over a contiguous f32 vector of n values, a box of `box`;

@@ -122,59 +122,12 @@ __device__ __forceinline__ void widen_mnmajor(const unsigned char* raw,
   }
 }
 
-// ---- shared memory: byte offsets from a 1024-aligned base ----
-// NST stages, each the activation tile (A bytes) then the raw weight tile
-// (W); then two widened tiles (WIDE each), NST scale slices (S each, #10),
-// the full and empty barriers, and a word for the decode kernel's ticket.
-template <int A_, int W_, int WIDE_, int NST_, int S_ = 0>
-struct Layout {
-  static constexpr int A = A_, W = W_, S = S_, NST = NST_;
-  static constexpr int STAGE = A + W;
-  static constexpr int WIDE = NST * STAGE;
-  static constexpr int SC = WIDE + 2 * WIDE_;
-  static constexpr int BAR = SC + NST * S;
-  static constexpr int FLAG = BAR + 16 * NST;
-  static constexpr int BYTES = FLAG + 16;
-  static constexpr int ALLOC = BYTES + 1024;
-  static_assert(A % 1024 == 0 && W % 1024 == 0 && WIDE_ % 1024 == 0,
-                "tiles keep the 1024-byte swizzle period");
-};
-
 // #9, M > 16: BN weight rows a CTA (a ring of 4 stages at 256)
 template <int BN>
 using TileL = Layout<128 * ROW, BN * BK, BN * ROW, BN == 256 ? 4 : 6>;
 constexpr int MP = 16;            // x rows of the decode kernel's tile
 using DecodeL = Layout<MP * ROW, 128 * BK, 128 * ROW, 6>;   // #9, M <= 16
 using TransL = Layout<128 * ROW, 64 * OUT, OUT / 64 * SLAB_T, 4, 256>;  // #10
-
-template <int NST>
-struct Ring {
-  unsigned char* smem;
-  uint32_t base;
-  int bar;
-  __device__ uint32_t full(int s) const { return base + bar + 8 * s; }
-  __device__ uint32_t empty(int s) const {
-    return base + bar + 8 * (NST + s);
-  }
-};
-
-template <typename L>
-__device__ __forceinline__ Ring<L::NST> ring_setup(unsigned char* raw_smem) {
-  const uint32_t raw = smem_u32(raw_smem);
-  Ring<L::NST> r;
-  r.smem = raw_smem + ((1024 - (raw & 1023)) & 1023);
-  r.base = smem_u32(r.smem);
-  r.bar = L::BAR;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < L::NST; ++s) {
-      mbar_init(r.full(s), 1);
-      mbar_init(r.empty(s), NCONS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  return r;
-}
 
 // the producer's walk: tiles j = 0 .. n-1 of the stage ring; tile j loads
 // the activation box at (a0 + j * a_step, a1), the weight box at
@@ -198,30 +151,6 @@ __device__ __forceinline__ void produce(const Ring<L::NST>& rg,
     if constexpr (L::S > 0)
       tma_load_1d(rg.base + L::SC + s * L::S, ts, rg.full(s),
                   a0 + j * a_step);
-  }
-}
-
-// out[o] (and out[o + 1]) of a bf16 or f32 output; `pair` when both lie in
-// the row and the pair is aligned
-__device__ __forceinline__ void store2(void* out, int out_f32, int64_t o,
-                                       float v0, float v1, bool has1,
-                                       bool pair) {
-  if (out_f32) {
-    float* p = static_cast<float*>(out) + o;
-    if (pair) {
-      *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-    } else {
-      p[0] = v0;
-      if (has1) p[1] = v1;
-    }
-  } else {
-    bf16* p = static_cast<bf16*>(out) + o;
-    if (pair) {
-      *reinterpret_cast<uint32_t*>(p) = pack_bf16(v0, v1);
-    } else {
-      p[0] = __float2bfloat16(v0);
-      if (has1) p[1] = __float2bfloat16(v1);
-    }
   }
 }
 

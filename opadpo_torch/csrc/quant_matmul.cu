@@ -1,24 +1,20 @@
-// Matrix products over frozen int8 / int4 weights for Hopper (sm_90a):
-// bf16 activations, weights widened to bf16 in shared memory, tensor-core
+// Matrix products over frozen int8 weights for Hopper (sm_90a): bf16
+// activations, weights widened to bf16 in shared memory, tensor-core
 // mma.sync (m16n8k16, bf16 -> f32), f32 accumulation.
 //
-// Replaces three Pallas kernels of opadpo_tpu/ops/quant.py (Q8 and Q8T
-// only at shapes whose rows are not a multiple of 16 bytes long, which
-// int8_matmul.cu's TMA loads cannot take; ops/quant.py chooses):
+// Replaces two Pallas kernels of opadpo_tpu/ops/quant.py, only at shapes
+// whose rows are not a multiple of 16 bytes long, which int8_matmul.cu's
+// TMA loads cannot take (ops/quant.py chooses; #11, the int4 kernel, runs
+// on int4_matmul.cu at every shape):
 // - Q8  (_q8_matmul_kernel):   y[M, N] = (x[M, K] @ q[N, K]^T) * scale[N]
 // - Q8T (_q8_matmul_t_kernel): dx[M, K] = gs[M, N] @ q[N, K], where the
 //   caller has folded the weight scale into gs = bf16(g * scale)
-// - Q4  (_q4_matmul_kernel):   y[M, N] = sum over 128-deep groups G of
-//   (x[:, G] @ w4[N, G]^T) * scale[N, G], each group's partial product
-//   summed in f32 and scaled before it joins the output accumulator.
-// Weights are stored [N, K] with K contiguous (int8), or [N, K/2] packed
-// (int4): within each group of 128 along K, byte r holds k = r in its low
-// nibble and k = r + 64 in its high nibble, both signed.
+// Weights are stored [N, K] with K contiguous.
 //
 // Generic form used below: out[M, N] = A[M, K] @ B[K, N], A bf16 row-major,
-// K the contraction.  For Q8 and Q4, B is the weight read as [N][K]; for
-// Q8T the weight is [K][N] (its rows are the contraction), so the tile is
-// staged [k][n] and the B fragments are gathered from it.
+// K the contraction.  For Q8, B is the weight read as [N][K]; for Q8T the
+// weight is [K][N] (its rows are the contraction), so the tile is staged
+// [k][n] and the B fragments are gathered from it.
 //
 // What bounds it: at decode (M <= 16) the weight stream, M * N * K
 // multiply-adds against N * K weight bytes; at M ~ 700 the products (about
@@ -41,12 +37,12 @@ typedef __nv_bfloat16 bf16;
 namespace {
 
 constexpr int BN = 64;         // output columns per CTA
-constexpr int BK = 128;        // contraction depth per tile (one int4 group)
+constexpr int BK = 128;        // contraction depth per tile
 constexpr int NT = 128;        // 4 warps
 constexpr int LDA = BK + 8;    // bf16 row stride of the A tile and of [n][k]
 constexpr int LDT = BN + 8;    // bf16 row stride of the Q8T [k][n] tile
 
-enum Mode { Q8 = 0, Q8T = 1, Q4 = 2 };
+enum Mode { Q8 = 0, Q8T = 1 };
 
 template <int BM, int MODE>
 struct Tiles {
@@ -54,10 +50,10 @@ struct Tiles {
   bf16 b[MODE == Q8T ? BK : BN][MODE == Q8T ? LDT : LDA];
 };
 
-// 16-byte vectors of the raw (int8 / packed) weight tile per thread
+// 16-byte vectors of the raw int8 weight tile per thread
 template <int MODE>
 struct BVec {
-  static constexpr int n = (MODE == Q4 ? BN * BK / 2 : BN * BK) / 16 / NT;
+  static constexpr int n = BN * BK / 16 / NT;
 };
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
@@ -128,7 +124,6 @@ __device__ __forceinline__ uint4 load16(const int8_t* p, int avail, bool vec) {
 
 // The raw weight tile for contraction tile k0 into registers.
 //   Q8:  rows n of q[N][K], bytes k0 .. k0 + 127
-//   Q4:  rows n of q4[N][K/2], bytes k0/2 .. k0/2 + 63
 //   Q8T: rows k0 .. k0 + 127 of q[K][N], bytes n0 .. n0 + 63
 template <int MODE>
 __device__ __forceinline__ void load_b(uint4 (&r)[BVec<MODE>::n],
@@ -142,9 +137,6 @@ __device__ __forceinline__ void load_b(uint4 (&r)[BVec<MODE>::n],
       const int n = n0 + v / 8, kb = k0 + (v % 8) * 16;
       if (n < N && kb < K)
         val = load16(w + int64_t(n) * K + kb, K - kb, vec);
-    } else if (MODE == Q4) {
-      const int n = n0 + v / 4, kb = k0 / 2 + (v % 4) * 16;
-      if (n < N) val = *reinterpret_cast<const uint4*>(w + int64_t(n) * (K / 2) + kb);
     } else {
       const int k = k0 + v / 4, nb = n0 + (v % 4) * 16;
       if (k < K && nb < N)
@@ -163,29 +155,12 @@ __device__ __forceinline__ void store_b(Tiles<BM, MODE>& t,
     const int v = tid + i * NT;
     const int8_t* by = reinterpret_cast<const int8_t*>(&r[i]);
     __align__(16) bf16 lo[16];
-    __align__(16) bf16 hi[16];
 #pragma unroll
-    for (int e = 0; e < 16; ++e) {
-      const int p = by[e];
-      if (MODE == Q4) {
-        // signed nibbles by shift pairs in 32-bit ints
-        lo[e] = __float2bfloat16(float(int(unsigned(p) << 28) >> 28));
-        hi[e] = __float2bfloat16(float(p >> 4));
-      } else {
-        lo[e] = __float2bfloat16(float(p));
-      }
-    }
-    bf16* dst;
-    if (MODE == Q8) dst = &t.b[v / 8][(v % 8) * 16];
-    else if (MODE == Q4) dst = &t.b[v / 4][(v % 4) * 16];
-    else dst = &t.b[v / 4][(v % 4) * 16];
+    for (int e = 0; e < 16; ++e) lo[e] = __float2bfloat16(float(by[e]));
+    bf16* dst = MODE == Q8 ? &t.b[v / 8][(v % 8) * 16]
+                           : &t.b[v / 4][(v % 4) * 16];
     reinterpret_cast<uint4*>(dst)[0] = reinterpret_cast<const uint4*>(lo)[0];
     reinterpret_cast<uint4*>(dst)[1] = reinterpret_cast<const uint4*>(lo)[1];
-    if (MODE == Q4) {
-      bf16* dh = dst + BK / 2;
-      reinterpret_cast<uint4*>(dh)[0] = reinterpret_cast<const uint4*>(hi)[0];
-      reinterpret_cast<uint4*>(dh)[1] = reinterpret_cast<const uint4*>(hi)[1];
-    }
   }
 }
 
@@ -198,9 +173,9 @@ struct Warps {
 };
 
 // out[M, N] (bf16 or f32) or, with splits > 1, the f32 partial sums of this
-// split into ws[split][M][N].  `scale`: Q8 the [N] column scale, Q4 the
-// [N][K/128] group scales, Q8T unused.  Tiles [z * per, (z + 1) * per) of
-// the contraction belong to split z.
+// split into ws[split][M][N].  `scale`: Q8 the [N] column scale, Q8T
+// unused.  Tiles [z * per, (z + 1) * per) of the contraction belong to
+// split z.
 template <int BM, int MODE>
 __global__ void __launch_bounds__(NT)
 quant_mm_kernel(const bf16* __restrict__ a, const int8_t* __restrict__ w,
@@ -220,10 +195,8 @@ quant_mm_kernel(const bf16* __restrict__ a, const int8_t* __restrict__ w,
   const int t1 = min(nk, t0 + per);
   const int wm0 = (warp / W::WN) * W::MI * 16;
   const int wn0 = (warp % W::WN) * W::NI * 8;
-  const int groups = K / BK;   // Q4: K is a multiple of 128
 
   float acc[W::MI][W::NI][4];
-  float part[W::MI][W::NI][4];
 #pragma unroll
   for (int mi = 0; mi < W::MI; ++mi)
 #pragma unroll
@@ -246,15 +219,6 @@ quant_mm_kernel(const bf16* __restrict__ a, const int8_t* __restrict__ w,
     if (more) {
       load_a<BM>(ra, a, M, K, m0, (kt + 1) * BK, a_vec, tid);
       load_b<MODE>(rb, w, N, K, n0, (kt + 1) * BK, b_vec, tid);
-    }
-    float (&c)[W::MI][W::NI][4] = (MODE == Q4) ? part : acc;
-    if (MODE == Q4) {
-#pragma unroll
-      for (int mi = 0; mi < W::MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < W::NI; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[mi][ni][e] = 0.f;
     }
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
@@ -279,23 +243,8 @@ quant_mm_kernel(const bf16* __restrict__ a, const int8_t* __restrict__ w,
           b1 = ld32(&t.b[n][kk + 2 * tq + 8]);
         }
 #pragma unroll
-        for (int mi = 0; mi < W::MI; ++mi) mma16816(c[mi][ni], af[mi], b0, b1);
-      }
-    }
-    if (MODE == Q4) {
-      // this group's partial times its scale, then into the accumulator
-#pragma unroll
-      for (int ni = 0; ni < W::NI; ++ni) {
-        const int col = n0 + wn0 + ni * 8 + 2 * tq;
-        const float s0 = col < N ? scale[int64_t(col) * groups + kt] : 0.f;
-        const float s1 = col + 1 < N ? scale[int64_t(col + 1) * groups + kt] : 0.f;
-#pragma unroll
-        for (int mi = 0; mi < W::MI; ++mi) {
-          acc[mi][ni][0] += part[mi][ni][0] * s0;
-          acc[mi][ni][1] += part[mi][ni][1] * s1;
-          acc[mi][ni][2] += part[mi][ni][2] * s0;
-          acc[mi][ni][3] += part[mi][ni][3] * s1;
-        }
+        for (int mi = 0; mi < W::MI; ++mi)
+          mma16816(acc[mi][ni], af[mi], b0, b1);
       }
     }
     __syncthreads();                   // tile kt fully consumed
@@ -385,9 +334,7 @@ int dispatch(const void* a, const void* w, const float* scale, void* out,
 
 // mode 0 (Q8): a = x bf16 [M, K], w = int8 [N, K], scale f32 [N];
 // mode 1 (Q8T): a = gs bf16 [M, K] (K the weight's rows), w = int8 [K, N],
-//   scale unused (NULL);
-// mode 2 (Q4): a = x bf16 [M, K], K % 128 == 0, w = packed int8 [N, K/2],
-//   scale f32 [N, K/128].
+//   scale unused (NULL).
 // out: [M, N] contiguous, f32 if out_f32 else bf16.  With splits > 1, ws is
 // an f32 workspace of splits * M * N.  All pointers are device pointers and
 // the tensors contiguous.  Rows M <= 16 take 16-row tiles, larger M 64-row
@@ -405,7 +352,5 @@ extern "C" int opadpo_quant_matmul(int mode, const void* a, const void* w,
     return dispatch<Q8>(a, w, sc, out, out_f32, wsp, M, N, K, splits, st);
   if (mode == Q8T)
     return dispatch<Q8T>(a, w, sc, out, out_f32, wsp, M, N, K, splits, st);
-  if (mode == Q4 && K % BK == 0)
-    return dispatch<Q4>(a, w, sc, out, out_f32, wsp, M, N, K, splits, st);
   return int(cudaErrorInvalidValue);
 }

@@ -9,8 +9,9 @@ call, never at import time, and compiles every source at once, one
 by a hash of the sources and flags, so an edited kernel rebuilds and an
 unchanged one loads at once.
 
-The flash sources and ``int8_matmul.cu`` share ``csrc/hopper.cuh``
-(mbarrier, TMA and wgmma helpers), which the hash covers too.  They encode
+The flash sources, ``int8_matmul.cu`` and ``int4_matmul.cu`` share
+``csrc/hopper.cuh`` (mbarrier, TMA and wgmma helpers, the quant matmuls'
+stage ring), which the hash covers too.  They encode
 TMA tensor maps with the driver's ``cuTensorMapEncodeTiled``, taken from
 ``libcuda.so.1`` by ``dlopen``/``dlsym`` at the first call, so the
 libraries link ``-ldl`` (after the source, so the linker keeps it), not
@@ -32,7 +33,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
     "opadpo_torch_kernels"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "heads_layout.cu",
-           "decode_attention.cu", "quant_matmul.cu", "int8_matmul.cu")
+           "decode_attention.cu", "quant_matmul.cu", "int8_matmul.cu",
+           "int4_matmul.cu")
 # included by the sources, so hashed with them: an edited header rebuilds
 HEADERS = ("hopper.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -24,8 +24,10 @@ tensors (never a fallback on CUDA):
 #9 and #10 run on ``csrc/int8_matmul.cu`` (TMA, wgmma) where every matrix
 row is a multiple of 16 bytes long: #9 on its ``tile`` kernel above 16
 rows and its ``decode`` kernel at or below, #10 on its ``tile`` kernel.
-Other shapes, and #11, run on ``csrc/quant_matmul.cu`` (``mma.sync``).
-``q8_variant`` / ``q8t_variant`` choose by shape before the launch, and
+Other int8 shapes run on ``csrc/quant_matmul.cu`` (``mma.sync``).  #11
+runs on ``csrc/int4_matmul.cu`` (TMA, wgmma), ``tile`` above 16 rows and
+``decode`` at or below, at every K it takes.  ``q8_variant`` /
+``q8t_variant`` / ``q4_variant`` choose by shape before the launch, and
 ``variant_launches`` counts each variant's launches.
 
 ``q8_dense`` / ``q4_dense`` dispatch on the rows (product of the leading
@@ -183,10 +185,11 @@ def quant_matmul4_plain(x, q4, scale, out_dtype=None):
 # The kernels
 # ---------------------------------------------------------------------------
 
-_Q8, _Q8T, _Q4 = 0, 1, 2        # modes of quant_matmul.cu
+_Q8, _Q8T = 0, 1                # modes of quant_matmul.cu
 _BN, _BK = 64, 128              # its output and contraction tiles
 TILE_M, TILE_K = 128, 64        # int8_matmul.cu: rows per CTA, tile depth
-DECODE_ROWS = 16                # #9 at or below: the transposed kernel
+Q4_TILE_N = 128                 # int4_matmul.cu: weight rows per CTA
+DECODE_ROWS = 16                # #9 / #11 at or below: the transposed kernel
 DECODE_N = 128                  # weight rows per decode CTA
 DECODE_CTAS_PER_SM = 2          # decode CTAs resident on one SM
 
@@ -213,24 +216,36 @@ def q8t_variant(m: int, n: int, k: int) -> str:
     return "odd" if k % 16 or n % 8 else "tile"
 
 
-def tile_bn(m: int, n: int, sms: int) -> int:
-    """Weight rows per CTA of #9's tile kernel (128 x rows each): 256,
-    or 64 where 256 would give fewer than one CTA per two SMs.  On an H100
-    at M 703 the kernel is bound by its tiles' L2 traffic, and 256 rows a
-    CTA, which read each x tile for four times the work of 64, ran 18-39 %
-    faster; at CLIP's 577 x 1024 -> 1024, 64 rows on 80 CTAs took half the
-    time of 256 on 20 (``tools/time_quant.py --bn``, PERF.md)."""
-    return 256 if -(-m // TILE_M) * -(-n // 256) * 2 >= sms else 64
+def tile_bn(m: int, n: int, sms: int, wide: int = 256) -> int:
+    """Weight rows per CTA of a tile kernel (128 x rows each): ``wide``
+    (#9: 256; #11: 128, as its per-group partial and accumulator take 128
+    registers a thread at 128 rows), or 64 where ``wide`` would give fewer
+    than one CTA per two SMs.  On an H100 at M 703 the kernels are bound by
+    their tiles' L2 traffic: #9 at 256 rows a CTA, which read each x tile
+    for four times the work of 64, ran 18-39 % faster, #11 at 128 25-26 %;
+    at CLIP's 577 x 1024 -> 1024, 64 rows took half (#9) and three
+    quarters (#11) of the wide tile's time (``tools/time_quant.py --bn /
+    --bn4``, PERF.md)."""
+    return wide if -(-m // TILE_M) * -(-n // wide) * 2 >= sms else 64
 
 
-def decode_splits(n: int, k: int, sms: int) -> int:
-    """Contraction splits of #9's decode kernel: as many as fit
-    ``DECODE_CTAS_PER_SM`` CTAs of ``DECODE_N`` weight rows on each SM
-    (1 when the weight tiles alone fill them); split z walks the 64-deep
-    contraction tiles ``[z * per, min(nk, (z + 1) * per))``, ``per =
-    ceil(nk / splits)``, and none is empty."""
+def q4_variant(m: int, n: int, k: int) -> str:
+    """The kernel #11 takes at x [M, K], q4 [N, K/2]: ``"decode"`` (M <=
+    16) or ``"tile"`` on ``int4_matmul.cu``.  Every K it takes (a multiple
+    of 128) gives rows a multiple of 16 bytes, and the kernels read the
+    scales without TMA, so no shape needs another kernel."""
+    return "decode" if m <= DECODE_ROWS else "tile"
+
+
+def decode_splits(n: int, k: int, sms: int, depth: int = TILE_K) -> int:
+    """Contraction splits of a decode kernel (#9: 64-deep tiles; #11:
+    ``depth`` 128, one group): as many as fit ``DECODE_CTAS_PER_SM`` CTAs
+    of ``DECODE_N`` weight rows on each SM (1 when the weight tiles alone
+    fill them); split z walks the contraction tiles ``[z * per, min(nk,
+    (z + 1) * per))``, ``nk = ceil(k / depth)``, ``per = ceil(nk /
+    splits)``, and none is empty."""
     tiles = -(-n // DECODE_N)
-    nk = -(-k // TILE_K)
+    nk = -(-k // depth)
     splits = max(1, min(nk, DECODE_CTAS_PER_SM * sms // tiles))
     per = -(-nk // splits)
     return -(-nk // per)
@@ -245,7 +260,8 @@ class LaunchCount:
 
 
 variant_launches = {name: LaunchCount() for name in (
-    "q8_tile", "q8_decode", "q8_odd", "q8t_tile", "q8t_odd")}
+    "q8_tile", "q8_decode", "q8_odd", "q8t_tile", "q8t_odd", "q4_tile",
+    "q4_decode")}
 
 
 def _splits(m: int, n: int, k: int, device) -> int:
@@ -301,46 +317,62 @@ def _tickets_for(device, stream: int, tiles: int) -> torch.Tensor:
     return t
 
 
-def _int8_lib():
-    lib = _build.load("int8_matmul.cu")
-    if not lib.opadpo_q8_tile.argtypes:
+def _matmul_lib(src, tile, decode, *more):
+    """The library of ``src`` with the argument types of its tile and
+    decode launchers (and of ``more``: (name, argtypes))."""
+    lib = _build.load(src)
+    fn = getattr(lib, tile)
+    if not fn.argtypes:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.opadpo_q8_tile.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
-        lib.opadpo_q8_decode.argtypes = [vp, vp, vp, vp, i, vp, vp, i, i,
-                                         i, i, vp]
-        lib.opadpo_q8t_tile.argtypes = [vp, vp, vp, vp, i, i, i, vp]
-        for fn in (lib.opadpo_q8_tile, lib.opadpo_q8_decode,
-                   lib.opadpo_q8t_tile):
-            fn.restype = ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
+        getattr(lib, decode).argtypes = [vp, vp, vp, vp, i, vp, vp, i, i, i,
+                                         i, vp]
+        for name, types in more:
+            getattr(lib, name).argtypes = types
+        for name in (tile, decode, *(name for name, _ in more)):
+            getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
-def _q8_int8(variant, x, q, scale, out):
-    """#9 on int8_matmul.cu into ``out``."""
-    (m, k), n = x.shape, q.shape[0]
+def _int8_lib():
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    return _matmul_lib("int8_matmul.cu", "opadpo_q8_tile", "opadpo_q8_decode",
+                       ("opadpo_q8t_tile", [vp, vp, vp, vp, i, i, i, vp]))
+
+
+def _weight_matmul(lib, kind, variant, x, q, scale, out, n, k, bn, splits):
+    """#9 (``kind`` "q8") or #11 ("q4") on its TMA/wgmma library into
+    ``out``: the tile kernel at ``bn`` weight rows a CTA, or the decode
+    kernel split ``splits`` ways (with a workspace and the stream's
+    tickets when more than one)."""
+    m = x.shape[0]
     dev = x.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     f32 = int(out.dtype == torch.float32)
-    sms = _sm_count(dev.index)
-    lib = _int8_lib()
+    args = (x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), f32)
     if variant == "tile":
-        err = lib.opadpo_q8_tile(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
-                                 out.data_ptr(), f32, m, n, k,
-                                 tile_bn(m, n, sms), stream)
+        err = getattr(lib, f"opadpo_{kind}_tile")(*args, m, n, k, bn, stream)
     else:
-        splits = decode_splits(n, k, sms)
         ws = tickets = None
         if splits > 1:
             tiles = -(-n // DECODE_N)
             ws = torch.empty(splits * tiles * DECODE_ROWS * DECODE_N,
                              dtype=torch.float32, device=dev)
             tickets = _tickets_for(dev, stream, tiles)
-        err = lib.opadpo_q8_decode(
-            x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), f32,
-            ws.data_ptr() if ws is not None else None,
+        err = getattr(lib, f"opadpo_{kind}_decode")(
+            *args, ws.data_ptr() if ws is not None else None,
             tickets.data_ptr() if tickets is not None else None, m, n, k,
             splits, stream)
-    _build.check(err, f"quant_matmul ({variant})")
+    name = "quant_matmul" if kind == "q8" else "quant_matmul4"
+    _build.check(err, f"{name} ({variant})")
+
+
+def _q8_int8(variant, x, q, scale, out):
+    """#9 on int8_matmul.cu into ``out``."""
+    (m, k), n = x.shape, q.shape[0]
+    sms = _sm_count(x.device.index)
+    _weight_matmul(_int8_lib(), "q8", variant, x, q, scale, out, n, k,
+                   tile_bn(m, n, sms), decode_splits(n, k, sms))
 
 
 def quant_matmul_cuda(x, q, scale, out_dtype=None):
@@ -400,7 +432,8 @@ quant_matmul_t_cuda.launches = 0
 
 def quant_matmul4_cuda(x, q4, scale, out_dtype=None):
     """Launch #11: x bf16 [M, K], q4 packed int8 [N, K/2], scale f32
-    [N, K/128] -> [M, N] bf16 (or ``out_dtype`` f32)."""
+    [N, K/128] -> [M, N] bf16 (or ``out_dtype`` f32), on the
+    ``int4_matmul.cu`` kernel ``q4_variant`` names."""
     n, kp = q4.shape
     k = 2 * kp
     if k % GROUP or scale.shape != (n, k // GROUP):
@@ -409,12 +442,27 @@ def quant_matmul4_cuda(x, q4, scale, out_dtype=None):
     _check("x", x, torch.bfloat16, (x.shape[0], k))
     _check("q4", q4, torch.int8, (n, kp))
     _check("scale", scale, torch.float32, (n, k // GROUP))
-    out = _launch(_Q4, x, q4, scale, n, out_dtype or torch.bfloat16)
-    quant_matmul4_cuda.launches += 1
+    od = out_dtype or torch.bfloat16
+    if od not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype {od} (bf16 or f32)")
+    m = x.shape[0]
+    out = torch.empty((m, n), dtype=od, device=x.device)
+    if m:
+        variant = q4_variant(m, n, k)
+        sms = _sm_count(x.device.index)
+        _weight_matmul(_int4_lib(), "q4", variant, x, q4, scale, out, n, k,
+                       tile_bn(m, n, sms, Q4_TILE_N),
+                       decode_splits(n, k, sms, GROUP))
+        variant_launches["q4_" + variant].launches += 1
+        quant_matmul4_cuda.launches += 1
     return out
 
 
 quant_matmul4_cuda.launches = 0
+
+
+def _int4_lib():
+    return _matmul_lib("int4_matmul.cu", "opadpo_q4_tile", "opadpo_q4_decode")
 
 
 def _fn():

@@ -60,7 +60,8 @@ def kernel_group(name: str) -> str:
             return f"decode_attention_{group} (csrc)"
     if any(k in n for k in ("quant_mm_kernel", "splitk_reduce",
                             "q8_tile_kernel", "q8_decode_kernel",
-                            "q8t_tile_kernel")):
+                            "q8t_tile_kernel", "q4_tile_kernel",
+                            "q4_decode_kernel")):
         return "quant_matmul (csrc)"
     if any(s in n for s in ("gemm", "gemv", "nvjet", "cutlass", "xmma",
                             "splitk")):

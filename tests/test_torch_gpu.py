@@ -351,6 +351,39 @@ def test_int8_kernels_tile_edges_on_gpu(m, k, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 9, 16, 17, 64, 65, 128, 129, 577, 703,
+                               1024])
+@pytest.mark.parametrize("k,n", [(5120, 5120), (5120, 13824), (13824, 5120),
+                                 (1024, 1024), (384, 300)])
+def test_int4_kernel_tile_edges_on_gpu(m, k, n):
+    """#11 on the TMA/wgmma kernels (int4_matmul.cu) at the tile edges of
+    M and at the 13B, CLIP and a ragged width: against its plain version
+    (f32 within 1e-5 of the largest entry, bf16 within one bf16 step), two
+    launches bitwise equal, each call counted on the variant
+    ``q4_variant`` names."""
+    g = _gen()
+    x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn(n, k, generator=g, device="cuda") * 0.02
+    q4, s = t_quant.quantize_weight_int4(w)
+    counts = t_quant.variant_launches
+    before = {v: c.launches for v, c in counts.items()}
+    for od in (torch.bfloat16, torch.float32):
+        ref = t_quant.quant_matmul4_plain(x, q4, s, od)
+        out = t_quant.quant_matmul4_cuda(x, q4, s, od)
+        again = t_quant.quant_matmul4_cuda(x, q4, s, od)
+        assert out.dtype == ref.dtype and out.shape == ref.shape
+        assert torch.equal(out, again)
+        err = (out.float() - ref.float()).abs().max().item()
+        top = ref.float().abs().max().item()
+        tol = 1e-5 if od == torch.float32 else 2.0 ** -7
+        assert err <= tol * top, (od, err, top)
+    got = {v: c.launches - before[v] for v, c in counts.items()}
+    want = dict.fromkeys(counts, 0)
+    want["q4_" + t_quant.q4_variant(m, n, k)] += 4
+    assert got == want
+
+
+@pytest.mark.gpu
 def test_quantizers_give_the_cpu_codes_on_gpu():
     """Weight codes and scales (int8 and int4) and the int8 and int4
     prompt-KV caches made on the GPU equal the CPU's bit for bit (the CPU's

@@ -403,3 +403,173 @@ def test_tiled_sum_order_matches_plain_and_pallas():
         _assert_bf16_step(got, tq.quant_matmul_t_plain(gt, q, s).float())
         _assert_bf16_step(got, np.asarray(jq.quant_matmul_transposed(
             gj, wq, block_k=128).astype(jnp.float32)))
+
+
+# ---------------------------------------------------------------------------
+# The Hopper int4 kernels (csrc/int4_matmul.cu): their arithmetic and rules,
+# emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def _int4_source():
+    return (pathlib.Path(tq.__file__).parent.parent / "csrc"
+            / "int4_matmul.cu").read_text()
+
+
+def _bf16_fma(a, b, c):
+    """``fma.rn.bf16x2``: per 16-bit half, a * b + c rounded once to bf16
+    (the halves' products and sums here are exact in f32, so rounding the
+    f32 result to bf16 is that one rounding)."""
+    def halves(x):
+        x = torch.as_tensor(np.asarray(x, np.uint32).astype(np.int64))
+        return [((x >> s) & 0xFFFF).to(torch.int32) for s in (0, 16)]
+
+    def as_f32(h):
+        return (h << 16).view(torch.float32)
+
+    out = []
+    for ha, hb, hc in zip(halves(a), halves(b), halves(c)):
+        v = (as_f32(ha) * as_f32(hb) + as_f32(hc)).to(torch.bfloat16)
+        out.append(v.view(torch.int16).to(torch.int64) & 0xFFFF)
+    return (out[0] | (out[1] << 16)).numpy().astype(np.uint32)
+
+
+def _widen_nib4(words):
+    """The kernel's ``widen_nib4``: four packed bytes per uint32 -> the
+    bf16 pairs of their low nibbles (bytes 0-1, 2-3) and of their high
+    nibbles: each nibble placed in the low bits of a 16-bit half
+    (byte_perm, AND), its sign bit flipped and the exponent of the bf16
+    128.0 set (XOR), then one bf16x2 FMA that subtracts 136 (the constants
+    of int4_matmul.cu)."""
+    w = np.asarray(words, np.uint32)
+    v = w >> np.uint32(4)
+
+    def pair(x, sel):
+        t = (_byte_perm(x, 0, sel) & np.uint32(0x000F000F)) \
+            ^ np.uint32(0x43084308)
+        return _bf16_fma(t, 0x3F803F80, 0xC308C308)
+
+    return ((pair(w, 0x4140), pair(w, 0x4342)),
+            (pair(v, 0x4140), pair(v, 0x4342)))
+
+
+def test_int4_widening_exact_for_all_256_codes():
+    """The int4 kernels' nibble -> bf16 widening (no convert instruction)
+    gives both signed nibbles of every byte value exactly, as
+    ``unpack_nibbles`` reads them; the emulation's constants are the ones
+    ``widen_nib4`` and ``minus136`` use."""
+    src = _int4_source()
+    body = src[src.index("uint32_t minus136("):src.index("// raw packed tile")]
+    for const in ("0x4140", "0x4342", "0x000F000Fu", "0x43084308u",
+                  "0x3F803F80u", "0xC308C308u", "fma.rn.bf16x2", "w >> 4",
+                  "(__byte_perm(w, 0, sel)", "(__byte_perm(v, 0, sel)"):
+        assert const in body, const
+    codes = np.arange(256, dtype=np.uint8)
+    words = codes.reshape(-1, 4).copy().view(np.uint32)[:, 0]
+    (lo01, lo23), (hi01, hi23) = _widen_nib4(words)
+
+    def values(p01, p23):
+        bits = np.stack([p01, p23], axis=1).reshape(-1).view(np.uint16)
+        return torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+
+    lo, hi = tq.unpack_nibbles(torch.from_numpy(codes.view(np.int8))
+                               .to(torch.int32))
+    assert torch.equal(values(lo01, lo23), lo.to(torch.bfloat16))
+    assert torch.equal(values(hi01, hi23), hi.to(torch.bfloat16))
+    assert int(lo.min()) == int(hi.min()) == -8
+    assert int(lo.max()) == int(hi.max()) == 7
+
+
+def _group_walk(groups, splits):
+    """The groups split z of #11's decode kernel walks, by the kernel's
+    rule: ``range(z * per, min(groups, (z + 1) * per))``, ``per =
+    ceil(groups / splits)``."""
+    per = -(-groups // splits)
+    return [range(z * per, min(groups, (z + 1) * per))
+            for z in range(splits)]
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_q4_kernel_choice_and_decode_split_rule_against_brute_force(sms):
+    """#11's kernel choice (the decode kernel at M <= 16, else the tile
+    kernel, at every K a multiple of 128), its tile width (128 weight rows
+    where the grid gives at least one CTA per two SMs, else 64, by counting
+    CTAs) and its decode split count: the fewest splits of the smallest
+    equal share of the groups that fits ``DECODE_CTAS_PER_SM`` CTAs on
+    each SM (found by trying every share), each split a non-empty run of
+    groups by the kernel's rule, the runs covering every group once in
+    order."""
+    for m in (1, 8, 16, 17, 129, 577, 703, 1024, 2688):
+        for n in (100, 128, 300, 1024, 4096, 5120, 13824, 32000):
+            for k in (128, 384, 5120, 13824):
+                assert tq.q4_variant(m, n, k) == ("decode" if m <= 16
+                                                  else "tile")
+            ctas = len(range(0, m, 128)) * len(range(0, n, 128))
+            assert tq.tile_bn(m, n, sms, tq.Q4_TILE_N) == (
+                128 if 2 * ctas >= sms else 64)
+    for n in (64, 128, 300, 1024, 4096, 5120, 13824, 32000):
+        for k in (128, 256, 384, 1024, 4096, 5120, 13824):
+            groups = k // tq.GROUP
+            tiles = -(-n // tq.DECODE_N)
+            cap = max(1, min(groups, tq.DECODE_CTAS_PER_SM * sms // tiles))
+            share = next(p for p in range(1, groups + 1)
+                         if -(-groups // p) <= cap)
+            splits = tq.decode_splits(n, k, sms, tq.GROUP)
+            assert splits == -(-groups // share), (n, k)
+            walk = _group_walk(groups, splits)
+            assert len(walk) == splits and all(len(r) for r in walk)
+            assert [g for r in walk for g in r] == list(range(groups))
+            assert (splits - 1) * -(-groups // splits) < groups
+            assert tiles * splits <= max(tiles, tq.DECODE_CTAS_PER_SM * sms)
+
+
+def _grouped_q4(x, q4, scale, walk):
+    """#11 in the kernels' order: per group, the f32 product of the 128-deep
+    slice times that group's scale of each weight row, added into the
+    accumulator (one FMA each) in group order, per split of ``walk``; the
+    splits' partials summed in split order."""
+    groups = scale.shape[1]
+    xg = x.float().reshape(x.shape[0], groups, -1)
+    w = tq._unpack_groups(q4, groups).float()
+    parts = []
+    for run in walk:
+        acc = torch.zeros(x.shape[0], q4.shape[0])
+        for gi in run:
+            acc = torch.addcmul(acc, xg[:, gi] @ w[:, gi].t(), scale[:, gi])
+        parts.append(acc)
+    total = torch.zeros_like(parts[0])
+    for p in parts:
+        total += p
+    return total
+
+
+def test_int4_kernel_sum_order_matches_plain_and_pallas():
+    """The int4 kernels' sum order (the tile kernel: every group in order;
+    the decode kernel split one, two and three ways, the splits summed in
+    order) against the plain version and the interpret-mode Pallas kernel,
+    at M 1, 9, 37 and K 256, 384 (2 and 3 groups), N 200: f32 within 1e-5
+    of the largest entry, bf16 within one bf16 step."""
+    rng = np.random.default_rng(11)
+    n = 200
+    for m in (1, 9, 37):
+        for k in (256, 384):
+            groups = k // tq.GROUP
+            w = _weight(rng, k, n)
+            wt = torch.from_numpy(_jax_t(w).copy())
+            q4, s = tq.quantize_weight_int4(wt)
+            wq = jq.quantize_weight_int4(jnp.asarray(w))
+            x = _jnp_bf16(rng.normal(size=(m, k)).astype(np.float32))
+            xt = torch.tensor(np.asarray(x.astype(jnp.float32))).to(
+                torch.bfloat16)
+            ref_j = np.asarray(jq.quant_matmul4(x, wq, out_dtype=jnp.float32))
+            ref_jb = np.asarray(jq.quant_matmul4(x, wq).astype(jnp.float32))
+            plain = tq.quant_matmul4_plain(xt, q4, s, torch.float32)
+            plain_b = tq.quant_matmul4_plain(xt, q4, s).float()
+            walks = [[range(groups)]] + [_group_walk(groups, z)
+                                         for z in (1, 2, 3) if z <= groups]
+            for walk in walks:
+                got = _grouped_q4(xt, q4, s, walk)
+                _assert_f32(got.numpy(), ref_j)
+                _assert_f32(got.numpy(), plain.numpy())
+                got_b = got.to(torch.bfloat16).float().numpy()
+                _assert_bf16_step(got_b, plain_b.numpy())
+                _assert_bf16_step(got_b, ref_jb)
