@@ -24,11 +24,16 @@ Phases, each fatal on failure:
   5. the head-layout kernels, scatter (#4, RoPE) and gather (#5, inverse
      RoPE), against their plain versions at [2, 703, 4096] and
      [6, 896, 4096];
-  6. the decode-attention kernels against their plain versions: int8 (#6)
-     at [8, 32, 768, 128], s_used 768 and 640; int4 (#7) over the packed
-     cache of an 896-token chunk-256 rollout ([8, 32, 768, 128] packed,
-     1536 positions) at s_used 768, 512 and 1536; multi-query (#8) at G 5
-     (s_used 768, 640), 2 and 8, and beside five launches of #6;
+  6. the decode-attention kernels against their plain versions, two
+     launches bitwise equal: int8 (#6) at [8, 32, 768, 128], s_used 768
+     and 640; int4 (#7, a cluster of CTAs per head) over the packed cache
+     of an 896-token chunk-256 rollout ([8, 32, 768, 128] packed, 1536
+     positions) at s_used 768, 512, 1536, 1024 and 1280, and its time
+     weighted by path A's forwards at each watermark; multi-query (#8,
+     the same design) at G 5 (s_used 768, 640), 2 and 8, and beside five
+     launches of #6; each cluster launch's split and shared memory beside
+     the one-CTA body's earlier time, and decode_attention.cu's ptxas
+     report (a spill, C7512, C7513 or C7514 fails);
   7. the quantized matmuls against their plain versions: int8 (#9, TMA
      and wgmma, ``int8_matmul.cu``) at the 7B decode (M 8), head (f32
      out), prefix (M 703) and CLIP (M 577) shapes, its transpose (#10,
@@ -533,12 +538,14 @@ def _decode_bytes(b, h, su, hd, gq, packed):
 
 def _decode_case(kernel, plain, args, su, gq, packed, flush, label):
     """One decode kernel call against its plain version (out, m, l within
-    1e-4 of each one's largest entry), its time, the plain version's and
-    the bound."""
+    1e-4 of each one's largest entry; a second launch bitwise equal), its
+    time, the plain version's and the bound."""
     import torch
 
-    out, ref = kernel(*args, su), plain(*args, su)
+    out, again, ref = kernel(*args, su), kernel(*args, su), plain(*args, su)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, c) for a, c in zip(out, again)),
+          f"{label}: two launches differ at s_used={su}, G={gq}")
     errs = [(o - r).abs().max().item() for o, r in zip(out, ref)]
     scale = [max(r.abs().max().item(), 1.0) for r in ref]
     for name, e, sc in zip(("out", "m", "l"), errs, scale):
@@ -557,17 +564,43 @@ def _decode_case(kernel, plain, args, su, gq, packed, flush, label):
     return res
 
 
+# #7 and #8 before their cluster redesign (one CTA per (b, h), two passes),
+# by (kernel, G, s_used): `tools/time_decode.py` on the one-CTA body in
+# turns with the cluster kernels (the mean of two runs), s_used 512 and
+# #8's 640 from earlier chip_smoke.py runs; NVIDIA H100 80GB HBM3 at 700 W,
+# recorded in PERF.md
+DECODE_WAS_MS = {("int4", 1, 768): 0.0315, ("int4", 1, 512): 0.0241,
+                 ("int4", 1, 1536): 0.0545, ("int4", 1, 1024): 0.0392,
+                 ("int4", 1, 1280): 0.0469, ("multi", 5, 768): 0.0543,
+                 ("multi", 5, 640): 0.0476, ("multi", 2, 768): 0.0408,
+                 ("multi", 8, 768): 0.0933}
+# path A's watermarks: the cache read to 768 + 256 i by the decode forwards
+# of chunk i (895 forwards of 896 tokens: 256, 256, 256, 127)
+PATH_A_MARKS = (768, 1024, 1280, 1536)
+
+
 def phase_decode(g, flush):
     """The int8 decode kernel (#6) at [8, 32, 768, 128], s_used 768 and 640
     (the 7B serving step); the int4 one (#7) over the packed cache of an
     896-token, chunk-256 rollout ([8, 32, 768, 128] packed = 1536
-    positions) at s_used 768 (the prompt), 512 and 1536 (the last chunk);
-    the multi-query one (#8) over the int8 cache at G = 5 (k = 4) with
-    s_used 768 and 640, and at G = 2 and 8; and #8 at G = 5 beside five
-    launches of #6 on the same queries."""
+    positions) at s_used 768 (the prompt), 512, 1536, 1024 and 1280 (path
+    A's watermarks, and their launch-weighted time); the multi-query one
+    (#8) over the int8 cache at G = 5 (k = 4) with s_used 768 and 640, and
+    at G = 2 and 8; #8 at G = 5 beside five launches of #6 on the same
+    queries; and the ptxas report of decode_attention.cu (a spill, C7512,
+    C7513 or C7514 fails), with each cluster launch's split and shared
+    memory."""
     import torch
 
+    from opadpo_torch.ops import _build
     from opadpo_torch.ops import decode_attention as da
+
+    shown, faults = ptxas_findings("decode_attention.cu",
+                                   ("C7512", "C7513"))
+    for line in shown + faults:
+        log(f"[decode] ptxas decode_attention.cu: {line}")
+    check(not faults, f"decode_attention.cu: ptxas reports {faults}")
+    smem = _build.load("decode_attention.cu").opadpo_decode_attn_smem_bytes
 
     dev = "cuda"
     b, h, hd = 8, 32, 128
@@ -593,7 +626,7 @@ def phase_decode(g, flush):
                          da.decode_attention_prompt4_plain,
                          (q1, pk4, ks, pv4, vs, bias, sm), su, 1,
                          True, flush, "decode_attention_int4")
-            for su in (768, 512, 1536)]
+            for su in (768, 512, 1536, 1024, 1280)]
     del pk4, pv4
     ks, vs, bias = scales_and_bias(768, 703)
     pk, pv = (torch.randint(-127, 128, (b, h, 768, hd), generator=g,
@@ -609,6 +642,26 @@ def phase_decode(g, flush):
                            sm), su, gq, False, flush,
                           "decode_attention_multi")
              for gq, su in ((5, 768), (5, 640), (2, 768), (8, 768))]
+    for group, cases in (("int4", int4), ("multi", multi)):
+        for c in cases:
+            n, per = da.decode_split(c["s_used"], b * h, group == "int4")
+            c.update(ranks=n, per=per, smem=smem(hd, c["G"], per, n))
+            was = DECODE_WAS_MS.get((group, c["G"], c["s_used"]))
+            log(f"[decode] #{7 if group == 'int4' else 8} G {c['G']} "
+                f"s_used {c['s_used']}: {c['ms']:.4f} ms = "
+                f"{100 * c['bound_ms'] / c['ms']:.1f} % of its "
+                f"{c['bound_ms']:.4f} ms bound; {n} ranks of {per} "
+                f"positions, {c['smem']} B shared; the "
+                f"one-CTA body {was} ms")
+    fwd = ROLLOUT_TOKENS - 1
+    weights = [min(ROLLOUT_CHUNK, fwd - ROLLOUT_CHUNK * i)
+               for i in range(len(PATH_A_MARKS))]
+    by_su = {c["s_used"]: c for c in int4}
+    path_a = {k: sum(w * by_su[su][k] for w, su in zip(weights, PATH_A_MARKS))
+              / sum(weights) for k in ("ms", "bound_ms")}
+    log(f"[decode] #7 weighted by path A's forwards {weights} at "
+        f"watermarks {list(PATH_A_MARKS)}: {path_a['ms']:.4f} ms a launch "
+        f"against {path_a['bound_ms']:.4f} ms of bound")
     q5 = [q[:, :, i].contiguous() for i in range(5)]
     ms6 = time_ms(lambda: da.decode_attention_cuda(
         q5[0], pk, ks, pv, vs, bias, sm, 768), flush)
@@ -620,7 +673,7 @@ def phase_decode(g, flush):
               "multi_over_five": multi[0]["ms"] / ms6x5}
     log(f"[decode] #8 at G 5 beside #6: {json.dumps(versus)}")
     return {"int8": int8, "int4": int4, "multi": multi,
-            "versus_int8": versus}
+            "versus_int8": versus, "path_a_int4": path_a}
 
 
 def _library_int8(x, q, scale, out_dtype, deq):
@@ -1886,8 +1939,11 @@ def slice4_kernel_entries(decode, rollout, spec):
             "max_abs_err": max(c["err_out"] for c in cases),
             **{k: main_case[k] for k in keys}, "library_ms": None,
             "at": at + "; no one PyTorch call computes it",
-            "shapes": [{k: c[k] for k in ("s_used", "G", "err_out", *keys)}
+            "design": "cluster+bulk-async+dsmem-merge",
+            "shapes": [{k: c[k] for k in ("s_used", "G", "err_out", "ranks",
+                                          "per", "smem", *keys)}
                        for c in cases]})
+    out[0]["path_a_weighted"] = decode["path_a_int4"]
     out[-1]["versus_int8"] = decode["versus_int8"]
     return out
 

@@ -1,54 +1,90 @@
 // Decode attention over the quantized head-major prompt KV cache, for
-// Hopper (sm_90a).  Three kernels share one body:
+// Hopper (sm_90a).  Three kernels:
 //
-//   decode_attn_int8_kernel   one query per (b, h) over the int8 cache;
-//                             replaces opadpo_tpu/ops/decode_attention.py
-//                             _kernel (decode_attention_prompt);
-//   decode_attn_int4_kernel   the same over the packed int4 cache; replaces
-//                             _kernel4 (decode_attention_prompt4);
-//   decode_attn_multi_kernel  G = 2..8 queries per (b, h) over the int8
-//                             cache in one pass (speculative verify);
+//   decode_attn_int4_kernel   (#7) one query per (b, h) over the packed
+//                             int4 cache; replaces
+//                             opadpo_tpu/ops/decode_attention.py _kernel4
+//                             (decode_attention_prompt4);
+//   decode_attn_multi_kernel  (#8) G = 1..8 queries per (b, h) over the
+//                             int8 cache in one pass (speculative verify);
 //                             replaces _kernel_multi
-//                             (decode_attention_prompt_multi).
+//                             (decode_attention_prompt_multi);
+//   decode_attn_int8_kernel   (#6) one query per (b, h) over the int8
+//                             cache; replaces _kernel
+//                             (decode_attention_prompt).  It still runs the
+//                             first design ("#6's body" below).
 //
-// The TPU kernels carried the softmax state (m, l) across a sequential grid
-// axis over sequence blocks; Hopper's blocks run in no order, so here one
-// CTA per (batch, head) walks the whole filled prefix [0, s_used) itself, in
-// two passes:
-//   1. scores: s = (q . K[s]) * (k_scale[s] * sm_scale) + bias[s], kept in
-//      shared memory ([G][s_used] floats), and their max
-//      m = max(-1e30, max_s s);
-//   2. values: p = exp(s - m), l = sum p, out = sum bf16(p * v_scale[s]) *
-//      V[s].
-// The K scale is folded into the score and the V scale into p, as the TPU
-// kernels do, and p * v_scale is rounded to bf16 there too.  m starts at
-// -1e30 (not -inf), so a prompt that is masked everywhere comes out
-// uniform, as in JAX.  The output is UNNORMALISED, with m and l beside it,
-// because the caller merges it with the bf16 suffix by logsumexp.  The
-// TPU kernels keep a running max per sequence block; normalising against
-// the global max gives the same m, and (out / l, m + log l) that differ
-// only by where p * v_scale was rounded to bf16.
+// Each computes, per (b, h) and query, over the filled prefix [0, s_used):
+//   s = (q . K[s]) * (k_scale[s] * sm_scale) + bias[s],
+//   m = max(-1e30, max_s s),  p = exp(s - m),  l = sum p,
+//   out = sum bf16(p * v_scale[s]) * V[s]   (UNNORMALISED),
+// the K scale folded into the score and the V scale into p, as the TPU
+// kernels do.  m starts at -1e30 (not -inf), so a prompt masked everywhere
+// comes out uniform, as in JAX.  The caller merges (out, m, l) with the
+// bf16 suffix by logsumexp.  The TPU kernels keep a running max per
+// sequence block; normalising against the global max gives the same m,
+// and (out / l, m + log l) that differ only by where p * v_scale was
+// rounded to bf16.
 //
 // The int4 cache is packed group-local half-split (models/llama.py
 // quantize_prompt_kv_int4): packed row r of a (b, h) holds position
 // (r / 128) * 256 + r % 128 in its low nibble and that plus 128 in its
-// high nibble.  A 16-byte load therefore carries 16 dims of two positions,
-// unpacked by shifts (low ((p & 0xF) ^ 8) - 8, high p >> 4 on the
-// sign-extended byte); scores, scales and the bias are indexed by the
-// unpacked position, as for the int8 cache.
+// high nibble; scores, scales and the bias are indexed by the unpacked
+// position, as for the int8 cache.
 //
 // What bounds them: they read s_used * hd bytes of K and of V per (b, h)
 // (half that for int4) and 2 * s_used f32 scales, and do 4 * G flops per
-// cache element, so they are bound by memory bandwidth; the multi-query
-// kernel reads the cache ONCE for all G queries, which is the whole point
-// of speculative verify.  K and V rows load as 16-byte vectors, hd/16 lanes
-// per row, neighbouring lane groups on neighbouring rows, a few rows in
-// flight per group; the G query fragments live in registers.
+// cache element, so memory bandwidth; the CUDA cores' issue comes close
+// behind, since every code is widened and multiplied there (the scores
+// stay exact, below): about 3.5 instructions a code at G 1, 12 at G 8.
+//
+// #7 and #8: a cluster of N CTAs of 128 threads per (b, h), grid B * H *
+// N, N <= 8, and the positions `per` each rank owns, both from
+// ops/decode_attention.py decode_split: rank r owns [r * per, min(s_used,
+// (r + 1) * per)), whole chunks of 128 cache rows (128 positions int8, a
+// 256-position group int4).  The split keeps every CTA of a launch
+// resident at once (a second wave of CTAs would add a whole CTA's time).
+//  - Loads.  At entry one thread requests the rank's K scale, bias and V
+//    scale slices by 1-D bulk copies on one mbarrier, and each warp its
+//    32-row piece of the first K chunk into its own ring slot, on its own
+//    barrier.  A warp requests its next piece (its piece of the next K
+//    chunk, then of each V chunk) as soon as it has read the last, so
+//    scoring starts when a warp's first K piece lands, every CTA's K
+//    comes before its V, and a slice of any length streams through
+//    16 KB.  (Requesting K and V of a chunk at once, or two slots a warp,
+//    ran slower: with twice the shared memory a launch took two waves, and
+//    K and V arrived interleaved.)
+//  - Scores, on the CUDA cores: hd / 16 lanes a row, 16 dims each.  A lane
+//    widens its codes without a convert instruction (int8: byte_perm into
+//    2^23 + 128 + b, one subtract; int4: byte_perm into 2^23 + byte, an
+//    AND-XOR of one nibble, one subtract, the high nibble as 16x its
+//    value, scaled back exactly) and sums 16 products in sequence per
+//    query.  A butterfly over the row's lanes scatters as it reduces, so
+//    a lane ends with one position's score, summed in the order
+//    ops/decode_attention.py _dots mirrors: a bf16 query times an integer
+//    code is exact in f32, so the scores equal the plain version's bit for
+//    bit.  Above 4 queries they run in two passes over the piece, and the
+//    registers are capped (64 a thread at G 1, 128 above), without a
+//    spill.
+//  - The softmax merged in the cluster.  Each rank stores its slice max
+//    per query into every rank's shared memory (distributed shared
+//    memory); after a cluster barrier each holds the N maxima, so all use
+//    the global m.  Each p = exp(s - m) is computed once, by one thread,
+//    with l and bf16(p * v_scale), into the score's place.
+//  - Values: hd / 8 lanes a row, 8 dims each, every query's sums in
+//    registers; the row groups, then the warps, combine in a fixed order
+//    into the rank's partial out [G][hd] and l, which each rank stores into
+//    rank 0's inbox.  After a second cluster barrier rank 0 sums the N
+//    partials in rank order and writes out, m and l.  So two launches are
+//    bitwise equal, and only the f32 order of the value sums (and of l)
+//    differs from one pass over the prefix.
+//
+// #6's body: one CTA per (batch, head) walks the whole prefix itself, in
+// two passes (scores and their max into shared memory; then p and the
+// value sums), K and V rows as 16-byte vectors, hd/16 lanes per row, each
+// code converted by I2F.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -59,24 +95,11 @@ constexpr int NTHREADS = NWARPS * 32;
 constexpr int MAX_G = 8;
 constexpr float kMask = -1e30f;
 
-// the 16 values of one loaded vector: int8 codes, or one nibble half of
-// 16 packed bytes (half 0 low, half 1 high)
-template <bool PACKED>
-__device__ __forceinline__ void unpack16(const int4& raw, int half,
-                                         float* v) {
+// the 16 int8 codes of one loaded vector
+__device__ __forceinline__ void unpack16(const int4& raw, float* v) {
   const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int p = e[i];
-    v[i] = PACKED ? float(half ? (p >> 4) : (((p & 0xF) ^ 8) - 8))
-                  : float(p);
-  }
-}
-
-// unpacked cache position of packed (or plain) row r, half j
-template <bool PACKED>
-__device__ __forceinline__ int position(int r, int j) {
-  return PACKED ? (r >> 7) * 256 + (r & 127) + j * 128 : r;
+  for (int i = 0; i < 16; ++i) v[i] = float(e[i]);
 }
 
 // row streams in a CTA: hd/16 lanes per row, 32 lanes per warp
@@ -85,7 +108,7 @@ __host__ __device__ constexpr int groups() {
   return NWARPS * (32 / (HD / 16));
 }
 
-template <int HD, int G, bool PACKED>
+template <int HD>
 __device__ __forceinline__ void body(
     unsigned char* smem, const bf16* __restrict__ q,
     const int8_t* __restrict__ kq, const float* __restrict__ kscale,
@@ -96,13 +119,12 @@ __device__ __forceinline__ void body(
   constexpr int LPR = HD / 16;          // lanes per row, 16 bytes each
   constexpr int RPW = 32 / LPR;         // rows per warp per load
   constexpr int GROUPS = groups<HD>();
-  constexpr int UNROLL = G > 2 ? 2 : 4;
+  constexpr int UNROLL = 4;
   constexpr int STEP = GROUPS * UNROLL;
-  constexpr int NV = PACKED ? 2 : 1;    // positions per loaded row
 
   float* part_acc = reinterpret_cast<float*>(smem);   // [GROUPS][HD]
-  float* red = part_acc + GROUPS * HD;                // [NWARPS][G]
-  float* scores = red + NWARPS * G;                   // [G][s_used]
+  float* red = part_acc + GROUPS * HD;                // [NWARPS]
+  float* scores = red + NWARPS;                       // [s_used]
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -111,16 +133,12 @@ __device__ __forceinline__ void body(
   const int lane = tid % 32;
   const int part = lane % LPR;
   const int grp = warp * RPW + lane / LPR;
-  const int rows = s_used / NV;         // loaded rows in use
 
-  float qf[G][16];
+  float qf[16];
+  const bf16* qrow = q + int64_t(bh) * HD + part * 16;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const bf16* qrow = q + (int64_t(bh) * G + g) * HD + part * 16;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) qf[g][i] = __bfloat162float(qrow[i]);
-  }
-  const int64_t kv_off = int64_t(bh) * (Sp / NV) * HD + part * 16;
+  for (int i = 0; i < 16; ++i) qf[i] = __bfloat162float(qrow[i]);
+  const int64_t kv_off = int64_t(bh) * Sp * HD + part * 16;
   const int8_t* kb = kq + kv_off;
   const int8_t* vb = vq + kv_off;
   const float* ks = kscale + int64_t(bh) * Sp;
@@ -128,134 +146,95 @@ __device__ __forceinline__ void body(
   const float* bi = bias + int64_t(b) * Sp;
 
   // pass 1: scores and their max
-  float mx[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) mx[g] = kMask;
-  for (int base = 0; base < rows; base += STEP) {
+  float mx = kMask;
+  for (int base = 0; base < s_used; base += STEP) {
     int4 kr[UNROLL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int r = base + u * GROUPS + grp;
-      kr[u] = r < rows ? *reinterpret_cast<const int4*>(kb + int64_t(r) * HD)
-                       : make_int4(0, 0, 0, 0);
+      kr[u] = r < s_used
+                  ? *reinterpret_cast<const int4*>(kb + int64_t(r) * HD)
+                  : make_int4(0, 0, 0, 0);
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int r = base + u * GROUPS + grp;
+      float kv[16];
+      unpack16(kr[u], kv);
+      float d = 0.f;
 #pragma unroll
-      for (int j = 0; j < NV; ++j) {
-        float kv[16];
-        unpack16<PACKED>(kr[u], j, kv);
-        float d[G];
+      for (int i = 0; i < 16; ++i) d += qf[i] * kv[i];
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
-          float s = 0.f;
-#pragma unroll
-          for (int i = 0; i < 16; ++i) s += qf[g][i] * kv[i];
-          d[g] = s;
-        }
-#pragma unroll
-        for (int off = LPR / 2; off > 0; off >>= 1) {
-#pragma unroll
-          for (int g = 0; g < G; ++g)
-            d[g] += __shfl_xor_sync(0xffffffffu, d[g], off);
-        }
-        if (r < rows) {
-          const int pos = position<PACKED>(r, j);
-          const float ksc = ks[pos] * sm_scale;
-          const float bb = bi[pos];
-#pragma unroll
-          for (int g = 0; g < G; ++g) {
-            const float s = d[g] * ksc + bb;
-            mx[g] = fmaxf(mx[g], s);
-            if (part == 0) scores[g * s_used + pos] = s;
-          }
-        }
+      for (int off = LPR / 2; off > 0; off >>= 1)
+        d += __shfl_xor_sync(0xffffffffu, d, off);
+      if (r < s_used) {
+        const float ksc = ks[r] * sm_scale;
+        const float s = d * ksc + bi[r];
+        mx = fmaxf(mx, s);
+        if (part == 0) scores[r] = s;
       }
     }
   }
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx[g] = fmaxf(mx[g], __shfl_xor_sync(0xffffffffu, mx[g], off));
-    if (lane == 0) red[warp * G + g] = mx[g];
-  }
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  if (lane == 0) red[warp] = mx;
   __syncthreads();                     // also: every score is written
-  float m[G];
+  float m = red[0];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = red[g];
-#pragma unroll
-    for (int w = 1; w < NWARPS; ++w) m[g] = fmaxf(m[g], red[w * G + g]);
-  }
+  for (int w = 1; w < NWARPS; ++w) m = fmaxf(m, red[w]);
 
   // pass 2: probabilities into the value sums
-  float acc[G][16];
-  float l[G];
+  float acc[16];
+  float l = 0.f;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) acc[g][i] = 0.f;
-  }
-  for (int base = 0; base < rows; base += STEP) {
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  for (int base = 0; base < s_used; base += STEP) {
     int4 vr[UNROLL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int r = base + u * GROUPS + grp;
-      vr[u] = r < rows ? *reinterpret_cast<const int4*>(vb + int64_t(r) * HD)
-                       : make_int4(0, 0, 0, 0);
+      vr[u] = r < s_used
+                  ? *reinterpret_cast<const int4*>(vb + int64_t(r) * HD)
+                  : make_int4(0, 0, 0, 0);
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int r = base + u * GROUPS + grp;
-      if (r < rows) {
+      if (r < s_used) {
+        const float vsc = vs[r];
+        float vv[16];
+        unpack16(vr[u], vv);
+        const float p = expf(scores[r] - m);
+        l += p;
+        const float pw = __bfloat162float(__float2bfloat16(p * vsc));
 #pragma unroll
-        for (int j = 0; j < NV; ++j) {
-          const int pos = position<PACKED>(r, j);
-          const float vsc = vs[pos];
-          float vv[16];
-          unpack16<PACKED>(vr[u], j, vv);
-#pragma unroll
-          for (int g = 0; g < G; ++g) {
-            const float p = expf(scores[g * s_used + pos] - m[g]);
-            l[g] += p;
-            const float pw = __bfloat162float(__float2bfloat16(p * vsc));
-#pragma unroll
-            for (int i = 0; i < 16; ++i) acc[g][i] += pw * vv[i];
-          }
-        }
+        for (int i = 0; i < 16; ++i) acc[i] += pw * vv[i];
       }
     }
   }
 
-  // combine the row streams, one query at a time
+  // combine the row streams; every lane of a row group holds the same l,
+  // so count it once per group
+  float lw = part == 0 ? l : 0.f;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    // every lane of a row group holds the same l; count it once per group
-    float lw = part == 0 ? l[g] : 0.f;
+  for (int off = 16; off > 0; off >>= 1)
+    lw += __shfl_xor_sync(0xffffffffu, lw, off);
+  __syncthreads();                     // red[] reads are done
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      lw += __shfl_xor_sync(0xffffffffu, lw, off);
-    __syncthreads();                   // red[] and part_acc reads are done
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      part_acc[grp * HD + part * 16 + i] = acc[g][i];
-    if (lane == 0) red[warp] = lw;
-    __syncthreads();
-    const int64_t row = int64_t(bh) * G + g;
-    for (int c = tid; c < HD; c += NTHREADS) {
-      float s = 0.f;
-      for (int gg = 0; gg < GROUPS; ++gg) s += part_acc[gg * HD + c];
-      out[row * HD + c] = s;
-    }
-    if (tid == 0) {
-      float lt = 0.f;
-      for (int w = 0; w < NWARPS; ++w) lt += red[w];
-      m_out[row] = m[g];
-      l_out[row] = lt;
-    }
+  for (int i = 0; i < 16; ++i) part_acc[grp * HD + part * 16 + i] = acc[i];
+  if (lane == 0) red[warp] = lw;
+  __syncthreads();
+  for (int c = tid; c < HD; c += NTHREADS) {
+    float s = 0.f;
+    for (int gg = 0; gg < GROUPS; ++gg) s += part_acc[gg * HD + c];
+    out[int64_t(bh) * HD + c] = s;
+  }
+  if (tid == 0) {
+    float lt = 0.f;
+    for (int w = 0; w < NWARPS; ++w) lt += red[w];
+    m_out[bh] = m;
+    l_out[bh] = lt;
   }
 }
 
@@ -272,70 +251,561 @@ template <int HD>
 __global__ void __launch_bounds__(NTHREADS)
 decode_attn_int8_kernel(DECODE_ATTN_PARAMS) {
   extern __shared__ __align__(16) unsigned char smem[];
-  body<HD, 1, false>(smem, DECODE_ATTN_ARGS);
+  body<HD>(smem, DECODE_ATTN_ARGS);
 }
+
+
+// ---- #7 and #8: a cluster of CTAs per (b, h) ----
+
+#define CLUSTER_PARAMS                                                     \
+  const bf16 *__restrict__ q, const int8_t *__restrict__ kq,               \
+      const float *__restrict__ kscale, const int8_t *__restrict__ vq,     \
+      const float *__restrict__ vscale, const float *__restrict__ bias,    \
+      float *__restrict__ out, float *__restrict__ m_out,                  \
+      float *__restrict__ l_out, int H, int Sp, int s_used, int per,       \
+      float sm_scale
+#define CLUSTER_ARGS                                                       \
+  q, kq, kscale, vq, vscale, bias, out, m_out, l_out, H, Sp, s_used, per,  \
+      sm_scale
+
+constexpr int CT = 128;             // threads of a cluster CTA
+constexpr int CWARPS = CT / 32;
+constexpr int CROWS = 128;          // cache rows of a chunk
+constexpr int PROWS = CROWS / CWARPS;  // rows of a warp's piece of a chunk
+constexpr int MAX_RANKS = 8;        // the portable cluster size
+constexpr uint32_t FULL = 0xffffffffu;
+
+// four int8 codes -> exact f32: byte_perm puts b + 128 in the mantissa of
+// 2^23 + 128 + b, one subtract leaves b
+__device__ __forceinline__ void widen_i8x4(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    f[j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u | j)) -
+           8388736.f;
+}
+
+// four packed bytes -> their low nibbles (lo) and 16x their high nibbles
+// (hi), exact: byte_perm puts the byte in the mantissa of 2^23, an AND-XOR
+// keeps one nibble with its sign bit flipped (n + 8), one subtract
+__device__ __forceinline__ void widen_i4x4(uint32_t w, float* lo,
+                                           float* hi) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t t = __byte_perm(w, 0x4B000000u, 0x7540u | j);
+    lo[j] = __uint_as_float((t & 0x4B00000Fu) ^ 0x8u) - 8388616.f;
+    hi[j] = __uint_as_float((t & 0x4B0000F0u) ^ 0x80u) - 8388736.f;
+  }
+}
+
+// 16 products in sequence, as _dots sums a 16-wide part
+__device__ __forceinline__ float dot16(const float (&q)[16], const float* v) {
+  float s = __fmul_rn(q[0], v[0]);
+#pragma unroll
+  for (int i = 1; i < 16; ++i) s = __fmaf_rn(q[i], v[i], s);
+  return s;
+}
+
+// byte offsets in a cluster CTA's shared memory: the ring (a slot of PROWS
+// rows x HD bytes a warp; after the values it holds the warps' partial
+// sums [CWARPS][G][HD]), the K scale, V scale and
+// bias slices and the scores [G][per] (f32), the queries [G][HD] f32, the
+// warps' maxima or l [CWARPS][G], every rank's max [MAX_RANKS][G], the
+// inbox of every rank's partial out [G][HD] and l [G] (rank 0's is read),
+// and the barriers (the slices', then each warp's slot's)
+struct CLayout {
+  int ks, vs, bi, sc, qs, red, xmax, inbox, bar, bytes;
+};
+
+__host__ __device__ inline int inbox_row(int hd, int g) {
+  return g * hd + 8;                // floats: out [G][HD], l [G], padding
+}
+
+__host__ __device__ inline CLayout clayout(int hd, int g, int per,
+                                           int nranks) {
+  CLayout L;
+  L.ks = CWARPS * PROWS * hd;
+  L.vs = L.ks + per * 4;
+  L.bi = L.vs + per * 4;
+  L.sc = L.bi + per * 4;
+  L.qs = L.sc + g * per * 4;
+  L.red = L.qs + g * hd * 4;
+  L.xmax = L.red + CWARPS * MAX_G * 4;
+  L.inbox = L.xmax + MAX_RANKS * MAX_G * 4;
+  L.bar = L.inbox + nranks * inbox_row(hd, g) * 4;
+  L.bytes = L.bar + (1 + CWARPS) * 8;
+  return L;
+}
+
+// positions a reduction batch takes for GQ queries: the lanes' partials of
+// a batch fit 16 registers (at least one packed row's two positions)
+template <int LPR, int NV, int GQ>
+__host__ __device__ constexpr int batch_positions() {
+  int n = LPR;
+  while (n > NV && n * GQ > 16) n /= 2;
+  return n;
+}
+
+// the lanes' partials x[j][g] of the positions j of a batch, reduced over
+// the row's lanes: at offset O each lane keeps half of its N values (the
+// upper half where bit O of `part` is set) and adds its partner's partials
+// of that half; once one value is left, it adds its partner's.  So the
+// 16-wide parts combine pairwise as _dots halves them.
+template <int O, int N, int NPB, int GQ>
+__device__ __forceinline__ void scatter_reduce(float (&x)[NPB][GQ],
+                                               int part) {
+  if constexpr (O > 0) {
+    const bool up = (part & O) != 0;
+    if constexpr (N > 1) {
+      constexpr int M = N / 2;
+#pragma unroll
+      for (int j = 0; j < M; ++j)
+#pragma unroll
+        for (int g = 0; g < GQ; ++g) {
+          const float send = up ? x[j][g] : x[j + M][g];
+          const float keep = up ? x[j + M][g] : x[j][g];
+          x[j][g] = keep + __shfl_xor_sync(FULL, send, O);
+        }
+      scatter_reduce<O / 2, M, NPB, GQ>(x, part);
+    } else {
+#pragma unroll
+      for (int g = 0; g < GQ; ++g)
+        x[0][g] += __shfl_xor_sync(FULL, x[0][g], O);
+      scatter_reduce<O / 2, 1, NPB, GQ>(x, part);
+    }
+  }
+}
+
+// the scores of a warp's piece (PROWS rows of a chunk, from row `row0`)
+// for queries G0 .. G0 + GQ - 1.  Each row group (hd / 16 lanes, `part`
+// the lane's 16 dims) takes NPB positions a batch; after scatter_reduce
+// the lanes of index `part / (LPR / NPB)` hold the batch's position of
+// that index
+template <int HD, int G, bool PACKED, int G0, int GQ>
+__device__ __forceinline__ void score_queries(
+    const unsigned char* st, const float* qs, const float* ks,
+    const float* bi, float* sc, int per, int cbase, int row0,
+    float sm_scale, float (&mx)[G], int rgw, int part) {
+  constexpr int LPR = HD / 16;                  // lanes a row
+  constexpr int NV = PACKED ? 2 : 1;            // positions a row
+  constexpr int RGW = 32 / LPR;                 // row groups a warp
+  constexpr int NPB = batch_positions<LPR, NV, GQ>();
+  constexpr int RB = NPB / NV;                  // rows a batch
+  constexpr int NB = PROWS / RGW / RB;          // batches a piece
+  constexpr int SPAN = LPR / NPB;               // lanes holding a position
+  float qf[GQ][16];
+#pragma unroll
+  for (int g = 0; g < GQ; ++g)
+#pragma unroll
+    for (int i = 0; i < 16; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          qs + (G0 + g) * HD + part * 16 + i);
+      qf[g][i] = v.x, qf[g][i + 1] = v.y, qf[g][i + 2] = v.z,
+      qf[g][i + 3] = v.w;
+    }
+#pragma unroll
+  for (int bt = 0; bt < NB; ++bt) {
+    // batch row k of row group rgw: neighbouring groups on neighbouring
+    // rows, so a quarter warp reads 128 contiguous bytes
+    float x[NPB][GQ];
+#pragma unroll
+    for (int k = 0; k < RB; ++k) {
+      const int r = (bt * RB + k) * RGW + rgw;
+      const uint4 raw =
+          *reinterpret_cast<const uint4*>(st + r * HD + part * 16);
+      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+      if constexpr (PACKED) {
+        float lo[16], hi[16];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) widen_i4x4(w[j], lo + 4 * j, hi + 4 * j);
+#pragma unroll
+        for (int g = 0; g < GQ; ++g) {
+          x[2 * k][g] = dot16(qf[g], lo);
+          x[2 * k + 1][g] = dot16(qf[g], hi);
+        }
+      } else {
+        float v[16];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) widen_i8x4(w[j], v + 4 * j);
+#pragma unroll
+        for (int g = 0; g < GQ; ++g) x[k][g] = dot16(qf[g], v);
+      }
+    }
+    scatter_reduce<LPR / 2, NPB, NPB, GQ>(x, part);
+    const int j = part / SPAN;
+    const int half = j % NV;
+    const int pos =
+        cbase + row0 + (bt * RB + j / NV) * RGW + rgw + half * 128;
+    const float ksc = __fmul_rn(ks[pos], sm_scale);
+    const float bb = bi[pos];
+    const float unit = half ? 0.0625f : 1.f;  // the high nibble's 16x
+#pragma unroll
+    for (int g = 0; g < GQ; ++g) {
+      const float s = __fadd_rn(__fmul_rn(x[0][g] * unit, ksc), bb);
+      if (part % SPAN == 0) sc[(G0 + g) * per + pos] = s;
+      mx[G0 + g] = fmaxf(mx[G0 + g], s);
+    }
+  }
+}
+
+template <int HD, int G, bool PACKED>
+__device__ __forceinline__ void score_piece(
+    const unsigned char* st, const float* qs, const float* ks,
+    const float* bi, float* sc, int per, int cbase, int row0,
+    float sm_scale, float (&mx)[G], int rgw, int part) {
+  if constexpr (G <= 4) {
+    score_queries<HD, G, PACKED, 0, G>(st, qs, ks, bi, sc, per, cbase, row0,
+                                       sm_scale, mx, rgw, part);
+  } else {  // two passes over the piece keep the query registers in bounds
+    constexpr int G1 = (G + 1) / 2;
+    score_queries<HD, G, PACKED, 0, G1>(st, qs, ks, bi, sc, per, cbase,
+                                        row0, sm_scale, mx, rgw, part);
+    score_queries<HD, G, PACKED, G1, G - G1>(st, qs, ks, bi, sc, per, cbase,
+                                             row0, sm_scale, mx, rgw, part);
+  }
+}
+
+// a warp's piece of V into the value sums: row group rgw2 (hd / 8 lanes,
+// `part2` the lane's 8 dims) takes rows rgw2, rgw2 + RGW2, ...; `w` holds
+// bf16(p * v_scale) per (query, position), the high nibbles' weights
+// already divided by 16
+template <int HD, int G, bool PACKED>
+__device__ __forceinline__ void value_piece(const unsigned char* st,
+                                            const float* w, int per,
+                                            int cbase, int row0,
+                                            float (&acc)[G][8], int rgw2,
+                                            int part2) {
+  constexpr int RGW2 = 32 / (HD / 8);
+#pragma unroll 4
+  for (int k = 0; k < PROWS / RGW2; ++k) {
+    const int r = k * RGW2 + rgw2;
+    const uint2 raw =
+        *reinterpret_cast<const uint2*>(st + r * HD + part2 * 8);
+    const int p0 = cbase + row0 + r;
+    if constexpr (PACKED) {
+      float lo[8], hi[8];
+      widen_i4x4(raw.x, lo, hi);
+      widen_i4x4(raw.y, lo + 4, hi + 4);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float w0 = w[g * per + p0], w1 = w[g * per + p0 + 128];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[g][i] = __fmaf_rn(w0, lo[i], acc[g][i]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[g][i] = __fmaf_rn(w1, hi[i], acc[g][i]);
+      }
+    } else {
+      float v[8];
+      widen_i8x4(raw.x, v);
+      widen_i8x4(raw.y, v + 4);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float wg = w[g * per + p0];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[g][i] = __fmaf_rn(wg, v[i], acc[g][i]);
+      }
+    }
+  }
+}
+
+template <int HD, int G, bool PACKED>
+__device__ __forceinline__ void cluster_body(unsigned char* smem,
+                                             CLUSTER_PARAMS) {
+  constexpr int NV = PACKED ? 2 : 1;
+  constexpr int CPOS = CROWS * NV;      // positions of a chunk
+  constexpr int PIECE = PROWS * HD;     // bytes of a warp's piece
+  const int nr = int(hopper::cluster_size());
+  const CLayout L = clayout(HD, G, per, nr);
+  float* ks = reinterpret_cast<float*>(smem + L.ks);
+  float* vs = reinterpret_cast<float*>(smem + L.vs);
+  float* bi = reinterpret_cast<float*>(smem + L.bi);
+  float* sc = reinterpret_cast<float*>(smem + L.sc);
+  float* qs = reinterpret_cast<float*>(smem + L.qs);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  float* xmax = reinterpret_cast<float*>(smem + L.xmax);
+  float* inbox = reinterpret_cast<float*>(smem + L.inbox);
+  const uint32_t base = hopper::smem_u32(smem);
+  const uint32_t vec_bar = base + L.bar;
+
+  const int rank = int(hopper::cluster_rank());
+  const int bh = blockIdx.x / nr;
+  const int b = bh / H;
+  const int lo = rank * per;
+  const int len = min(per, s_used - lo);      // positions of this rank
+  const int nch = len / CPOS;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  // this warp's stream: its piece of K chunk 0 .. nch - 1, then of V chunk
+  // 0 .. nch - 1, through its ring slot: each load is requested once the
+  // warp has read the one before it
+  const int8_t* kg = kq + (int64_t(bh) * (Sp / NV) + lo / NV) * HD +
+                     warp * PIECE;
+  const int8_t* vg = vq + (int64_t(bh) * (Sp / NV) + lo / NV) * HD +
+                     warp * PIECE;
+  const int nload = 2 * nch;
+  unsigned char* slot = smem + warp * PIECE;
+  const uint32_t bar = base + L.bar + 8 * (1 + warp);
+  auto issue = [&](int i) {               // lane 0: load i of the stream
+    const int8_t* src = i < nch ? kg + int64_t(i) * CROWS * HD
+                                : vg + int64_t(i - nch) * CROWS * HD;
+    hopper::mbar_expect_tx(bar, PIECE);
+    hopper::bulk_load(hopper::smem_u32(slot), src, PIECE, bar);
+  };
+  auto piece = [&](int i) {               // wait for load i; its bytes
+    hopper::mbar_wait(bar, i & 1);
+    return slot;
+  };
+  auto release = [&](int i) {             // load i read: request the next
+    __syncwarp();
+    if (lane == 0 && i + 1 < nload) issue(i + 1);
+  };
+
+  if (tid == 0) {
+    hopper::mbar_init(vec_bar, 1);
+    for (int w = 0; w < CWARPS; ++w)
+      hopper::mbar_init(base + L.bar + 8 * (1 + w), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const uint32_t vb = uint32_t(len) * 4;
+    hopper::mbar_expect_tx(vec_bar, 3 * vb);
+    hopper::bulk_load(base + L.ks, kscale + int64_t(bh) * Sp + lo, vb,
+                      vec_bar);
+    hopper::bulk_load(base + L.bi, bias + int64_t(b) * Sp + lo, vb, vec_bar);
+    hopper::bulk_load(base + L.vs, vscale + int64_t(bh) * Sp + lo, vb,
+                      vec_bar);
+  }
+  if (lane == 0) issue(0);
+  hopper::cluster_arrive_relaxed();    // this CTA has started
+  for (int i = tid; i < G * HD; i += CT)
+    qs[i] = __bfloat162float(q[int64_t(bh) * G * HD + i]);
+  __syncthreads();
+
+  // scores and this rank's max: each warp its piece of every K chunk
+  constexpr int LPR = HD / 16;
+  const int part = lane % LPR;
+  const int rgw = lane / LPR;
+  float mx[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) mx[g] = kMask;
+  hopper::mbar_wait(vec_bar, 0);
+  for (int c = 0; c < nch; ++c) {
+    score_piece<HD, G, PACKED>(piece(c), qs, ks, bi, sc, per, c * CPOS,
+                               warp * PROWS, sm_scale, mx, rgw, part);
+    release(c);
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float v = mx[g];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
+    if (lane == 0) red[warp * G + g] = v;
+  }
+  __syncthreads();                     // also: every score is written
+  hopper::cluster_wait();              // every CTA of the cluster started
+  if (tid < G * nr) {                  // this rank's max to every rank
+    const int g = tid % G;
+    float v = red[g];
+    for (int w = 1; w < CWARPS; ++w) v = fmaxf(v, red[w * G + g]);
+    hopper::st_cluster(hopper::cluster_addr(xmax + rank * G + g, tid / G),
+                       v);
+  }
+  hopper::cluster_arrive();
+  hopper::cluster_wait();              // 1: every rank's max is here
+  float m[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = kMask;
+    for (int r = 0; r < nr; ++r) m[g] = fmaxf(m[g], xmax[r * G + g]);
+  }
+
+  // each p once: l, and bf16(p * v_scale) in the score's place
+  float lsum[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float lg = 0.f;
+    for (int i = tid; i < len; i += CT) {
+      const float p = expf(sc[g * per + i] - m[g]);
+      lg += p;
+      float w = __bfloat162float(__float2bfloat16(p * vs[i]));
+      if (PACKED && (i & 128)) w *= 0.0625f;  // the high nibbles' 16x
+      sc[g * per + i] = w;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      lg += __shfl_xor_sync(FULL, lg, off);
+    lsum[g] = lg;
+  }
+  __syncthreads();                     // every weight is written, red read
+  if (lane == 0)
+#pragma unroll
+    for (int g = 0; g < G; ++g) red[warp * G + g] = lsum[g];
+
+  // values: each warp its piece of every V chunk
+  constexpr int LPR2 = HD / 8;
+  const int part2 = lane % LPR2;
+  const int rgw2 = lane / LPR2;
+  float acc[G][8];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[g][i] = 0.f;
+  for (int c = 0; c < nch; ++c) {
+    value_piece<HD, G, PACKED>(piece(nch + c), sc, per, c * CPOS,
+                               warp * PROWS, acc, rgw2, part2);
+    release(nch + c);
+  }
+  // the row groups of a warp, then the warps, in a fixed order, into
+  // rank 0's inbox
+#pragma unroll
+  for (int o = LPR2; o < 32; o <<= 1)
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        acc[g][i] += __shfl_xor_sync(FULL, acc[g][i], o);
+  float* wp = reinterpret_cast<float*>(smem);  // the ring, every piece read
+  __syncthreads();
+  if (lane < LPR2) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float* d = wp + (warp * G + g) * HD + part2 * 8;
+      *reinterpret_cast<float4*>(d) =
+          make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+      *reinterpret_cast<float4*>(d + 4) =
+          make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
+    }
+  }
+  __syncthreads();
+  float* mine = inbox + rank * inbox_row(HD, G);
+  for (int e = tid * 4; e < G * HD; e += CT * 4) {
+    float4 v = *reinterpret_cast<const float4*>(wp + e);
+    for (int w = 1; w < CWARPS; ++w) {
+      const float4 u = *reinterpret_cast<const float4*>(wp + w * G * HD + e);
+      v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w;
+    }
+    hopper::st_cluster4(hopper::cluster_addr(mine + e, 0), v);
+  }
+  if (tid < G) {
+    float v = red[tid];
+    for (int w = 1; w < CWARPS; ++w) v += red[w * G + tid];
+    hopper::st_cluster(hopper::cluster_addr(mine + G * HD + tid, 0), v);
+  }
+  hopper::cluster_arrive();
+  hopper::cluster_wait();              // 2: every rank's partials are here
+  if (rank == 0) {
+    const int row = inbox_row(HD, G);
+    for (int e = tid * 4; e < G * HD; e += CT * 4) {
+      float4 v = *reinterpret_cast<const float4*>(inbox + e);
+      for (int r = 1; r < nr; ++r) {
+        const float4 u =
+            *reinterpret_cast<const float4*>(inbox + r * row + e);
+        v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w;
+      }
+      *reinterpret_cast<float4*>(out + int64_t(bh) * G * HD + e) = v;
+    }
+    if (tid < G) {
+      float lt = inbox[G * HD + tid], mg = kMask;
+      for (int r = 1; r < nr; ++r) lt += inbox[r * row + G * HD + tid];
+      for (int r = 0; r < nr; ++r) mg = fmaxf(mg, xmax[r * G + tid]);
+      m_out[int64_t(bh) * G + tid] = mg;
+      l_out[int64_t(bh) * G + tid] = lt;
+    }
+  }
+}
+
+// registers: at most 64 a thread at G 1 (8 CTAs an SM), 128 above (4)
+template <int HD>
+__global__ void __launch_bounds__(CT, 8)
+decode_attn_int4_kernel(CLUSTER_PARAMS) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cluster_body<HD, 1, true>(smem, CLUSTER_ARGS);
+}
+
+template <int HD, int G>
+__global__ void __launch_bounds__(CT, G == 1 ? 8 : 4)
+decode_attn_multi_kernel(CLUSTER_PARAMS) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cluster_body<HD, G, false>(smem, CLUSTER_ARGS);
+}
+
+// ---- launchers ----
 
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS)
-decode_attn_int4_kernel(DECODE_ATTN_PARAMS) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  body<HD, 1, true>(smem, DECODE_ATTN_ARGS);
-}
-
-template <int HD, int G>
-__global__ void __launch_bounds__(NTHREADS)
-decode_attn_multi_kernel(DECODE_ATTN_PARAMS) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  body<HD, G, false>(smem, DECODE_ATTN_ARGS);
-}
-
-typedef void (*KernelFn)(DECODE_ATTN_PARAMS);
-
-template <int HD, int G, bool PACKED>
-KernelFn kernel() {
-  if constexpr (PACKED)
-    return decode_attn_int4_kernel<HD>;
-  else if constexpr (G == 1)
-    return decode_attn_int8_kernel<HD>;
-  else
-    return decode_attn_multi_kernel<HD, G>;
-}
-
-template <int HD, int G>
-size_t smem_bytes(int s_used) {
-  return (size_t(groups<HD>()) * HD + NWARPS * G) * 4 +
-         size_t(G) * s_used * 4;
-}
-
-template <int HD, int G, bool PACKED>
-int launch(const bf16* q, const int8_t* kq, const float* ks,
-           const int8_t* vq, const float* vs, const float* bias, float* out,
-           float* m, float* l, int B, int H, int Sp, int s_used,
-           float sm_scale, cudaStream_t stream) {
+int launch_int8(const bf16* q, const int8_t* kq, const float* ks,
+                const int8_t* vq, const float* vs, const float* bias,
+                float* out, float* m, float* l, int B, int H, int Sp,
+                int s_used, float sm_scale, cudaStream_t stream) {
   static int configured = 0;
-  const auto kern = kernel<HD, G, PACKED>();
-  const size_t smem = smem_bytes<HD, G>(s_used);
+  const size_t smem = (size_t(groups<HD>()) * HD + NWARPS) * 4 +
+                      size_t(s_used) * 4;
   if (smem > size_t(configured)) {
     cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+        decode_attn_int8_kernel<HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return int(e);
     configured = int(smem);
   }
-  kern<<<B * H, NTHREADS, smem, stream>>>(q, kq, ks, vq, vs, bias, out, m,
-                                           l, H, Sp, s_used, sm_scale);
+  decode_attn_int8_kernel<HD><<<B * H, NTHREADS, smem, stream>>>(
+      q, kq, ks, vq, vs, bias, out, m, l, H, Sp, s_used, sm_scale);
   return int(cudaGetLastError());
 }
 
+template <int HD, int G, bool PACKED>
+int launch_cluster(const bf16* q, const int8_t* kq, const float* ks,
+                   const int8_t* vq, const float* vs, const float* bias,
+                   float* out, float* m, float* l, int B, int H, int Sp,
+                   int s_used, int nranks, int per,
+                   float sm_scale, cudaStream_t stream) {
+  void (*kern)(CLUSTER_PARAMS);
+  if constexpr (PACKED)
+    kern = decode_attn_int4_kernel<HD>;
+  else
+    kern = decode_attn_multi_kernel<HD, G>;
+  static int configured = 0;
+  const int smem = clayout(HD, G, per, nranks).bytes;
+  if (smem > configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return int(e);
+    configured = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * H * nranks);
+  cfg.blockDim = dim3(CT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, kern, q, kq, ks, vq, vs, bias, out, m, l, H,
+                         Sp, s_used, per, sm_scale);
+  return int(e != cudaSuccess ? e : cudaGetLastError());
+}
+
 template <int HD>
-int launch_hd(int G, bool packed, const bf16* q, const int8_t* kq,
+int launch_hd(int kind, int G, const bf16* q, const int8_t* kq,
               const float* ks, const int8_t* vq, const float* vs,
               const float* bias, float* out, float* m, float* l, int B,
-              int H, int Sp, int s_used, float sm_scale,
-              cudaStream_t stream) {
+              int H, int Sp, int s_used, int nranks, int per,
+              float sm_scale, cudaStream_t stream) {
+  if (kind == 0)
+    return G == 1 ? launch_int8<HD>(q, kq, ks, vq, vs, bias, out, m, l, B,
+                                    H, Sp, s_used, sm_scale, stream)
+                  : int(cudaErrorInvalidValue);
 #define DECODE_ATTN_LAUNCH(GG, PK)                                         \
-  return launch<HD, GG, PK>(q, kq, ks, vq, vs, bias, out, m, l, B, H, Sp,  \
-                            s_used, sm_scale, stream)
-  if (packed) {
+  return launch_cluster<HD, GG, PK>(q, kq, ks, vq, vs, bias, out, m, l, B, \
+                                    H, Sp, s_used, nranks, per,            \
+                                    sm_scale, stream)
+  if (kind == 1) {
     if (G == 1) DECODE_ATTN_LAUNCH(1, true);
     return int(cudaErrorInvalidValue);
   }
@@ -355,19 +825,32 @@ int launch_hd(int G, bool packed, const bf16* q, const int8_t* kq,
 
 }  // namespace
 
-// q: bf16 [B, H, G, hd]; kq, vq: int8 [B, H, Sp, hd], or with `packed`
-// int4 pairs [B, H, Sp/2, hd]; ks, vs: f32 [B, H, Sp]; bias: f32 [B, Sp];
-// out: f32 [B, H, G, hd]; m, l: f32 [B, H, G]; all contiguous.  Sp is the
-// unpacked cache length.  Reads positions [0, s_used) (a multiple of 256
-// when packed); G is 1..8, and 1 when packed; hd is 64 or 128.  Returns
-// the cudaError_t of the launch.
+// q: bf16 [B, H, G, hd]; kq, vq: int8 [B, H, Sp, hd], or for #7 int4
+// pairs [B, H, Sp/2, hd]; ks, vs: f32 [B, H, Sp]; bias: f32 [B, Sp]; out:
+// f32 [B, H, G, hd]; m, l: f32 [B, H, G]; all contiguous, 16-byte
+// aligned.  Sp is the unpacked cache length.  kind 0 is #6 (G 1), 1 is #7
+// (G 1, s_used a multiple of 256), 2 is #8 (G 1..8); hd is 64 or 128.
+// #7 and #8 take the cluster split from ops/decode_attention.py
+// decode_split: `nranks` CTAs of `per` positions (the last may hold
+// fewer); their Sp is a multiple of 4 (16-byte rows of scales and bias).  Returns the cudaError_t of the launch.
 extern "C" int opadpo_decode_attn(const void* q, const void* kq,
                                   const void* ks, const void* vq,
                                   const void* vs, const void* bias, void* out,
                                   void* m, void* l, int B, int H, int G,
-                                  int Sp, int hd, int s_used, int packed,
+                                  int Sp, int hd, int s_used, int kind,
+                                  int nranks, int per,
                                   float sm_scale, void* stream) {
-  if (G < 1 || G > MAX_G) return int(cudaErrorInvalidValue);
+  if (G < 1 || G > MAX_G || kind < 0 || kind > 2 || s_used > Sp)
+    return int(cudaErrorInvalidValue);
+  if (kind != 0) {
+    const int unit = kind == 1 ? 2 * CROWS : CROWS;
+    if (nranks < 1 || nranks > MAX_RANKS || per < unit || per % unit ||
+        Sp % 4 ||
+        (nranks - 1) * per >= s_used || nranks * per < s_used ||
+        s_used % unit ||
+        clayout(hd, G, per, nranks).bytes > 232448)
+      return int(cudaErrorInvalidValue);
+  }
   const bf16* qq = static_cast<const bf16*>(q);
   const int8_t* k8 = static_cast<const int8_t*>(kq);
   const int8_t* v8 = static_cast<const int8_t*>(vq);
@@ -379,10 +862,16 @@ extern "C" int opadpo_decode_attn(const void* q, const void* kq,
   float* ll = static_cast<float*>(l);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 128)
-    return launch_hd<128>(G, packed != 0, qq, k8, kss, v8, vss, bb, o, mm,
-                          ll, B, H, Sp, s_used, sm_scale, st);
+    return launch_hd<128>(kind, G, qq, k8, kss, v8, vss, bb, o, mm, ll, B, H,
+                          Sp, s_used, nranks, per, sm_scale, st);
   if (hd == 64)
-    return launch_hd<64>(G, packed != 0, qq, k8, kss, v8, vss, bb, o, mm, ll,
-                         B, H, Sp, s_used, sm_scale, st);
+    return launch_hd<64>(kind, G, qq, k8, kss, v8, vss, bb, o, mm, ll, B, H,
+                         Sp, s_used, nranks, per, sm_scale, st);
   return int(cudaErrorInvalidValue);
+}
+
+// dynamic shared memory of a #7 / #8 launch
+extern "C" int opadpo_decode_attn_smem_bytes(int hd, int G, int per,
+                                             int nranks) {
+  return clayout(hd, G, per, nranks).bytes;
 }

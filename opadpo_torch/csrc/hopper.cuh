@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the flash kernels
-// (flash_fwd.cu, flash_bwd.cu) and the quant matmuls (int8_matmul.cu,
-// int4_matmul.cu): mbarriers, TMA tensor loads, 128-byte swizzled wgmma
+// (flash_fwd.cu, flash_bwd.cu), the quant matmuls (int8_matmul.cu,
+// int4_matmul.cu) and the cluster decode kernels (decode_attention.cu):
+// mbarriers, 1-D bulk copies, cluster barriers and distributed
+// shared-memory stores, TMA tensor loads, 128-byte swizzled wgmma
 // descriptors and the wgmma forms they use, the accumulator-fragment
 // helpers, the matmuls' stage ring and output store, and the
 // host-side encoding of the 4-D tensor maps over strided [B, S, H, D] bf16
@@ -108,6 +110,69 @@ __device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map
       "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
       : "memory");
+}
+
+// 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global memory to this CTA's shared memory, completing on
+// the barrier's transaction count
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// ---- thread-block clusters ----
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// the cluster barrier, split: every thread of every CTA arrives, then
+// waits.  After a release arrival, the thread's writes before it are
+// visible to the cluster's reads after the wait; a relaxed arrival early
+// and a wait before the first distributed shared-memory access show that
+// every CTA of the cluster has started.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the shared-memory address of `p` in the CTA of cluster rank `rank`
+__device__ __forceinline__ uint32_t cluster_addr(const void* p,
+                                                 uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_cluster4(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
 }
 
 // make this thread's ordinary shared-memory stores visible to the async

@@ -19,15 +19,23 @@ padding).  Each returns the UNNORMALISED output and the softmax state
 
 On a CUDA tensor each launches its kernel in ``csrc/decode_attention.cu``
 (replacing the Pallas ``_kernel``, ``_kernel4`` and ``_kernel_multi``) and
-never falls back; on a CPU tensor it runs its ``*_plain`` version.
+never falls back; on a CPU tensor it runs its ``*_plain`` version.  The
+kernels of ``decode_attention_prompt4`` (#7) and
+``decode_attention_prompt_multi`` (#8) split each (b, h)'s prefix over a
+cluster of up to 8 CTAs, as ``decode_split`` fixes, and merge the softmax
+at the global max in distributed shared memory; ``decode_attention_prompt``
+(#6) runs one CTA per (b, h).
 
 All follow the TPU kernels' numerics: the query is rounded to bf16, the K
 scale is folded into the score and the V scale into the probability, and
 ``p * v_scale`` is rounded to bf16 before the value product; m starts at
--1e30.  They normalise against the global max in one pass, which the TPU
-kernels also do whenever ``s_used`` fits one of their sequence blocks
-(<= 1024 for the int8 kernels, 128 for ``_kernel4``); elsewhere m is the
-same and (out / l, m + log l) differ by where ``p * v_scale`` was rounded.
+-1e30.  They normalise against the global max, which the TPU kernels also
+do whenever ``s_used`` fits one of their sequence blocks (<= 1024 for the
+int8 kernels, 128 for ``_kernel4``); elsewhere m is the same and (out / l,
+m + log l) differ by where ``p * v_scale`` was rounded.  The scores equal
+the plain versions' bit for bit; #7 and #8 sum the value products in
+another f32 order (within each rank, then the ranks in order), the same
+in every launch.
 """
 
 from __future__ import annotations
@@ -44,6 +52,12 @@ NEG_INF = -1e30
 ALIGN = 128            # int8 cache: lengths and s_used are multiples of it
 ALIGN4 = 256           # int4 cache: the packed group
 MAX_G = 8              # queries per (b, h) the multi-query kernel takes
+MAX_RANKS = 8          # CTAs of a (b, h)'s cluster: the portable maximum
+MAX_SLICE = 2048       # positions a rank holds (scores, scales, bias in its
+                       # shared memory); so s_used <= 8 * 2048 for #7 / #8
+TARGET_CTAS = 600      # CTAs a launch keeps within, so that all are
+                       # resident at once (4 an SM at G > 1); 1024 ran
+                       # slower at most path shapes on an H100 (PERF.md)
 
 
 def _s_used(k_scale, s_used, align=ALIGN):
@@ -54,6 +68,31 @@ def _s_used(k_scale, s_used, align=ALIGN):
         raise ValueError(f"s_used={s_used} must be a positive multiple of "
                          f"{align} and <= {sp}")
     return s_used
+
+
+def decode_split(s_used: int, bh: int, packed: bool):
+    """The cluster of #7 / #8 over ``bh`` = B * H heads reading ``s_used``
+    positions -> ``(n, per)``: ``n`` <= 8 ranks a (b, h), rank r owning
+    positions [r * per, min(s_used, (r + 1) * per)), each at least one
+    position, ``per`` whole chunks of 128 cache rows (128 positions int8,
+    256 packed).  Ranks are added while the launch stays within
+    ``TARGET_CTAS`` CTAs (all resident at once), one more where that
+    splits the chunks evenly, and past that only as far as a slice must
+    shrink to ``MAX_SLICE``."""
+    unit = ALIGN4 if packed else ALIGN
+    if s_used <= 0 or s_used % unit:
+        raise ValueError(f"s_used={s_used} must be a positive multiple of "
+                         f"{unit}")
+    units = s_used // unit
+    n = min(MAX_RANKS, units, max(1, TARGET_CTAS // bh))
+    if units % n and n < MAX_RANKS and units % (n + 1) == 0:
+        n += 1
+    n = max(n, min(MAX_RANKS, -(-units // (MAX_SLICE // unit))))
+    per_units = -(-units // n)
+    if per_units * unit > MAX_SLICE:
+        raise ValueError(f"s_used={s_used}: #7 and #8 read at most "
+                         f"{MAX_RANKS * MAX_SLICE} positions")
+    return -(-units // per_units), per_units * unit
 
 
 def unpack_int4_kv(packed: torch.Tensor) -> torch.Tensor:
@@ -120,17 +159,23 @@ def decode_attention_prompt4_plain(q, pk_q4, k_scale, pv_q4, v_scale, bias,
         unpack_int4_kv(pv_q4[:, :, :sp // 2]), v_scale, bias, sm_scale, sp)
 
 
-def _launch(q, pk, k_scale, pv, v_scale, bias, sm_scale, s_used, packed):
+def _launch(q, pk, k_scale, pv, v_scale, bias, sm_scale, s_used, kind):
     """One launch of ``opadpo_decode_attn`` for q ``[B, H, G, hd]`` ->
-    (out [B, H, G, hd], m [B, H, G], l [B, H, G]), all f32."""
+    (out [B, H, G, hd], m [B, H, G], l [B, H, G]), all f32.  ``kind``: 0
+    is #6, 1 #7 (packed cache), 2 #8."""
+    packed = kind == 1
     b, h, sp = k_scale.shape
     gq, hd = q.shape[2], q.shape[3]
     su = _s_used(k_scale, s_used, ALIGN4 if packed else ALIGN)
     if hd not in (64, 128):
         raise ValueError(f"head dim {hd} not supported (64 or 128)")
-    if not 1 <= gq <= (1 if packed else MAX_G):
+    if not 1 <= gq <= (MAX_G if kind == 2 else 1):
         raise ValueError(f"{gq} queries per head: the kernel takes 1..."
-                         f"{1 if packed else MAX_G}")
+                         f"{MAX_G if kind == 2 else 1}")
+    n, per = decode_split(su, b * h, packed) if kind else (1, su)
+    if kind and sp % 4:
+        raise ValueError(f"cache length {sp}: #7 and #8 take a multiple "
+                         "of 4 (16-byte rows of scales and bias)")
     q = q.to(torch.bfloat16).contiguous()
     rows = sp // 2 if packed else sp
     expect = {"q": (q, (b, h, gq, hd), torch.bfloat16),
@@ -151,7 +196,7 @@ def _launch(q, pk, k_scale, pv, v_scale, bias, sm_scale, s_used, packed):
     err = _fn()(q.data_ptr(), pk.data_ptr(), k_scale.data_ptr(),
                 pv.data_ptr(), v_scale.data_ptr(), bias.data_ptr(),
                 out.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, gq, sp, hd,
-                su, int(packed), float(sm_scale),
+                su, kind, n, per, float(sm_scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "decode_attention")
     return out, m, l
@@ -161,7 +206,7 @@ def decode_attention_cuda(q, pk_q, k_scale, pv_q, v_scale, bias, sm_scale,
                           s_used=None):
     """Kernel #6: one query [B, H, hd] over the int8 cache."""
     res = _one_query(_launch, q, pk_q, k_scale, pv_q, v_scale, bias,
-                     sm_scale, s_used, False)
+                     sm_scale, s_used, 0)
     decode_attention_cuda.launches += 1
     return res
 
@@ -170,7 +215,7 @@ def decode_attention4_cuda(q, pk_q4, k_scale, pv_q4, v_scale, bias,
                            sm_scale, s_used=None):
     """Kernel #7: one query [B, H, hd] over the packed int4 cache."""
     res = _one_query(_launch, q, pk_q4, k_scale, pv_q4, v_scale, bias,
-                     sm_scale, s_used, True)
+                     sm_scale, s_used, 1)
     decode_attention4_cuda.launches += 1
     return res
 
@@ -179,7 +224,7 @@ def decode_attention_multi_cuda(q, pk_q, k_scale, pv_q, v_scale, bias,
                                 sm_scale, s_used=None):
     """Kernel #8: G queries [B, H, G, hd] over the int8 cache."""
     res = _launch(q, pk_q, k_scale, pv_q, v_scale, bias, sm_scale, s_used,
-                  False)
+                  2)
     decode_attention_multi_cuda.launches += 1
     return res
 
@@ -195,7 +240,7 @@ def _fn():
         vp = ctypes.c_void_p
         i = ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
-                       i, ctypes.c_float, vp]
+                       i, i, i, ctypes.c_float, vp]
         fn.restype = ctypes.c_int
     return fn
 

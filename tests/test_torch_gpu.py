@@ -100,6 +100,65 @@ def test_int4_and_multi_decode_kernels_match_plain_on_gpu(hd):
             torch.zeros(b, h, 9, hd, device=dev), pk, ks, pv, vs, bias, 1.0)
 
 
+def _cluster_cache(g, sp, hd, packed, b=2, h=4):
+    """A cache of ``sp`` positions (packed int4 pairs or int8 codes) with
+    scales, zero in the last 100 positions, and a bias that left-pads row
+    0, masks row 1 everywhere and every row's last 100 positions."""
+    dev = "cuda"
+    lo = -128 if packed else -127
+    pk, pv = (torch.randint(lo, 128, (b, h, sp // 2 if packed else sp, hd),
+                            generator=g, device=dev, dtype=torch.int8)
+              for _ in range(2))
+    ks, vs = (torch.rand(b, h, sp, generator=g, device=dev) * 0.02
+              for _ in range(2))
+    ks[:, :, sp - 100:] = 0.0
+    vs[:, :, sp - 100:] = 0.0
+    bias = torch.zeros(b, sp, device=dev)
+    bias[0, :37] = -1e30
+    bias[1] = -1e30
+    bias[:, sp - 100:] = -1e30
+    return pk, ks, pv, vs, bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [128, 64])
+def test_cluster_decode_kernels_match_plain_on_gpu(hd):
+    """The cluster kernels: #7 at every multiple of 256 up to 1536 and at
+    4608 (6 ranks of 3 groups, each warp streaming 6 pieces through its
+    ring slot), #8 at G 1 ... 8 and s_used 128 ... 768 and at G 5, s_used
+    2304 (likewise streamed), with row 1 masked everywhere and zero scales
+    in the tail: (out, m, l) within 1e-4 of each one's largest entry of the
+    plain version, as above, and two launches bitwise equal."""
+    g = _gen()
+    q = torch.randn(2, 4, 8, hd, generator=g, device="cuda").to(
+        torch.bfloat16)
+    sm = hd ** -0.5
+    cases = []
+    for sp, sus in ((1536, range(256, 1537, 256)), (4608, (4608,))):
+        cache = _cluster_cache(g, sp, hd, True)
+        for su in sus:
+            cases.append((t_decode.decode_attention4_cuda,
+                          t_decode.decode_attention_prompt4_plain,
+                          (q[:, :, 0].contiguous(), *cache, sm, su)))
+    cache = _cluster_cache(g, 768, hd, False)
+    for gq in range(1, 9):
+        for su in range(128, 769, 128):
+            cases.append((t_decode.decode_attention_multi_cuda,
+                          t_decode.decode_attention_prompt_multi_plain,
+                          (q[:, :, :gq].contiguous(), *cache, sm, su)))
+    cache = _cluster_cache(g, 2304, hd, False)
+    cases.append((t_decode.decode_attention_multi_cuda,
+                  t_decode.decode_attention_prompt_multi_plain,
+                  (q[:, :, :5].contiguous(), *cache, sm, 2304)))
+    for kernel, plain, args in cases:
+        out, again, ref = kernel(*args), kernel(*args), plain(*args)
+        assert all(torch.equal(a, c) for a, c in zip(out, again))
+        for o, r in zip(out, ref):
+            assert o.shape == r.shape
+            assert torch.allclose(o, r, rtol=1e-4,
+                                  atol=1e-4 * r.abs().max().item())
+
+
 def _flash_inputs(g, sq, skv, d, head_major):
     """q [3, sq, 2, d] over k, v [3, skv, 2, d], bf16; head-major tensors
     are passed as the permuted [B, S, H, D] view ``_kernel_view`` gives.
