@@ -21,19 +21,23 @@ Phases, each fatal on failure:
      launches bitwise equal; their ptxas report (a spill, C7508 or C7514
      fails), shared memory, and each kernel's share of its bound beside
      SDPA's backward and the WMMA kernels' earlier times;
-  5. the head-layout kernels, scatter (#4, RoPE) and gather (#5, inverse
-     RoPE), against their plain versions at [2, 703, 4096] and
-     [6, 896, 4096];
-  6. the decode-attention kernels against their plain versions, two
-     launches bitwise equal: int8 (#6) at [8, 32, 768, 128], s_used 768
-     and 640; int4 (#7, a cluster of CTAs per head) over the packed cache
-     of an 896-token chunk-256 rollout ([8, 32, 768, 128] packed, 1536
-     positions) at s_used 768, 512, 1536, 1024 and 1280, and its time
-     weighted by path A's forwards at each watermark; multi-query (#8,
-     the same design) at G 5 (s_used 768, 640), 2 and 8, and beside five
-     launches of #6; each cluster launch's split and shared memory beside
-     the one-CTA body's earlier time, and decode_attention.cu's ptxas
-     report (a spill, C7512, C7513 or C7514 fails);
+  5. the head-layout kernels, scatter (#4, TMA tiles, RoPE) and gather
+     (#5, inverse RoPE), against their plain versions at [2, 703, 4096]
+     and [6, 896, 4096], and #4 over a stream's q, k and v in one launch
+     beside three single-tensor launches and the per-head kernel's time,
+     with heads_layout.cu's ptxas report (a spill, C7512, C7513 or C7514
+     fails);
+  6. the decode-attention kernels, one cluster of CTAs per head each,
+     against their plain versions, two launches bitwise equal: int8 (#6)
+     at [8, 32, 768, 128], s_used 768 and 640, and at 768 timed at 2, 3
+     and 6 ranks a head; int4 (#7) over the packed cache of an 896-token
+     chunk-256 rollout ([8, 32, 768, 128] packed, 1536 positions) at
+     s_used 768, 512, 1536, 1024 and 1280, and its time weighted by path
+     A's forwards at each watermark; multi-query (#8) at G 5 (s_used 768,
+     640), 2 and 8, and beside five launches of #6; each launch's split
+     and shared memory beside the one-CTA body's earlier time, and
+     decode_attention.cu's ptxas report (a spill, C7512, C7513 or C7514
+     fails);
   7. the quantized matmuls against their plain versions: int8 (#9, TMA
      and wgmma, ``int8_matmul.cu``) at the 7B decode (M 8), head (f32
      out), prefix (M 703) and CLIP (M 577) shapes, its transpose (#10,
@@ -478,9 +482,18 @@ def phase_flash_bwd(g, flush):
     return res
 
 
+# #4 before its redesign (the per-head kernel, one CTA per 64 rows of one
+# head), ms per tensor: chip runs of chip_smoke.py on an NVIDIA H100 80GB
+# HBM3 at 700 W, recorded in PERF.md
+HEADS_WAS_MS = {"prefix": 0.0153, "response": 0.0354}
+
+
 def _heads_case(b, s, g, flush):
     """scatter (RoPE) and gather (inverse RoPE, strided [B, S, H, hd]
-    gradient, as the backward kernels write it) at 32 heads of 128."""
+    gradient, as the backward kernels write it) at 32 heads of 128, and
+    the scatter of a stream's q, k and v in one launch (q and k with RoPE,
+    v without), as the training path runs it, beside three single-tensor
+    launches on the same tensors."""
     import torch
 
     from opadpo_torch.ops import heads_layout
@@ -496,35 +509,75 @@ def _heads_case(b, s, g, flush):
                     dtype=torch.bfloat16)
     gr = torch.randn(b, s, h, hd, generator=g, device=dev,
                      dtype=torch.bfloat16).permute(0, 2, 1, 3)
+    qkv = [torch.randn(b, s, h * hd, generator=g, device=dev,
+                       dtype=torch.bfloat16) for _ in range(3)]
+    ropes = heads_layout.QKV_ROPE
+
+    def three_single():
+        return [heads_layout.scatter_heads_cuda(t, cos, sin, pos, h, r)
+                for t, r in zip(qkv, ropes)]
+
     cases = {
-        "scatter": (lambda: heads_layout.scatter_heads_cuda(
-            x, cos, sin, pos, h, True), lambda: heads_layout.
-            scatter_heads_plain(x, cos, sin, pos, h, True)),
-        "gather": (lambda: heads_layout.gather_heads_cuda(
-            gr, cos, sin, pos, True), lambda: heads_layout.
-            gather_heads_plain(gr, cos, sin, pos, True)),
+        "scatter": (lambda: [heads_layout.scatter_heads_cuda(
+            x, cos, sin, pos, h, True)], lambda: [heads_layout.
+            scatter_heads_plain(x, cos, sin, pos, h, True)], 1, 1),
+        "gather": (lambda: [heads_layout.gather_heads_cuda(
+            gr, cos, sin, pos, True)], lambda: [heads_layout.
+            gather_heads_plain(gr, cos, sin, pos, True)], 1, 1),
+        "scatter_qkv": (lambda: heads_layout.scatter_heads_multi_cuda(
+            qkv, cos, sin, pos, h, ropes, (1, 1, 1)), lambda: [
+            heads_layout.scatter_heads_plain(t, cos, sin, pos, h, r)
+            for t, r in zip(qkv, ropes)], 3, 2),
     }
-    # one read and one write of [b, s, 4096] bf16, the positions, and one
-    # cos and one sin half-row per position
-    nbytes = 2 * b * s * h * hd * 2 + b * s * 8 + 2 * b * s * (hd // 2) * 4
     res = {"shape": [b, s, h * hd]}
-    for name, (kernel, plain) in cases.items():
-        out, ref = kernel(), plain()
+    for name, (kernel, plain, tensors, rotated) in cases.items():
+        outs, refs = kernel(), plain()
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        top = ref.float().abs().max().item()
+        err = max((o.float() - r.float()).abs().max().item()
+                  for o, r in zip(outs, refs))
+        top = max(r.float().abs().max().item() for r in refs)
         check(err <= 1e-2 * top, f"{name}_heads error {err} > 1e-2 x {top}")
-        bound_ms, bound_by = _bound(nbytes, 6 * b * s * h * hd)
+        # one read and one write of each [b, s, 4096] bf16 tensor, the
+        # positions, and one cos and one sin half-row per position
+        nbytes = tensors * 2 * b * s * h * hd * 2 + b * s * 8 \
+            + 2 * b * s * (hd // 2) * 4
+        bound_ms, bound_by = _bound(nbytes, rotated * 6 * b * s * h * hd)
         res[name] = {"err": err, "ms": time_ms(kernel, flush),
                      "plain_ms": time_ms(plain, flush), "bound_ms": bound_ms,
                      "bound_by": bound_by, "bytes": nbytes}
+    res["scatter_qkv"]["three_single_ms"] = time_ms(three_single, flush)
     log(f"[heads] {json.dumps(res)}")
     return res
 
 
 def phase_heads(g, flush):
-    return {"prefix": _heads_case(2, 703, g, flush),
-            "response": _heads_case(6, 896, g, flush)}
+    """#4 and #5 at the training streams' shapes, and heads_layout.cu's
+    ptxas report (a spill, C7512, C7513 or C7514 fails)."""
+    import torch
+
+    from opadpo_torch.ops import heads_layout
+
+    shown, faults = ptxas_findings("heads_layout.cu", ("C7512", "C7513"))
+    for line in shown + faults:
+        log(f"[heads] ptxas heads_layout.cu: {line}")
+    check(not faults, f"heads_layout.cu: ptxas reports {faults}")
+    res = {"prefix": _heads_case(2, 703, g, flush),
+           "response": _heads_case(6, 896, g, flush)}
+    for name, r in res.items():
+        b, s = r["shape"][:2]
+        c, one = r["scatter_qkv"], r["scatter"]
+        blocks, groups = heads_layout.scatter_grid(      # 3 x 32 heads
+            b, s, 96, heads_layout._scatter_slots(torch.device("cuda", 0),
+                                                  128))
+        log(f"[heads] #4 {name} {r['shape']}: q/k/v in one launch "
+            f"{c['ms']:.4f} ms = {100 * c['bound_ms'] / c['ms']:.1f} % of its "
+            f"{c['bound_ms']:.4f} ms bound ({blocks} x {b} x {groups} CTAs); "
+            f"three single launches {c['three_single_ms']:.4f} ms; one "
+            f"tensor {one['ms']:.4f} ms = "
+            f"{100 * one['bound_ms'] / one['ms']:.1f} % of "
+            f"{one['bound_ms']:.4f}; the per-head kernel "
+            f"{HEADS_WAS_MS[name]} ms a tensor (PERF.md)")
+    return res
 
 
 def _decode_bytes(b, h, su, hd, gq, packed):
@@ -564,16 +617,20 @@ def _decode_case(kernel, plain, args, su, gq, packed, flush, label):
     return res
 
 
-# #7 and #8 before their cluster redesign (one CTA per (b, h), two passes),
-# by (kernel, G, s_used): `tools/time_decode.py` on the one-CTA body in
-# turns with the cluster kernels (the mean of two runs), s_used 512 and
-# #8's 640 from earlier chip_smoke.py runs; NVIDIA H100 80GB HBM3 at 700 W,
-# recorded in PERF.md
+# the decode kernels before the cluster body (one CTA per (b, h), two
+# passes), by (kernel, G, s_used): #7 and #8 from `tools/time_decode.py` on
+# the one-CTA body in turns with the cluster kernels (the mean of two
+# runs), s_used 512 and #8's 640 from earlier chip_smoke.py runs; #6 from
+# chip_smoke.py runs; NVIDIA H100 80GB HBM3 at 700 W, recorded in PERF.md
 DECODE_WAS_MS = {("int4", 1, 768): 0.0315, ("int4", 1, 512): 0.0241,
                  ("int4", 1, 1536): 0.0545, ("int4", 1, 1024): 0.0392,
                  ("int4", 1, 1280): 0.0469, ("multi", 5, 768): 0.0543,
                  ("multi", 5, 640): 0.0476, ("multi", 2, 768): 0.0408,
-                 ("multi", 8, 768): 0.0933}
+                 ("multi", 8, 768): 0.0933, ("int8", 1, 768): 0.0393,
+                 ("int8", 1, 640): 0.0339}
+# ranks a (b, h) timed for #6 at the serving shape
+INT8_SPLIT_RANKS = (2, 3, 6)
+KERNEL_NUMBER = {"int8": 6, "int4": 7, "multi": 8}
 # path A's watermarks: the cache read to 768 + 256 i by the decode forwards
 # of chunk i (895 forwards of 896 tokens: 256, 256, 256, 127)
 PATH_A_MARKS = (768, 1024, 1280, 1536)
@@ -642,17 +699,19 @@ def phase_decode(g, flush):
                            sm), su, gq, False, flush,
                           "decode_attention_multi")
              for gq, su in ((5, 768), (5, 640), (2, 768), (8, 768))]
-    for group, cases in (("int4", int4), ("multi", multi)):
+    for group, cases in (("int8", int8), ("int4", int4), ("multi", multi)):
         for c in cases:
-            n, per = da.decode_split(c["s_used"], b * h, group == "int4")
+            n, per = da.decode_split(c["s_used"], b * h, group == "int4",
+                                     c["G"])
             c.update(ranks=n, per=per, smem=smem(hd, c["G"], per, n))
             was = DECODE_WAS_MS.get((group, c["G"], c["s_used"]))
-            log(f"[decode] #{7 if group == 'int4' else 8} G {c['G']} "
+            log(f"[decode] #{KERNEL_NUMBER[group]} G {c['G']} "
                 f"s_used {c['s_used']}: {c['ms']:.4f} ms = "
                 f"{100 * c['bound_ms'] / c['ms']:.1f} % of its "
                 f"{c['bound_ms']:.4f} ms bound; {n} ranks of {per} "
                 f"positions, {c['smem']} B shared; the "
                 f"one-CTA body {was} ms")
+    splits = _int8_split_times((q1, pk, ks, pv, vs, bias, sm), 768, flush)
     fwd = ROLLOUT_TOKENS - 1
     weights = [min(ROLLOUT_CHUNK, fwd - ROLLOUT_CHUNK * i)
                for i in range(len(PATH_A_MARKS))]
@@ -673,7 +732,39 @@ def phase_decode(g, flush):
               "multi_over_five": multi[0]["ms"] / ms6x5}
     log(f"[decode] #8 at G 5 beside #6: {json.dumps(versus)}")
     return {"int8": int8, "int4": int4, "multi": multi,
-            "versus_int8": versus, "path_a_int4": path_a}
+            "versus_int8": versus, "path_a_int4": path_a,
+            "int8_splits": splits}
+
+
+def _int8_split_times(args, su, flush):
+    """#6 at ``su`` with each of ``INT8_SPLIT_RANKS`` ranks a (b, h) (whole
+    128-position chunks, as ``decode_split`` cuts them), each checked
+    against the plain version within 1e-4 of its largest entry ->
+    ``{ranks: ms}``, and the split ``decode_split`` takes."""
+    from opadpo_torch.ops import decode_attention as da
+
+    q1, pk = args[:2]
+    b, h = pk.shape[:2]
+    units = su // da.ALIGN
+    ref = da.decode_attention_prompt_plain(*args, su)
+    times = {}
+    for n in INT8_SPLIT_RANKS:
+        split = (n, -(-units // n) * da.ALIGN)
+
+        def launch():
+            return da._one_query(da._launch, *args, su, 0, split)
+
+        for o, r in zip(launch(), ref):
+            e = (o - r).abs().max().item()
+            top = max(r.abs().max().item(), 1.0)
+            check(e <= 1e-4 * top, f"#6 at {n} ranks: error {e} > 1e-4 x "
+                  f"{top}")
+        times[n] = time_ms(launch, flush)
+    chosen = da.decode_split(su, b * h, False)
+    log(f"[decode] #6 s_used {su} by ranks a (b, h): "
+        + ", ".join(f"{n}: {ms:.4f} ms" for n, ms in times.items())
+        + f"; decode_split takes {chosen[0]} ranks of {chosen[1]}")
+    return {"ms_by_ranks": times, "chosen": list(chosen)}
 
 
 def _library_int8(x, q, scale, out_dtype, deq):
@@ -1694,16 +1785,17 @@ def expected_launches(cfg, dpo, train: bool) -> dict:
     dpo_train_step (train=True), derived from the configuration.  Each
     scoring forward runs the CLIP tower (one flash forward per active
     layer) and, per decoder layer, the prefix and the response stream's
-    flash forwards and six to_heads passes (q, k, v of both streams); a
-    train step's backward recomputes each decoder layer once (remat), so
-    its forward kernels run twice, and adds per layer two dQ and two dK/dV
-    launches and six gather passes.  CoPO adds a second forward."""
+    flash forwards and two scatter launches (one for q, k and v of each
+    stream); a train step's backward recomputes each decoder layer once
+    (remat), so its forward kernels run twice, and adds per layer two dQ
+    and two dK/dV launches and six gather passes.  CoPO adds a second
+    forward."""
     n_layers, n_clip = cfg.llama.num_layers, cfg.vision.num_active_layers
-    per = {"flash_fwd": n_clip + 2 * n_layers, "scatter_heads": 6 * n_layers,
+    per = {"flash_fwd": n_clip + 2 * n_layers, "scatter_heads": 2 * n_layers,
            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "gather_heads": 0}
     if train:
         per["flash_fwd"] += 2 * n_layers
-        per["scatter_heads"] += 6 * n_layers
+        per["scatter_heads"] += 2 * n_layers
         per.update(flash_bwd_dq=2 * n_layers, flash_bwd_dkv=2 * n_layers,
                    gather_heads=6 * n_layers)
     forwards = 2 if dpo.CoPO else 1
@@ -1915,6 +2007,38 @@ def quant_kernel_entries(qk, q_serve, q_train):
     return out
 
 
+def heads_kernel_entries(heads, train):
+    """The kernels line's entries of #4 and #5: launches over the bf16
+    training run; #4's numbers are the q/k/v launch of the response stream,
+    as the path runs it, with one tensor's and the prefix's beside."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    out = []
+    for kname, line, cases, what in (
+            ("scatter_heads", "582", ("scatter_qkv", "scatter"),
+             "q and k with RoPE and v in one launch"),
+            ("gather_heads", "602", ("gather",), "inverse RoPE")):
+        r, p = heads["response"][cases[0]], heads["prefix"][cases[0]]
+        out.append({
+            "name": kname, "route": "cuda",
+            "source": "opadpo_torch/csrc/heads_layout.cu",
+            "replaces": f"opadpo_tpu/ops/attention.py:{line}",
+            "launches": train["launches"][kname],
+            "launches_per_train_step": train["launches_per_step"][kname],
+            "max_abs_err": max(x[c]["err"] for x in heads.values()
+                               for c in cases),
+            **{k: r[k] for k in keys}, "library_ms": None,
+            "at": f"[6,896,4096] bf16, 32 heads of 128 (response stream), "
+                  f"{what}; no one PyTorch call computes it",
+            "prefix": {k: p[k] for k in keys}})
+    out[0].update(
+        design="tma-tiles+tables-in-registers+tma-store",
+        three_single_ms={n: h["scatter_qkv"]["three_single_ms"]
+                         for n, h in heads.items()},
+        one_tensor={n: {k: h["scatter"][k] for k in keys}
+                    for n, h in heads.items()})
+    return out
+
+
 def slice4_kernel_entries(decode, rollout, spec):
     """The kernels line's entries of #7 and #8: launches over path A / B,
     numbers at the main-path shape, the other shapes beside."""
@@ -2044,22 +2168,7 @@ def main() -> int:
                        "bound_ms": p[key + "_bound_ms"],
                        "bound_by": p[key + "_bound_by"],
                        "share_of_bound": p[key + "_share_of_bound"]}})
-    for kname, key, line in (("scatter_heads", "scatter", "582"),
-                             ("gather_heads", "gather", "602")):
-        r, p = heads["response"][key], heads["prefix"][key]
-        kernels.append({
-            "name": kname, "route": "cuda",
-            "source": "opadpo_torch/csrc/heads_layout.cu",
-            "replaces": f"opadpo_tpu/ops/attention.py:{line}",
-            "launches": train["launches"][kname],
-            "launches_per_train_step": steps[kname],
-            "max_abs_err": max(r["err"], p["err"]),
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None,
-            "at": "[6,896,4096] bf16, 32 heads of 128, RoPE (response "
-                  "stream); no one PyTorch call computes it",
-            "prefix": pick(p, "ms", "plain_ms", "bound_ms", "bound_by")})
+    kernels += heads_kernel_entries(heads, train)
     kernels.append(
         {"name": "decode_attention_int8", "route": "cuda",
          "source": "opadpo_torch/csrc/decode_attention.cu",
@@ -2069,8 +2178,13 @@ def main() -> int:
          "ms": dc["ms"], "plain_ms": dc["plain_ms"],
          "bound_ms": dc["bound_ms"], "bound_by": dc["bound_by"],
          "library_ms": None,
-         "at": "[8,32,768,128] int8, s_used 768 (7B decode step, one layer)",
-         "s_used_640_ms": decode["int8"][1]["ms"]})
+         "at": "[8,32,768,128] int8, s_used 768 (7B decode step, one "
+               "layer); no one PyTorch call computes it",
+         "design": "cluster+bulk-async+dsmem-merge (#8's body at G 1)",
+         "ranks": dc["ranks"], "per": dc["per"], "smem": dc["smem"],
+         "split_ms_by_ranks": decode["int8_splits"]["ms_by_ranks"],
+         "s_used_640": pick(decode["int8"][1], "ms", "plain_ms", "bound_ms",
+                            "ranks", "per")})
     kernels += slice4_kernel_entries(decode, rollout, spec)
     kernels += quant_kernel_entries(qk, {"path-a": rollout, **q_serve},
                                     q_train)

@@ -1,18 +1,16 @@
 // Decode attention over the quantized head-major prompt KV cache, for
-// Hopper (sm_90a).  Three kernels:
+// Hopper (sm_90a).  One body, cluster_body<HD, G, PACKED>, in two kernels:
 //
+//   decode_attn_multi_kernel  G = 1..8 queries per (b, h) over the int8
+//                             cache in one pass.  At G 1 it is #6, which
+//                             replaces opadpo_tpu/ops/decode_attention.py
+//                             _kernel (decode_attention_prompt); at G 1..8
+//                             #8, which replaces _kernel_multi
+//                             (decode_attention_prompt_multi, speculative
+//                             verify);
 //   decode_attn_int4_kernel   (#7) one query per (b, h) over the packed
-//                             int4 cache; replaces
-//                             opadpo_tpu/ops/decode_attention.py _kernel4
-//                             (decode_attention_prompt4);
-//   decode_attn_multi_kernel  (#8) G = 1..8 queries per (b, h) over the
-//                             int8 cache in one pass (speculative verify);
-//                             replaces _kernel_multi
-//                             (decode_attention_prompt_multi);
-//   decode_attn_int8_kernel   (#6) one query per (b, h) over the int8
-//                             cache; replaces _kernel
-//                             (decode_attention_prompt).  It still runs the
-//                             first design ("#6's body" below).
+//                             int4 cache; replaces _kernel4
+//                             (decode_attention_prompt4).
 //
 // Each computes, per (b, h) and query, over the filled prefix [0, s_used):
 //   s = (q . K[s]) * (k_scale[s] * sm_scale) + bias[s],
@@ -38,7 +36,7 @@
 // behind, since every code is widened and multiplied there (the scores
 // stay exact, below): about 3.5 instructions a code at G 1, 12 at G 8.
 //
-// #7 and #8: a cluster of N CTAs of 128 threads per (b, h), grid B * H *
+// The body: a cluster of N CTAs of 128 threads per (b, h), grid B * H *
 // N, N <= 8, and the positions `per` each rank owns, both from
 // ops/decode_attention.py decode_split: rank r owns [r * per, min(s_used,
 // (r + 1) * per)), whole chunks of 128 cache rows (128 positions int8, a
@@ -78,11 +76,6 @@
 //    partials in rank order and writes out, m and l.  So two launches are
 //    bitwise equal, and only the f32 order of the value sums (and of l)
 //    differs from one pass over the prefix.
-//
-// #6's body: one CTA per (batch, head) walks the whole prefix itself, in
-// two passes (scores and their max into shared memory; then p and the
-// value sums), K and V rows as 16-byte vectors, hd/16 lanes per row, each
-// code converted by I2F.
 
 #include "hopper.cuh"
 
@@ -90,172 +83,10 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
 constexpr int MAX_G = 8;
 constexpr float kMask = -1e30f;
 
-// the 16 int8 codes of one loaded vector
-__device__ __forceinline__ void unpack16(const int4& raw, float* v) {
-  const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 16; ++i) v[i] = float(e[i]);
-}
-
-// row streams in a CTA: hd/16 lanes per row, 32 lanes per warp
-template <int HD>
-__host__ __device__ constexpr int groups() {
-  return NWARPS * (32 / (HD / 16));
-}
-
-template <int HD>
-__device__ __forceinline__ void body(
-    unsigned char* smem, const bf16* __restrict__ q,
-    const int8_t* __restrict__ kq, const float* __restrict__ kscale,
-    const int8_t* __restrict__ vq, const float* __restrict__ vscale,
-    const float* __restrict__ bias, float* __restrict__ out,
-    float* __restrict__ m_out, float* __restrict__ l_out, int H, int Sp,
-    int s_used, float sm_scale) {
-  constexpr int LPR = HD / 16;          // lanes per row, 16 bytes each
-  constexpr int RPW = 32 / LPR;         // rows per warp per load
-  constexpr int GROUPS = groups<HD>();
-  constexpr int UNROLL = 4;
-  constexpr int STEP = GROUPS * UNROLL;
-
-  float* part_acc = reinterpret_cast<float*>(smem);   // [GROUPS][HD]
-  float* red = part_acc + GROUPS * HD;                // [NWARPS]
-  float* scores = red + NWARPS;                       // [s_used]
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int part = lane % LPR;
-  const int grp = warp * RPW + lane / LPR;
-
-  float qf[16];
-  const bf16* qrow = q + int64_t(bh) * HD + part * 16;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) qf[i] = __bfloat162float(qrow[i]);
-  const int64_t kv_off = int64_t(bh) * Sp * HD + part * 16;
-  const int8_t* kb = kq + kv_off;
-  const int8_t* vb = vq + kv_off;
-  const float* ks = kscale + int64_t(bh) * Sp;
-  const float* vs = vscale + int64_t(bh) * Sp;
-  const float* bi = bias + int64_t(b) * Sp;
-
-  // pass 1: scores and their max
-  float mx = kMask;
-  for (int base = 0; base < s_used; base += STEP) {
-    int4 kr[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int r = base + u * GROUPS + grp;
-      kr[u] = r < s_used
-                  ? *reinterpret_cast<const int4*>(kb + int64_t(r) * HD)
-                  : make_int4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int r = base + u * GROUPS + grp;
-      float kv[16];
-      unpack16(kr[u], kv);
-      float d = 0.f;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) d += qf[i] * kv[i];
-#pragma unroll
-      for (int off = LPR / 2; off > 0; off >>= 1)
-        d += __shfl_xor_sync(0xffffffffu, d, off);
-      if (r < s_used) {
-        const float ksc = ks[r] * sm_scale;
-        const float s = d * ksc + bi[r];
-        mx = fmaxf(mx, s);
-        if (part == 0) scores[r] = s;
-      }
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  if (lane == 0) red[warp] = mx;
-  __syncthreads();                     // also: every score is written
-  float m = red[0];
-#pragma unroll
-  for (int w = 1; w < NWARPS; ++w) m = fmaxf(m, red[w]);
-
-  // pass 2: probabilities into the value sums
-  float acc[16];
-  float l = 0.f;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
-  for (int base = 0; base < s_used; base += STEP) {
-    int4 vr[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int r = base + u * GROUPS + grp;
-      vr[u] = r < s_used
-                  ? *reinterpret_cast<const int4*>(vb + int64_t(r) * HD)
-                  : make_int4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int r = base + u * GROUPS + grp;
-      if (r < s_used) {
-        const float vsc = vs[r];
-        float vv[16];
-        unpack16(vr[u], vv);
-        const float p = expf(scores[r] - m);
-        l += p;
-        const float pw = __bfloat162float(__float2bfloat16(p * vsc));
-#pragma unroll
-        for (int i = 0; i < 16; ++i) acc[i] += pw * vv[i];
-      }
-    }
-  }
-
-  // combine the row streams; every lane of a row group holds the same l,
-  // so count it once per group
-  float lw = part == 0 ? l : 0.f;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    lw += __shfl_xor_sync(0xffffffffu, lw, off);
-  __syncthreads();                     // red[] reads are done
-#pragma unroll
-  for (int i = 0; i < 16; ++i) part_acc[grp * HD + part * 16 + i] = acc[i];
-  if (lane == 0) red[warp] = lw;
-  __syncthreads();
-  for (int c = tid; c < HD; c += NTHREADS) {
-    float s = 0.f;
-    for (int gg = 0; gg < GROUPS; ++gg) s += part_acc[gg * HD + c];
-    out[int64_t(bh) * HD + c] = s;
-  }
-  if (tid == 0) {
-    float lt = 0.f;
-    for (int w = 0; w < NWARPS; ++w) lt += red[w];
-    m_out[bh] = m;
-    l_out[bh] = lt;
-  }
-}
-
-#define DECODE_ATTN_PARAMS                                                 \
-  const bf16 *__restrict__ q, const int8_t *__restrict__ kq,               \
-      const float *__restrict__ kscale, const int8_t *__restrict__ vq,     \
-      const float *__restrict__ vscale, const float *__restrict__ bias,    \
-      float *__restrict__ out, float *__restrict__ m_out,                  \
-      float *__restrict__ l_out, int H, int Sp, int s_used, float sm_scale
-#define DECODE_ATTN_ARGS                                                   \
-  q, kq, kscale, vq, vscale, bias, out, m_out, l_out, H, Sp, s_used, sm_scale
-
-template <int HD>
-__global__ void __launch_bounds__(NTHREADS)
-decode_attn_int8_kernel(DECODE_ATTN_PARAMS) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  body<HD>(smem, DECODE_ATTN_ARGS);
-}
-
-
-// ---- #7 and #8: a cluster of CTAs per (b, h) ----
+// ---- the cluster body: a cluster of CTAs per (b, h) ----
 
 #define CLUSTER_PARAMS                                                     \
   const bf16 *__restrict__ q, const int8_t *__restrict__ kq,               \
@@ -734,26 +565,6 @@ decode_attn_multi_kernel(CLUSTER_PARAMS) {
 
 // ---- launchers ----
 
-template <int HD>
-int launch_int8(const bf16* q, const int8_t* kq, const float* ks,
-                const int8_t* vq, const float* vs, const float* bias,
-                float* out, float* m, float* l, int B, int H, int Sp,
-                int s_used, float sm_scale, cudaStream_t stream) {
-  static int configured = 0;
-  const size_t smem = (size_t(groups<HD>()) * HD + NWARPS) * 4 +
-                      size_t(s_used) * 4;
-  if (smem > size_t(configured)) {
-    cudaError_t e = cudaFuncSetAttribute(
-        decode_attn_int8_kernel<HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (e != cudaSuccess) return int(e);
-    configured = int(smem);
-  }
-  decode_attn_int8_kernel<HD><<<B * H, NTHREADS, smem, stream>>>(
-      q, kq, ks, vq, vs, bias, out, m, l, H, Sp, s_used, sm_scale);
-  return int(cudaGetLastError());
-}
-
 template <int HD, int G, bool PACKED>
 int launch_cluster(const bf16* q, const int8_t* kq, const float* ks,
                    const int8_t* vq, const float* vs, const float* bias,
@@ -797,18 +608,12 @@ int launch_hd(int kind, int G, const bf16* q, const int8_t* kq,
               const float* bias, float* out, float* m, float* l, int B,
               int H, int Sp, int s_used, int nranks, int per,
               float sm_scale, cudaStream_t stream) {
-  if (kind == 0)
-    return G == 1 ? launch_int8<HD>(q, kq, ks, vq, vs, bias, out, m, l, B,
-                                    H, Sp, s_used, sm_scale, stream)
-                  : int(cudaErrorInvalidValue);
 #define DECODE_ATTN_LAUNCH(GG, PK)                                         \
   return launch_cluster<HD, GG, PK>(q, kq, ks, vq, vs, bias, out, m, l, B, \
                                     H, Sp, s_used, nranks, per,            \
                                     sm_scale, stream)
-  if (kind == 1) {
-    if (G == 1) DECODE_ATTN_LAUNCH(1, true);
-    return int(cudaErrorInvalidValue);
-  }
+  if (kind != 2 && G != 1) return int(cudaErrorInvalidValue);
+  if (kind == 1) DECODE_ATTN_LAUNCH(1, true);
   switch (G) {
     case 1: DECODE_ATTN_LAUNCH(1, false);
     case 2: DECODE_ATTN_LAUNCH(2, false);
@@ -828,11 +633,13 @@ int launch_hd(int kind, int G, const bf16* q, const int8_t* kq,
 // q: bf16 [B, H, G, hd]; kq, vq: int8 [B, H, Sp, hd], or for #7 int4
 // pairs [B, H, Sp/2, hd]; ks, vs: f32 [B, H, Sp]; bias: f32 [B, Sp]; out:
 // f32 [B, H, G, hd]; m, l: f32 [B, H, G]; all contiguous, 16-byte
-// aligned.  Sp is the unpacked cache length.  kind 0 is #6 (G 1), 1 is #7
-// (G 1, s_used a multiple of 256), 2 is #8 (G 1..8); hd is 64 or 128.
-// #7 and #8 take the cluster split from ops/decode_attention.py
-// decode_split: `nranks` CTAs of `per` positions (the last may hold
-// fewer); their Sp is a multiple of 4 (16-byte rows of scales and bias).  Returns the cudaError_t of the launch.
+// aligned.  Sp is the unpacked cache length, a multiple of 4 (16-byte rows
+// of scales and bias).  kind 0 is #6 (G 1), 1 is #7 (G 1, s_used a
+// multiple of 256), 2 is #8 (G 1..8); 0 and 2 run the same kernel, and
+// s_used is a multiple of 128 for them; hd is 64 or 128.  The cluster
+// split comes from ops/decode_attention.py decode_split: `nranks` CTAs of
+// `per` positions (the last may hold fewer).  Returns the cudaError_t of
+// the launch.
 extern "C" int opadpo_decode_attn(const void* q, const void* kq,
                                   const void* ks, const void* vq,
                                   const void* vs, const void* bias, void* out,
@@ -842,15 +649,11 @@ extern "C" int opadpo_decode_attn(const void* q, const void* kq,
                                   float sm_scale, void* stream) {
   if (G < 1 || G > MAX_G || kind < 0 || kind > 2 || s_used > Sp)
     return int(cudaErrorInvalidValue);
-  if (kind != 0) {
-    const int unit = kind == 1 ? 2 * CROWS : CROWS;
-    if (nranks < 1 || nranks > MAX_RANKS || per < unit || per % unit ||
-        Sp % 4 ||
-        (nranks - 1) * per >= s_used || nranks * per < s_used ||
-        s_used % unit ||
-        clayout(hd, G, per, nranks).bytes > 232448)
-      return int(cudaErrorInvalidValue);
-  }
+  const int unit = kind == 1 ? 2 * CROWS : CROWS;
+  if (nranks < 1 || nranks > MAX_RANKS || per < unit || per % unit ||
+      Sp % 4 || (nranks - 1) * per >= s_used || nranks * per < s_used ||
+      s_used % unit || clayout(hd, G, per, nranks).bytes > 232448)
+    return int(cudaErrorInvalidValue);
   const bf16* qq = static_cast<const bf16*>(q);
   const int8_t* k8 = static_cast<const int8_t*>(kq);
   const int8_t* v8 = static_cast<const int8_t*>(vq);
@@ -870,7 +673,7 @@ extern "C" int opadpo_decode_attn(const void* q, const void* kq,
   return int(cudaErrorInvalidValue);
 }
 
-// dynamic shared memory of a #7 / #8 launch
+// dynamic shared memory of a decode launch
 extern "C" int opadpo_decode_attn_smem_bytes(int hd, int G, int per,
                                              int nranks) {
   return clayout(hd, G, per, nranks).bytes;

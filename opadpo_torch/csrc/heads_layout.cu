@@ -7,7 +7,10 @@
 // head h / rep (the GQA repeat, never materialised), each head rotated by
 // the rotate-half RoPE at its row's position:
 //   out[:hd/2] = x1 cos - x2 sin,  out[hd/2:] = x2 cos + x1 sin,
-// with cos/sin = table[position][:hd/2] (f32 tables [max_len, hd]).
+// with cos/sin = table[position][:hd/2] (f32 tables [max_len, hd]).  One
+// launch takes up to three such tensors (q, k and v of a stream), each
+// with its own strides, RoPE flag and rep, sharing B, S, hd and the
+// positions.
 //
 // gather_heads replaces _gather_heads_kernel (the _to_heads VJP): a
 // gradient g, logically [B, H, S, hd] with any strides and unit stride on
@@ -22,16 +25,37 @@
 // its VJP need no pass at all, and the flash kernels read the prologue's
 // [B, H, S, hd] output through a permuted view, unpadded.
 //
-// What bounds it: each is one read of the input and one write of the
-// output with ~6 flops per element, so both are bytes-bound.  One CTA
-// handles 64 rows of one (b, head); a thread moves 8 lanes of each half of
-// a head row with 16-byte loads and stores, so a warp reads and writes
-// whole 256-byte head rows (hd = 128), and the cos/sin rows come from the
-// tables, which stay in L2.
+// What bounds them: each is one read of the input and one write of the
+// output with ~6 flops per element, and the positions and one cos and sin
+// half-row per row, so both are bytes-bound.
+//
+// The scatter kernel, for the card:
+//  - Work.  A tile is 64 rows of one source head of one tensor, [64, hd].
+//    A CTA of 256 threads owns 64 rows of one batch and a contiguous run
+//    of the launch's tiles (q's heads, then k's, then v's, split evenly
+//    into `groups` runs); ops/heads_layout.py scatter_grid picks the groups
+//    so that every CTA of the launch is resident at once (one wave).
+//  - Tables once per row.  A thread owns the same 8 columns of each half
+//    of the same rows in every tile, so it loads its rows' positions and
+//    cos / sin values into registers once, while the first tiles are in
+//    flight, and every head of q and k reuses them.
+//  - Loads.  One thread keeps 4 tiles in flight, TMA copies through a 3-D
+//    map over each x (hd columns x S rows x B, its own strides; rows past
+//    S read as zeros), each completing on its stage's mbarrier.
+//  - Rotation in place in shared memory, 16-byte reads and writes (a
+//    quarter warp touches one row's 128 contiguous bytes); v's tiles are
+//    not touched.  Then one thread stores the tile to each of its rep
+//    output heads by TMA through a 3-D map over out (hd x S x B*H), which
+//    clips at S, so the tail block writes nothing into the next head's
+//    rows.  A stage is refilled once the store of the tile before it has
+//    read it, so loads, rotation and stores overlap.
+//
+// The gather kernel: one CTA handles 64 rows of one (b, kv head); a
+// thread moves 8 lanes of each half of a head row with 16-byte loads and
+// stores, so a warp reads and writes whole 256-byte head rows (hd = 128),
+// and the cos/sin rows come from the tables, which stay in L2.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -86,35 +110,134 @@ __device__ __forceinline__ void rotate(Vec8& x1, Vec8& x2, const Vec8& c,
   }
 }
 
-// grid (ceil(S / 64), H, B); x rows have stride x_ss, batches x_sb
-__global__ void __launch_bounds__(NTHREADS)
-scatter_heads_kernel(const bf16* __restrict__ x, const float* __restrict__ cos,
-                     const float* __restrict__ sin,
-                     const int* __restrict__ pos, bf16* __restrict__ out,
-                     int S, int H, int hd, int rep, int64_t x_sb,
-                     int64_t x_ss) {
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int half = hd / 2;
-  const int tpr = half / 8;              // threads per head row
-  const int rpp = NTHREADS / tpr;        // rows per pass
-  const int lane8 = (threadIdx.x % tpr) * 8;
-  const bf16* xb = x + b * x_sb + (h / rep) * hd;
-  bf16* ob = out + (int64_t(b) * H + h) * S * hd;
-  for (int r = threadIdx.x / tpr; r < ROWS; r += rpp) {
-    const int s = blockIdx.x * ROWS + r;
-    if (s >= S) break;
-    const bf16* src = xb + s * x_ss + lane8;
-    Vec8 x1 = load8(src);
-    Vec8 x2 = load8(src + half);
-    if (cos != nullptr) {
-      const int64_t t = int64_t(pos[int64_t(b) * S + s]) * hd + lane8;
-      rotate(x1, x2, load8f(cos + t), load8f(sin + t), false);
-    }
-    bf16* dst = ob + int64_t(s) * hd + lane8;
-    store8(dst, x1);
-    store8(dst + half, x2);
+// ---- the scatter kernel ----
+
+constexpr int SROWS = 64;        // rows of a tile
+constexpr int STHREADS = 256;
+constexpr int SSTAGES = 4;       // tiles in flight a CTA
+constexpr int MAX_TENSORS = 3;
+
+struct ScatterTensor {
+  CUtensorMap in;    // x: (Hkv * hd, S, B), box (hd, SROWS, 1)
+  CUtensorMap out;   // out: (hd, S, B * H), box (hd, SROWS, 1)
+  int rope, rep, nsrc;   // RoPE flag, GQA repeat, source heads (Hkv)
+};
+
+struct ScatterParams {
+  ScatterTensor t[MAX_TENSORS];
+  const float* cos;  // NULL when no tensor takes RoPE
+  const float* sin;
+  const int* pos;
+  int tiles, S, groups;
+};
+
+template <int HD>
+__host__ __device__ constexpr int scatter_smem() {
+  return SSTAGES * SROWS * HD * 2 + 8 * SSTAGES + 1024;  // + alignment
+}
+
+// grid (ceil(S / 64), B, groups)
+template <int HD>
+__global__ void __launch_bounds__(STHREADS, 3)
+scatter_heads_kernel(const __grid_constant__ ScatterParams p) {
+  constexpr int TPR = HD / 16;              // threads a row
+  constexpr int RPP = STHREADS / TPR;       // rows a pass
+  constexpr int PASSES = SROWS / RPP;
+  constexpr int TILE = SROWS * HD * 2;      // bytes
+  extern __shared__ unsigned char raw_smem[];
+  unsigned char* smem =
+      raw_smem + ((1024 - (hopper::smem_u32(raw_smem) & 1023)) & 1023);
+  const uint32_t base = hopper::smem_u32(smem);
+  const uint32_t bar = base + SSTAGES * TILE;
+  const int tid = threadIdx.x;
+  const int s0 = blockIdx.x * SROWS;
+  const int b = blockIdx.y;
+  const int lo = blockIdx.z * p.tiles / p.groups;
+  const int count = (blockIdx.z + 1) * p.tiles / p.groups - lo;
+
+  // tile lo + i of the launch -> its tensor and source head
+  auto locate = [&](int i, int& j) -> const ScatterTensor& {
+    j = lo + i;
+    int t = 0;
+    while (j >= p.t[t].nsrc) j -= p.t[t++].nsrc;
+    return p.t[t];
+  };
+  auto issue = [&](int i) {                // thread 0: load tile i
+    int j;
+    const ScatterTensor& T = locate(i, j);
+    const uint32_t full = bar + 8 * (i % SSTAGES);
+    hopper::mbar_expect_tx(full, TILE);
+    hopper::tma_load_3d(base + (i % SSTAGES) * TILE, &T.in, full, j * HD, s0,
+                        b);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < SSTAGES; ++s) hopper::mbar_init(bar + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+  if (tid == 0)
+    for (int i = 0; i < min(SSTAGES, count); ++i) issue(i);
+
+  // this thread's rows and columns, and their tables
+  const int c8 = (tid % TPR) * 8;
+  const int row0 = tid / TPR;
+  Vec8 cs[PASSES], sn[PASSES];
+#pragma unroll
+  for (int ps = 0; ps < PASSES; ++ps) {
+    const int s = s0 + row0 + ps * RPP;
+    if (p.cos != nullptr && s < p.S) {
+      const int64_t at = int64_t(p.pos[int64_t(b) * p.S + s]) * HD + c8;
+      cs[ps] = load8f(p.cos + at);
+      sn[ps] = load8f(p.sin + at);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) cs[ps].v[e] = 1.f, sn[ps].v[e] = 0.f;
+    }
+  }
+
+  for (int i = 0; i < count; ++i) {
+    int j;
+    const ScatterTensor& T = locate(i, j);
+    const int st = i % SSTAGES;
+    hopper::mbar_wait(bar + 8 * st, (i / SSTAGES) & 1);
+    if (T.rope) {
+#pragma unroll
+      for (int ps = 0; ps < PASSES; ++ps) {
+        bf16* r = reinterpret_cast<bf16*>(smem + st * TILE) +
+                  (row0 + ps * RPP) * HD + c8;
+        Vec8 x1 = load8(r), x2 = load8(r + HD / 2);
+        rotate(x1, x2, cs[ps], sn[ps], false);
+        store8(r, x1);
+        store8(r + HD / 2, x2);
+      }
+      hopper::fence_proxy_async();
+    }
+    __syncthreads();
+    if (tid == 0) {
+      const int h0 = b * T.nsrc * T.rep + j * T.rep;
+      for (int r = 0; r < T.rep; ++r)
+        hopper::tma_store_3d(&T.out, base + st * TILE, 0, s0, h0 + r);
+      hopper::bulk_commit();
+      // refill the previous tile's stage once its store has read it
+      if (i >= 1 && i - 1 + SSTAGES < count) {
+        hopper::bulk_wait_read<1>();
+        issue(i - 1 + SSTAGES);
+      }
+    }
+  }
+  if (tid == 0) hopper::bulk_wait_read<0>();   // no store reads past exit
+}
+
+template <int HD>
+int scatter_launch(const ScatterParams& p, dim3 grid, cudaStream_t stream) {
+  static bool configured = false;
+  const int e = hopper::allow_smem(scatter_heads_kernel<HD>,
+                                   scatter_smem<HD>(), configured);
+  if (e != 0) return e;
+  scatter_heads_kernel<HD><<<grid, STHREADS, scatter_smem<HD>(), stream>>>(
+      p);
+  return int(cudaGetLastError());
 }
 
 // grid (ceil(S / 64), Hkv, B); g is [B, H, S, hd] with strides (g_sb,
@@ -163,25 +286,76 @@ gather_heads_kernel(const bf16* __restrict__ g, const float* __restrict__ cos,
 
 }  // namespace
 
-// x: bf16 [B, S, Hkv*hd] with batch and row strides x_sb, x_ss (unit inner
-// stride); cos, sin: f32 [max_len, hd] tables or both NULL (no RoPE); pos:
-// int32 [B, S] contiguous (ignored without RoPE); out: bf16 [B, H, S, hd]
-// contiguous, H = rep * Hkv.  hd is 16, 32, 64, 128 or 256.  Returns the
-// cudaError_t of the launch.
-extern "C" int opadpo_scatter_heads_bf16(const void* x, const void* cos,
-                                         const void* sin, const void* pos,
-                                         void* out, int B, int S, int H,
-                                         int hd, int rep, int64_t x_sb,
-                                         int64_t x_ss, void* stream) {
-  if (hd <= 0 || hd % 16 != 0 || NTHREADS % (hd / 16) != 0 || S <= 0)
+// n (1..3) tensors: x[t] bf16 [B, S, nsrc[t]*hd] with batch and row
+// strides x_strides[2t], x_strides[2t + 1] (elements, multiples of 8; unit
+// inner stride; 16-byte aligned) -> out[t] bf16 [B, rep[t]*nsrc[t], S, hd]
+// contiguous, rotated where rope[t]; cos, sin: f32 [max_len, hd] tables and
+// pos: int32 [B, S] contiguous, or all NULL when no tensor takes RoPE.  hd
+// is 64 or 128; `groups` (1 .. the tiles, sum of nsrc) from
+// ops/heads_layout.py scatter_grid.  Returns the cudaError_t of the launch,
+// -1 if the driver has no cuTensorMapEncodeTiled, or 100000 + its CUresult.
+extern "C" int opadpo_scatter_heads_bf16(int n, const void* const* x,
+                                         const int64_t* x_strides,
+                                         void* const* out, const int* rope,
+                                         const int* rep, const int* nsrc,
+                                         const void* cos, const void* sin,
+                                         const void* pos, int B, int S,
+                                         int hd, int groups, void* stream) {
+  if (n < 1 || n > MAX_TENSORS || (hd != 64 && hd != 128) || S <= 0 ||
+      B <= 0 || groups < 1)
     return int(cudaErrorInvalidValue);
-  dim3 grid((S + ROWS - 1) / ROWS, H, B);
-  scatter_heads_kernel<<<grid, NTHREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(cos),
-      static_cast<const float*>(sin), static_cast<const int*>(pos),
-      static_cast<bf16*>(out), S, H, hd, rep, x_sb, x_ss);
-  return int(cudaGetLastError());
+  ScatterParams p = {};
+  for (int t = 0; t < n; ++t) {
+    if (nsrc[t] < 1 || rep[t] < 1 || (rope[t] && cos == nullptr))
+      return int(cudaErrorInvalidValue);
+    const int64_t heads = int64_t(B) * nsrc[t] * rep[t];
+    int e = hopper::make_map_3d_bf16(&p.t[t].in, x[t], int64_t(nsrc[t]) * hd,
+                                     S, B, x_strides[2 * t + 1] * 2,
+                                     x_strides[2 * t] * 2, hd, SROWS);
+    if (e == 0)
+      e = hopper::make_map_3d_bf16(&p.t[t].out, out[t], hd, S, heads,
+                                   int64_t(hd) * 2, int64_t(S) * hd * 2, hd,
+                                   SROWS);
+    if (e != 0) return e;
+    p.t[t].rope = rope[t];
+    p.t[t].rep = rep[t];
+    p.t[t].nsrc = nsrc[t];
+    p.tiles += nsrc[t];
+  }
+  if (groups > p.tiles) return int(cudaErrorInvalidValue);
+  p.cos = static_cast<const float*>(cos);
+  p.sin = static_cast<const float*>(sin);
+  p.pos = static_cast<const int*>(pos);
+  p.S = S;
+  p.groups = groups;
+  const dim3 grid((S + SROWS - 1) / SROWS, B, groups);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return hd == 128 ? scatter_launch<128>(p, grid, st)
+                   : scatter_launch<64>(p, grid, st);
+}
+
+// CTAs of the scatter kernel an SM holds at once, or -(cudaError_t)
+extern "C" int opadpo_scatter_heads_ctas_per_sm(int hd) {
+  int n = 0;
+  cudaError_t e;
+  if (hd == 128) {
+    static bool configured = false;
+    if (hopper::allow_smem(scatter_heads_kernel<128>, scatter_smem<128>(),
+                           configured))
+      return -1;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, scatter_heads_kernel<128>, STHREADS, scatter_smem<128>());
+  } else if (hd == 64) {
+    static bool configured = false;
+    if (hopper::allow_smem(scatter_heads_kernel<64>, scatter_smem<64>(),
+                           configured))
+      return -1;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, scatter_heads_kernel<64>, STHREADS, scatter_smem<64>());
+  } else {
+    return -int(cudaErrorInvalidValue);
+  }
+  return e == cudaSuccess ? n : -int(e);
 }
 
 // g: bf16 [B, H, S, hd] with strides g_sb, g_sh, g_ss (unit stride on hd);

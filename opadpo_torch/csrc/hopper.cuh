@@ -1,12 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the flash kernels
 // (flash_fwd.cu, flash_bwd.cu), the quant matmuls (int8_matmul.cu,
-// int4_matmul.cu) and the cluster decode kernels (decode_attention.cu):
-// mbarriers, 1-D bulk copies, cluster barriers and distributed
-// shared-memory stores, TMA tensor loads, 128-byte swizzled wgmma
-// descriptors and the wgmma forms they use, the accumulator-fragment
-// helpers, the matmuls' stage ring and output store, and the
-// host-side encoding of the 4-D tensor maps over strided [B, S, H, D] bf16
-// views and of the 2-D maps over contiguous bf16 / int8 matrices.
+// int4_matmul.cu), the cluster decode kernels (decode_attention.cu) and the
+// head split (heads_layout.cu): mbarriers, 1-D bulk copies, cluster
+// barriers and distributed shared-memory stores, TMA tensor loads and
+// stores, 128-byte swizzled wgmma descriptors and the wgmma forms they
+// use, the accumulator-fragment helpers, the matmuls' stage ring and
+// output store, and the host-side encoding of the 4-D tensor maps over
+// strided [B, S, H, D] bf16 views, of the 3-D maps over strided bf16
+// tensors and of the 2-D maps over contiguous bf16 / int8 matrices.
 //
 // Fragment layout (wgmma m64nN, f32 accumulators): thread t of a
 // warpgroup holds rows (t/32)*16 + (t%32)/4 (+8) and, for each 8-column
@@ -94,6 +95,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1) {
   asm volatile(
@@ -110,6 +122,41 @@ __device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map
       "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
       : "memory");
+}
+
+// bulk tensor store of the box at shared address `src` through a 3-D map,
+// in this thread's current bulk async-group; elements of the box outside
+// the tensor are not written.  The writer threads fence their shared
+// stores to the async proxy (fence_proxy_async) and sync before one
+// thread issues it, and that thread waits for the read (bulk_wait_read)
+// before the box is overwritten or the CTA exits.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// close this thread's current bulk async-group (the stores issued since)
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read shared
+// memory (their sources may then be overwritten or freed)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// fetch a tensor map's descriptor ahead of its first TMA copy
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
 }
 
 // 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
@@ -513,6 +560,28 @@ inline int make_map(CUtensorMap* map, const void* base, int S, int H, int B,
                         const_cast<void*>(base), dims, strides, box, estr,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncodeBase + int(r);
+}
+
+// 3-D map over bf16 elements: dims (d0, d1, d2), unit stride on d0 and
+// byte strides s1, s2 (multiples of 16) on d1 and d2, a box of b0 x b1 x 1,
+// no swizzle; a load reads elements outside the dims as zeros, a store
+// skips them
+inline int make_map_3d_bf16(CUtensorMap* map, const void* base, int64_t d0,
+                            int64_t d1, int64_t d2, int64_t s1, int64_t s2,
+                            int b0, int b1) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kErrNoEncode;
+  const cuuint64_t dims[3] = {cuuint64_t(d0), cuuint64_t(d1), cuuint64_t(d2)};
+  const cuuint64_t strides[2] = {cuuint64_t(s1), cuuint64_t(s2)};
+  const cuuint32_t box[3] = {cuuint32_t(b0), cuuint32_t(b1), 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(base), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncodeBase + int(r);

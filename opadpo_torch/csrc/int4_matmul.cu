@@ -176,13 +176,6 @@ static_assert(TileL<64>::A % 2048 == 0 && TileL<128>::A % 2048 == 0 &&
                   DecodeL::A % 2048 == 0,
               "x's two slabs keep the 1024-byte swizzle period");
 
-// fetch a tensor map's descriptor ahead of its first TMA copy
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                   reinterpret_cast<uint64_t>(map))
-               : "memory");
-}
-
 // the producer's walk: groups g0 .. g0 + n - 1 into the stage ring; group
 // g loads x's two slabs at (g * 128 (+ 64), m0) and the packed weight box
 // at (g * 64 bytes, n0)

@@ -9,9 +9,10 @@ call, never at import time, and compiles every source at once, one
 by a hash of the sources and flags, so an edited kernel rebuilds and an
 unchanged one loads at once.
 
-The flash sources, ``int8_matmul.cu`` and ``int4_matmul.cu`` share
-``csrc/hopper.cuh`` (mbarrier, TMA and wgmma helpers, the quant matmuls'
-stage ring), which the hash covers too.  They encode
+The flash sources, ``int8_matmul.cu``, ``int4_matmul.cu``,
+``decode_attention.cu`` and ``heads_layout.cu`` share ``csrc/hopper.cuh``
+(mbarrier, bulk-copy, TMA and wgmma helpers, the quant matmuls' stage
+ring), which the hash covers too.  All but ``decode_attention.cu`` encode
 TMA tensor maps with the driver's ``cuTensorMapEncodeTiled``, taken from
 ``libcuda.so.1`` by ``dlopen``/``dlsym`` at the first call, so the
 libraries link ``-ldl`` (after the source, so the linker keeps it), not

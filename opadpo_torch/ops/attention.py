@@ -15,7 +15,8 @@ shared-prefix response stream, whose keys are ``[prefix ++ response]``).
   dtype the kernels do not take raises.
 - ``flash_attention_fused`` and ``flash_attention_fused_shared`` run
   attention straight from the projection outputs ``[B, S, H*hd]``, with the
-  head split and RoPE in the ``heads_layout`` kernels.
+  head split and RoPE of each stream's q, k and v in one ``heads_layout``
+  launch, and their VJP in the gather kernel.
 
 A fully masked query row comes out uniform over all keys in both versions
 (masked scores are the finite -1e30, as in JAX); its log-sum-exp is -1e30
@@ -34,7 +35,7 @@ import torch
 
 from opadpo_torch.device import on_cuda
 from opadpo_torch.ops import _build
-from opadpo_torch.ops.heads_layout import to_heads
+from opadpo_torch.ops.heads_layout import to_heads_qkv
 
 NEG_INF = -1e30
 
@@ -464,13 +465,12 @@ def flash_attention_fused(q2, k2, v2, cos_table, sin_table, positions,
                           scale=None, num_kv_heads: Optional[int] = None):
     """Self-attention straight from projection outputs ``[B, S, H*hd]``
     (k2, v2 ``[B, S, Hkv*hd]``): RoPE and the head split (with the GQA
-    repeat) in one ``to_heads`` pass per tensor, then flash attention.
-    Returns ``[B, S, H*hd]`` in q2's dtype."""
+    repeat) of q, k and v in one ``to_heads_qkv`` pass, then flash
+    attention.  Returns ``[B, S, H*hd]`` in q2's dtype."""
     b, s, d = q2.shape
     rep = num_heads // (num_kv_heads or num_heads)
-    q_t = to_heads(q2, cos_table, sin_table, positions, num_heads, True)
-    k_t = to_heads(k2, cos_table, sin_table, positions, num_heads, True, rep)
-    v_t = to_heads(v2, cos_table, sin_table, positions, num_heads, False, rep)
+    q_t, k_t, v_t = to_heads_qkv(q2, k2, v2, cos_table, sin_table, positions,
+                                 num_heads, rep)
     o = flash_attention(_kernel_view(q_t), _kernel_view(k_t),
                         _kernel_view(v_t), key_mask, causal, scale)
     return o.reshape(b, s, d)
@@ -491,13 +491,10 @@ def flash_attention_fused_shared(qp2, kp2, vp2, qr2, kr2, vr2, cos_table,
     kk = kb // b
     rep = num_heads // (num_kv_heads or num_heads)
 
-    def heads(x, pos, rope, r):
-        return to_heads(x, cos_table, sin_table, pos, num_heads, rope, r)
-
-    qp_t, kp_t, vp_t = (heads(qp2, pos_p, True, 1), heads(kp2, pos_p, True, rep),
-                        heads(vp2, pos_p, False, rep))
-    qr_t, kr_t, vr_t = (heads(qr2, pos_r, True, 1), heads(kr2, pos_r, True, rep),
-                        heads(vr2, pos_r, False, rep))
+    qp_t, kp_t, vp_t = to_heads_qkv(qp2, kp2, vp2, cos_table, sin_table,
+                                    pos_p, num_heads, rep)
+    qr_t, kr_t, vr_t = to_heads_qkv(qr2, kr2, vr2, cos_table, sin_table,
+                                    pos_r, num_heads, rep)
     op = flash_attention(_kernel_view(qp_t), _kernel_view(kp_t),
                          _kernel_view(vp_t), mask_p, True, scale)
     # responses attend to [prefix ++ self]: the per-row repeat keeps the

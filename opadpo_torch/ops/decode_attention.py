@@ -20,11 +20,11 @@ padding).  Each returns the UNNORMALISED output and the softmax state
 On a CUDA tensor each launches its kernel in ``csrc/decode_attention.cu``
 (replacing the Pallas ``_kernel``, ``_kernel4`` and ``_kernel_multi``) and
 never falls back; on a CPU tensor it runs its ``*_plain`` version.  The
-kernels of ``decode_attention_prompt4`` (#7) and
-``decode_attention_prompt_multi`` (#8) split each (b, h)'s prefix over a
-cluster of up to 8 CTAs, as ``decode_split`` fixes, and merge the softmax
-at the global max in distributed shared memory; ``decode_attention_prompt``
-(#6) runs one CTA per (b, h).
+three share one kernel body: each (b, h)'s prefix is split over a cluster
+of up to 8 CTAs, as ``decode_split`` fixes, and the softmax is merged at
+the global max in distributed shared memory.  ``decode_attention_prompt``
+(#6) is the int8 kernel of ``decode_attention_prompt_multi`` (#8) at one
+query; it keeps its own launch counter.
 
 All follow the TPU kernels' numerics: the query is rounded to bf16, the K
 scale is folded into the score and the V scale into the probability, and
@@ -33,7 +33,7 @@ scale is folded into the score and the V scale into the probability, and
 do whenever ``s_used`` fits one of their sequence blocks (<= 1024 for the
 int8 kernels, 128 for ``_kernel4``); elsewhere m is the same and (out / l,
 m + log l) differ by where ``p * v_scale`` was rounded.  The scores equal
-the plain versions' bit for bit; #7 and #8 sum the value products in
+the plain versions' bit for bit; the kernels sum the value products in
 another f32 order (within each rank, then the ranks in order), the same
 in every launch.
 """
@@ -54,10 +54,14 @@ ALIGN4 = 256           # int4 cache: the packed group
 MAX_G = 8              # queries per (b, h) the multi-query kernel takes
 MAX_RANKS = 8          # CTAs of a (b, h)'s cluster: the portable maximum
 MAX_SLICE = 2048       # positions a rank holds (scores, scales, bias in its
-                       # shared memory); so s_used <= 8 * 2048 for #7 / #8
+                       # shared memory); so s_used <= 8 * 2048
 TARGET_CTAS = 600      # CTAs a launch keeps within, so that all are
                        # resident at once (4 an SM at G > 1); 1024 ran
                        # slower at most path shapes on an H100 (PERF.md)
+TARGET_CTAS_INT8_1 = 768  # the same for the int8 cache at one query (#6,
+                          # 8 an SM): at B * H 256 and s_used 768, 3 ranks
+                          # ran 2 % faster than 2, and 6 (two waves) 17 %
+                          # slower, on an H100 (PERF.md)
 
 
 def _s_used(k_scale, s_used, align=ALIGN):
@@ -70,28 +74,31 @@ def _s_used(k_scale, s_used, align=ALIGN):
     return s_used
 
 
-def decode_split(s_used: int, bh: int, packed: bool):
-    """The cluster of #7 / #8 over ``bh`` = B * H heads reading ``s_used``
-    positions -> ``(n, per)``: ``n`` <= 8 ranks a (b, h), rank r owning
-    positions [r * per, min(s_used, (r + 1) * per)), each at least one
-    position, ``per`` whole chunks of 128 cache rows (128 positions int8,
-    256 packed).  Ranks are added while the launch stays within
-    ``TARGET_CTAS`` CTAs (all resident at once), one more where that
-    splits the chunks evenly, and past that only as far as a slice must
-    shrink to ``MAX_SLICE``."""
+def decode_split(s_used: int, bh: int, packed: bool, queries: int = 1):
+    """The cluster of a decode launch of ``queries`` queries over ``bh`` =
+    B * H heads reading ``s_used`` positions -> ``(n, per)``: ``n`` <= 8
+    ranks a (b, h), rank r owning positions [r * per, min(s_used, (r + 1)
+    * per)), each at least one position, ``per`` whole chunks of 128 cache
+    rows (128 positions int8, 256 packed).  Ranks are added while the
+    launch stays within its target of CTAs (all resident at once:
+    ``TARGET_CTAS_INT8_1`` for the int8 cache at one query, else
+    ``TARGET_CTAS``), one more where that splits the chunks evenly, and
+    past that only as far as a slice must shrink to ``MAX_SLICE``."""
     unit = ALIGN4 if packed else ALIGN
     if s_used <= 0 or s_used % unit:
         raise ValueError(f"s_used={s_used} must be a positive multiple of "
                          f"{unit}")
     units = s_used // unit
-    n = min(MAX_RANKS, units, max(1, TARGET_CTAS // bh))
+    target = TARGET_CTAS_INT8_1 if queries == 1 and not packed \
+        else TARGET_CTAS
+    n = min(MAX_RANKS, units, max(1, target // bh))
     if units % n and n < MAX_RANKS and units % (n + 1) == 0:
         n += 1
     n = max(n, min(MAX_RANKS, -(-units // (MAX_SLICE // unit))))
     per_units = -(-units // n)
     if per_units * unit > MAX_SLICE:
-        raise ValueError(f"s_used={s_used}: #7 and #8 read at most "
-                         f"{MAX_RANKS * MAX_SLICE} positions")
+        raise ValueError(f"s_used={s_used}: the decode kernels read at "
+                         f"most {MAX_RANKS * MAX_SLICE} positions")
     return -(-units // per_units), per_units * unit
 
 
@@ -159,10 +166,12 @@ def decode_attention_prompt4_plain(q, pk_q4, k_scale, pv_q4, v_scale, bias,
         unpack_int4_kv(pv_q4[:, :, :sp // 2]), v_scale, bias, sm_scale, sp)
 
 
-def _launch(q, pk, k_scale, pv, v_scale, bias, sm_scale, s_used, kind):
+def _launch(q, pk, k_scale, pv, v_scale, bias, sm_scale, s_used, kind,
+            split=None):
     """One launch of ``opadpo_decode_attn`` for q ``[B, H, G, hd]`` ->
     (out [B, H, G, hd], m [B, H, G], l [B, H, G]), all f32.  ``kind``: 0
-    is #6, 1 #7 (packed cache), 2 #8."""
+    is #6, 1 #7 (packed cache), 2 #8.  ``split`` ``(n, per)`` replaces
+    ``decode_split``'s cluster (``chip_smoke.py`` times the choices)."""
     packed = kind == 1
     b, h, sp = k_scale.shape
     gq, hd = q.shape[2], q.shape[3]
@@ -172,10 +181,10 @@ def _launch(q, pk, k_scale, pv, v_scale, bias, sm_scale, s_used, kind):
     if not 1 <= gq <= (MAX_G if kind == 2 else 1):
         raise ValueError(f"{gq} queries per head: the kernel takes 1..."
                          f"{MAX_G if kind == 2 else 1}")
-    n, per = decode_split(su, b * h, packed) if kind else (1, su)
-    if kind and sp % 4:
-        raise ValueError(f"cache length {sp}: #7 and #8 take a multiple "
-                         "of 4 (16-byte rows of scales and bias)")
+    n, per = split or decode_split(su, b * h, packed, gq)
+    if sp % 4:
+        raise ValueError(f"cache length {sp}: the decode kernels take a "
+                         "multiple of 4 (16-byte rows of scales and bias)")
     q = q.to(torch.bfloat16).contiguous()
     rows = sp // 2 if packed else sp
     expect = {"q": (q, (b, h, gq, hd), torch.bfloat16),

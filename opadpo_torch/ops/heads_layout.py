@@ -11,10 +11,15 @@
   after the inverse rotation R(-theta); this is the VJP of
   ``scatter_heads``.
 - ``to_heads``: ``scatter_heads`` as an autograd function whose backward
-  is ``gather_heads``.
+  is ``gather_heads``;
+- ``to_heads_qkv``: q, k and v of one stream in one ``scatter_heads_multi``
+  launch (q and k rotated, k and v repeated ``rep`` times), its backward
+  one ``gather_heads`` per tensor.
 
 On a CUDA tensor each wrapper launches its kernel in ``csrc/heads_layout.cu``
-(bf16 only) or raises; on a CPU tensor it runs the plain version beside it.
+(bf16 only) or raises; on a CPU tensor it runs the plain version beside it
+(the multi-tensor form: one plain call per tensor).  ``scatter_grid`` fixes
+the scatter kernel's grid from the shape.
 The JAX package's epilogue ``_from_heads`` has no counterpart: the port's
 flash kernels write ``[B, S, H, hd]``, which is ``[B, S, H*hd]`` as it is.
 """
@@ -86,35 +91,98 @@ def _check_hd(hd):
                          "of two)")
 
 
+SCATTER_ROWS = 64      # rows of one tile of the scatter kernel
+MAX_TENSORS = 3        # tensors one scatter launch takes
+
+
+def scatter_grid(b: int, s: int, tiles: int, slots: int):
+    """The scatter kernel's grid for ``b`` batches of ``s`` rows and
+    ``tiles`` source heads over the launch's tensors -> ``(row_blocks,
+    groups)``: a CTA per (block of 64 rows, batch, group), group g taking
+    the tiles [g * tiles // groups, (g + 1) * tiles // groups) of q's
+    source heads, then k's, then v's.  As many groups (at most ``tiles``)
+    as keep the grid within ``slots``, the CTAs the card holds at once, so
+    that the launch is one wave; one group when the row blocks alone pass
+    ``slots``."""
+    blocks = -(-s // SCATTER_ROWS)
+    return blocks, max(1, min(tiles, slots // (b * blocks)))
+
+
+_slots: dict = {}
+
+
+def _arr(ctype, vals):
+    return (ctype * len(vals))(*vals)
+
+
+def _scatter_slots(device, hd) -> int:
+    """CTAs of the scatter kernel the card holds at once."""
+    key = (device.index, hd)
+    if key not in _slots:
+        per_sm = _lib().opadpo_scatter_heads_ctas_per_sm(hd)
+        if per_sm < 1:
+            raise RuntimeError(f"scatter_heads: occupancy query gave {per_sm}")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _slots[key] = sms * per_sm
+    return _slots[key]
+
+
+def scatter_heads_multi_cuda(xs, cos_table, sin_table, positions,
+                             num_heads: int, ropes, reps):
+    """One launch of the scatter kernel over up to three bf16 CUDA tensors
+    ``xs[t] [B, S, (H/reps[t])*hd]`` (each with unit stride on the last
+    axis and its own batch and row strides), rotated where ``ropes[t]``
+    -> a list of contiguous bf16 ``[B, H, S, hd]``.  hd is 64 or 128."""
+    n = len(xs)
+    b, s, _ = xs[0].shape
+    hd = xs[0].shape[2] * reps[0] // num_heads
+    if not 1 <= n <= MAX_TENSORS or len(ropes) != n or len(reps) != n:
+        raise ValueError(f"{n} tensors: one launch takes 1 to {MAX_TENSORS}")
+    if hd not in (64, 128):
+        raise ValueError(f"head dim {hd} not supported (64 or 128)")
+    nsrc = []
+    for x, rep in zip(xs, reps):
+        if not x.is_cuda or x.dtype != torch.bfloat16 \
+                or x.device != xs[0].device:
+            raise ValueError("scatter_heads_cuda takes bf16 CUDA tensors on "
+                             "one device")
+        if num_heads % rep or x.shape != (b, s, (num_heads // rep) * hd):
+            raise ValueError(f"{num_heads} heads of {hd}, rep {rep}: x "
+                             f"{tuple(x.shape)}")
+        if x.stride(2) != 1 or x.stride(0) % 8 or x.stride(1) % 8 \
+                or x.data_ptr() % 16:
+            raise ValueError("x needs unit inner stride and 16-byte aligned "
+                             "rows")
+        nsrc.append(num_heads // rep)
+    rope = any(ropes)
+    pos = _check_rope_inputs(cos_table, sin_table, positions, hd) if rope \
+        else None
+    outs = [torch.empty((b, num_heads, s, hd), dtype=torch.bfloat16,
+                        device=x.device) for x in xs]
+    _, groups = scatter_grid(b, s, sum(nsrc),
+                             _scatter_slots(xs[0].device, hd))
+    err = _lib().opadpo_scatter_heads_bf16(
+        n, _arr(ctypes.c_void_p, [x.data_ptr() for x in xs]),
+        _arr(ctypes.c_int64, [st for x in xs for st in x.stride()[:2]]),
+        _arr(ctypes.c_void_p, [o.data_ptr() for o in outs]),
+        _arr(ctypes.c_int, [int(r) for r in ropes]),
+        _arr(ctypes.c_int, reps), _arr(ctypes.c_int, nsrc),
+        cos_table.data_ptr() if rope else None,
+        sin_table.data_ptr() if rope else None,
+        pos.data_ptr() if rope else None, b, s, hd, groups,
+        torch.cuda.current_stream(xs[0].device).cuda_stream)
+    _build.check(err, "scatter_heads")
+    scatter_heads_cuda.launches += 1       # the scatter kernel's, any form
+    return outs
+
+
 def scatter_heads_cuda(x, cos_table, sin_table, positions, num_heads: int,
                        rope: bool, rep: int = 1):
-    """Launch the scatter-heads kernel: bf16 CUDA ``x [B, S, Hkv*hd]`` (unit
-    stride on the last axis) -> contiguous bf16 ``[B, H, S, hd]``."""
-    b, s, dkv = x.shape
-    hkv = num_heads // rep
-    hd = dkv // hkv
-    if not x.is_cuda or x.dtype != torch.bfloat16:
-        raise ValueError("scatter_heads_cuda takes a bf16 CUDA tensor")
-    if num_heads % rep or dkv % hkv:
-        raise ValueError(f"{num_heads} heads, rep {rep}, width {dkv}")
-    _check_hd(hd)
-    if x.stride(2) != 1 or x.stride(0) % 8 or x.stride(1) % 8 \
-            or x.data_ptr() % 16:
-        raise ValueError("x needs unit inner stride and 16-byte aligned rows")
-    pos = None
-    if rope:
-        pos = _check_rope_inputs(cos_table, sin_table, positions, hd)
-    out = torch.empty((b, num_heads, s, hd), dtype=torch.bfloat16,
-                      device=x.device)
-    err = _lib().opadpo_scatter_heads_bf16(
-        x.data_ptr(), cos_table.data_ptr() if rope else None,
-        sin_table.data_ptr() if rope else None,
-        pos.data_ptr() if rope else None, out.data_ptr(), b, s, num_heads, hd,
-        rep, x.stride(0), x.stride(1),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "scatter_heads")
-    scatter_heads_cuda.launches += 1
-    return out
+    """Launch the scatter-heads kernel on one tensor: bf16 CUDA ``x [B, S,
+    Hkv*hd]`` (unit stride on the last axis) -> contiguous bf16 ``[B, H,
+    S, hd]``."""
+    return scatter_heads_multi_cuda([x], cos_table, sin_table, positions,
+                                    num_heads, [rope], [rep])[0]
 
 
 scatter_heads_cuda.launches = 0
@@ -157,12 +225,17 @@ def _lib():
     lib = _build.load("heads_layout.cu")
     if not lib.opadpo_scatter_heads_bf16.argtypes:
         vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        ip = ctypes.POINTER(i)
         lib.opadpo_scatter_heads_bf16.argtypes = [
-            vp, vp, vp, vp, vp, i, i, i, i, i, i64, i64, vp]
+            i, ctypes.POINTER(vp), ctypes.POINTER(i64), ctypes.POINTER(vp),
+            ip, ip, ip, vp, vp, vp, i, i, i, i, vp]
+        lib.opadpo_scatter_heads_ctas_per_sm.argtypes = [i]
         lib.opadpo_gather_heads_bf16.argtypes = [
             vp, vp, vp, vp, vp, i, i, i, i, i, i64, i64, i64, vp]
-        lib.opadpo_scatter_heads_bf16.restype = ctypes.c_int
-        lib.opadpo_gather_heads_bf16.restype = ctypes.c_int
+        for fn in (lib.opadpo_scatter_heads_bf16,
+                   lib.opadpo_scatter_heads_ctas_per_sm,
+                   lib.opadpo_gather_heads_bf16):
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -171,6 +244,19 @@ def scatter_heads(x, cos_table, sin_table, positions, num_heads: int,
     """[B, S, Hkv*hd] -> [B, H, S, hd] (+RoPE); CUDA launches the kernel."""
     fn = scatter_heads_cuda if on_cuda(x) else scatter_heads_plain
     return fn(x, cos_table, sin_table, positions, num_heads, rope, rep)
+
+
+def scatter_heads_multi(xs, cos_table, sin_table, positions,
+                        num_heads: int, ropes, reps):
+    """``scatter_heads`` of up to three tensors sharing B, S, hd and the
+    positions, tensor t with ``ropes[t]`` and ``reps[t]``; CUDA launches
+    the kernel once."""
+    if on_cuda(xs[0]):
+        return scatter_heads_multi_cuda(xs, cos_table, sin_table, positions,
+                                        num_heads, ropes, reps)
+    return [scatter_heads_plain(x, cos_table, sin_table, positions,
+                                num_heads, rope, rep)
+            for x, rope, rep in zip(xs, ropes, reps)]
 
 
 def gather_heads(g, cos_table, sin_table, positions, rope: bool,
@@ -206,3 +292,38 @@ def to_heads(x, cos_table, sin_table, positions, num_heads: int, rope: bool,
     rotation, summing the ``rep`` repeated heads back into their kv head)."""
     return _ToHeads.apply(x, cos_table, sin_table, positions, num_heads,
                           rope, rep)
+
+
+# q and k rotated; k and v repeated rep times
+QKV_ROPE = (True, True, False)
+
+
+class _ToHeadsQKV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q2, k2, v2, cos_table, sin_table, positions, num_heads,
+                rep):
+        ctx.save_for_backward(cos_table, sin_table, positions)
+        ctx.rep = rep
+        return tuple(scatter_heads_multi((q2, k2, v2), cos_table, sin_table,
+                                         positions, num_heads, QKV_ROPE,
+                                         (1, rep, rep)))
+
+    @staticmethod
+    def backward(ctx, gq, gk, gv):
+        cos_table, sin_table, positions = ctx.saved_tensors
+        grads = [gather_heads(g, cos_table, sin_table, positions, rope, r)
+                 if need else None
+                 for g, rope, r, need in zip(
+                     (gq, gk, gv), QKV_ROPE, (1, ctx.rep, ctx.rep),
+                     ctx.needs_input_grad[:3])]
+        return (*grads, None, None, None, None, None)
+
+
+def to_heads_qkv(q2, k2, v2, cos_table, sin_table, positions,
+                 num_heads: int, rep: int = 1):
+    """q ``[B, S, H*hd]``, k and v ``[B, S, (H/rep)*hd]`` -> ``(q, k, v)``
+    each ``[B, H, S, hd]``: RoPE on q and k, the GQA repeat on k and v, in
+    one scatter launch on CUDA; the VJP is ``gather_heads`` per tensor, as
+    three ``to_heads`` calls would give."""
+    return _ToHeadsQKV.apply(q2, k2, v2, cos_table, sin_table, positions,
+                             num_heads, rep)

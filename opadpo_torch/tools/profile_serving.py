@@ -53,7 +53,9 @@ def kernel_group(name: str) -> str:
                    "scatter_heads", "gather_heads"):
         if kernel + "_kernel" in n:
             return kernel + " (csrc)"
-    for kernel, group in (("decode_attn_int8_kernel", "int8"),
+    # #6 is the int8 kernel at one query; #8 runs it at G 2..8 on the paths
+    for kernel, group in (("decode_attn_multi_kernel<128, 1>", "int8"),
+                          ("decode_attn_multi_kernel<64, 1>", "int8"),
                           ("decode_attn_int4_kernel", "int4"),
                           ("decode_attn_multi_kernel", "multi")):
         if kernel in n:

@@ -34,6 +34,20 @@ def test_decode_split_owns_every_position_once(packed, bh):
         assert (owners == 1).all(), s_used
 
 
+@pytest.mark.parametrize("s_used,ranks", [(128, 1), (256, 2), (384, 3),
+                                          (512, 4), (640, 3), (768, 3)])
+def test_int8_one_query_split_at_the_serving_batch(s_used, ranks):
+    """#6 (the int8 cache, one query) at B * H 256, the 7B serving batch:
+    3 ranks at s_used 640 and 768 (the split timed fastest), every
+    position owned once, and the launch within the CTAs an H100 holds at
+    once at 8 an SM (132 x 8), so it runs as one wave; #8 at G 2 keeps
+    ``TARGET_CTAS``'s 2 ranks at 768."""
+    n, per = da.decode_split(s_used, 256, False, 1)
+    assert n == ranks and n * 256 <= 132 * 8
+    assert (n - 1) * per < s_used <= n * per and per % da.ALIGN == 0
+    assert da.decode_split(768, 256, False, 2) == (2, 384)
+
+
 def test_decode_split_refuses_what_the_kernels_do_not_take():
     """s_used past 8 slices of ``MAX_SLICE`` positions, or not a positive
     multiple of the chunk, raises."""
@@ -50,8 +64,8 @@ def _cluster_model(q, k, ks, v, vs, bias, sm, su, packed):
     rank's slice at a time, the global max from the ranks' maxima, then
     each rank's l and bf16(p * v_scale) . V at that max, summed in rank
     order."""
-    b, h = q.shape[:2]
-    n, per = da.decode_split(su, b * h, packed)
+    b, h, gq = q.shape[:3]
+    n, per = da.decode_split(su, b * h, packed, gq)
     qf = q.to(torch.bfloat16).float()
     cuts = [(r * per, min(su, (r + 1) * per)) for r in range(n)]
     scores = [da._dots(qf, k[:, :, lo:hi])
@@ -92,12 +106,14 @@ def _inputs(rng, b, h, gq, sp, hd, filled, packed):
 
 @pytest.mark.parametrize("gq,su,bh", [(1, 768, 8), (5, 768, 8),
                                       (8, 640, 8), (8, 2304, 8),
-                                      (5, 768, 256)])
+                                      (5, 768, 256), (1, 640, 256),
+                                      (1, 768, 256)])
 def test_cluster_merge_model_matches_multi_plain(gq, su, bh):
-    """#8's merge, G 1, 5 and 8, over 1 to 8 ranks (2304 streams its
-    slices through the ring), against the plain version: (out, m, l)
-    within 1e-6 of each one's largest entry; row 1 is masked everywhere
-    (m -1e30, p uniform)."""
+    """The int8 kernel's merge, G 1, 5 and 8, over 1 to 8 ranks (2304
+    streams its slices through the ring; G 1 at B * H 256 is #6's serving
+    split), against the plain version: (out, m, l) within 1e-6 of each
+    one's largest entry; row 1 is masked everywhere (m -1e30, p
+    uniform)."""
     rng = np.random.default_rng(gq * 1000 + su)
     hd = 64
     b, h = 2, bh // 2

@@ -159,6 +159,32 @@ def test_cluster_decode_kernels_match_plain_on_gpu(hd):
                                   atol=1e-4 * r.abs().max().item())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [128, 64])
+def test_int8_decode_on_the_cluster_matches_plain_on_gpu(hd):
+    """#6 on the cluster body (``decode_attention_cuda``, one query, the
+    split of ``decode_split``) at s_used 128 ... 768 and 2304 (streamed
+    through the ring), with row 1 masked everywhere and zero scales in
+    the tail: (out, m, l) within 1e-4 of each one's largest entry of the
+    plain version, and two launches bitwise equal."""
+    g = _gen()
+    q = torch.randn(2, 4, hd, generator=g, device="cuda").to(torch.bfloat16)
+    sm = hd ** -0.5
+    cases = [(_cluster_cache(g, 768, hd, False), su)
+             for su in range(128, 769, 128)]
+    cases.append((_cluster_cache(g, 2304, hd, False), 2304))
+    for cache, su in cases:
+        args = (q, *cache, sm, su)
+        out = t_decode.decode_attention_cuda(*args)
+        again = t_decode.decode_attention_cuda(*args)
+        ref = t_decode.decode_attention_prompt_plain(*args)
+        assert all(torch.equal(a, c) for a, c in zip(out, again)), su
+        for o, r in zip(out, ref):
+            assert o.shape == r.shape
+            assert torch.allclose(o, r, rtol=1e-4,
+                                  atol=1e-4 * r.abs().max().item()), su
+
+
 def _flash_inputs(g, sq, skv, d, head_major):
     """q [3, sq, 2, d] over k, v [3, skv, 2, d], bf16; head-major tensors
     are passed as the permuted [B, S, H, D] view ``_kernel_view`` gives.
@@ -336,6 +362,39 @@ def test_heads_layout_match_plain_on_gpu(rep, hd):
         ref = t_heads.gather_heads_plain(gr, cos, sin, pos, rope, rep)
         assert out.shape == (b, s, (h // rep) * hd)
         assert (out.float() - ref.float()).abs().max().item() <= 3e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [27, 703])
+@pytest.mark.parametrize("rep,hd", [(1, 128), (2, 128), (1, 64), (2, 64)])
+def test_scatter_heads_qkv_matches_plain_on_gpu(rep, hd, s):
+    """q, k and v in one scatter launch (``scatter_heads_multi_cuda``: q
+    and k rotated, k and v repeated ``rep`` times), each a strided view of
+    one wider buffer, against three calls of the plain version: within one
+    bf16 rounding of the f32 result (1e-2 of the largest entry); the tail
+    block writes nothing past S (the output is checked in full)."""
+    g = _gen()
+    dev = "cuda"
+    b, h = 2, 8
+    cos, sin = rope_frequencies(hd, 1024, device=dev)
+    pos = torch.randint(0, 1024, (b, s), generator=g, device=dev)
+    widths = (h * hd, (h // rep) * hd, (h // rep) * hd)
+    buf = torch.randn(b, s, sum(widths) + 8, generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    xs, at = [], 8
+    for w in widths:
+        xs.append(buf[:, :, at:at + w])
+        at += w
+    before = t_heads.scatter_heads_cuda.launches
+    outs = t_heads.scatter_heads_multi_cuda(xs, cos, sin, pos, h,
+                                            (True, True, False),
+                                            (1, rep, rep))
+    assert t_heads.scatter_heads_cuda.launches == before + 1
+    for x, out, rope, r in zip(xs, outs, (True, True, False), (1, rep, rep)):
+        ref = t_heads.scatter_heads_plain(x, cos, sin, pos, h, rope, r)
+        assert out.shape == (b, h, s, hd) and out.is_contiguous()
+        top = ref.float().abs().max().item()
+        assert (out.float() - ref.float()).abs().max().item() <= 1e-2 * top
 
 
 @pytest.mark.gpu

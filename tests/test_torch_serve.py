@@ -143,7 +143,7 @@ def test_profile_summary_counts_overlap_once():
     and each kernel lands in its group."""
     kernels = [("flash_fwd_kernel<128>", 0.0, 10.0),
                ("sm90_xmma_gemm_bf16bf16", 5.0, 20.0),
-               ("decode_attn_int8_kernel<128>", 30.0, 32.0),
+               ("decode_attn_multi_kernel<128, 1>", 30.0, 32.0),
                ("vectorized_elementwise_kernel", 31.0, 35.0)]
     s = profile_serving.summarise(kernels, host_s=50e-6)
     assert s["kernels"] == 4

@@ -172,6 +172,39 @@ def test_to_heads_and_from_heads_match_jax(rep):
            1e-2, "from_heads")
 
 
+@pytest.mark.parametrize("rep", [1, 2])
+def test_to_heads_qkv_matches_jax(rep):
+    """``to_heads_qkv`` (q and k rotated, k and v repeated ``rep`` times,
+    one scatter launch on the card) and its VJP against three calls of the
+    JAX ``_to_heads`` custom VJP: q with RoPE, k with RoPE and the repeat,
+    v with the repeat only.  bf16 in both packages: 1e-2 of the largest
+    entry, one bf16 step."""
+    b, s, h, hd = 2, 27, 4, 64
+    pos, (cos_g, sin_g) = _rope_inputs(b, s, hd, seed=10 + rep)
+    rng = np.random.default_rng(10 + rep)
+    widths = (h * hd, (h // rep) * hd, (h // rep) * hd)
+    xs = [rng.normal(size=(b, s, w)).astype(np.float32) for w in widths]
+    gs = [rng.normal(size=(b, h, s, hd)).astype(np.float32)
+          for _ in range(3)]
+    cos, sin = rope_frequencies(hd, 256)
+
+    xts = [t(x).to(torch.bfloat16).requires_grad_(True) for x in xs]
+    outs = t_heads.to_heads_qkv(*xts, cos, sin, t(pos, torch.int64), h, rep)
+    dxs = torch.autograd.grad(outs, xts,
+                              [t(g).to(torch.bfloat16) for g in gs])
+    for name, x, g, out, dx, rope, r in zip(
+            "qkv", xs, gs, outs, dxs, (True, True, False), (1, rep, rep)):
+        j_out, vjp = jax.vjp(
+            lambda a: jax_attention._to_heads(a, cos_g, sin_g, h, s, rope, s,
+                                              jnp.bfloat16, r),
+            jnp.asarray(x, jnp.bfloat16))
+        (j_dx,) = vjp(jnp.asarray(g, jnp.bfloat16))
+        assert out.shape == (b, h, s, hd) and dx.shape == x.shape
+        _close([out.detach().float().numpy(), dx.float().numpy()],
+               [np.asarray(j_out, np.float32), np.asarray(j_dx, np.float32)],
+               1e-2, f"to_heads_qkv {name}")
+
+
 def test_flash_attention_fused_shared_matches_jax():
     """Both outputs and all six input gradients of the shared-prefix
     composite against the JAX package's (interpret mode, hd 128, its
