@@ -482,22 +482,27 @@ def phase_flash_bwd(g, flush):
     return res
 
 
-# #4 before its redesign (the per-head kernel, one CTA per 64 rows of one
-# head), ms per tensor: chip runs of chip_smoke.py on an NVIDIA H100 80GB
-# HBM3 at 700 W, recorded in PERF.md
+# #4 and #5 before their redesigns (the per-head kernels, one CTA per 64
+# rows of one head, one launch a tensor), ms per tensor: chip runs of
+# chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, recorded in PERF.md
 HEADS_WAS_MS = {"prefix": 0.0153, "response": 0.0354}
+GATHER_WAS_MS = {"prefix": 0.0153, "response": 0.0360}
 
 
-def _heads_case(b, s, g, flush):
+def _heads_case(b, s, g, flush, kv_len=None):
     """scatter (RoPE) and gather (inverse RoPE, strided [B, S, H, hd]
-    gradient, as the backward kernels write it) at 32 heads of 128, and
-    the scatter of a stream's q, k and v in one launch (q and k with RoPE,
-    v without), as the training path runs it, beside three single-tensor
-    launches on the same tensors."""
+    gradient, as the backward kernels write it) at 32 heads of 128, the
+    scatter of a stream's q, k and v in one launch (q and k with RoPE, v
+    without) and the gather of its dQ, dK and dV in one launch (dQ and dK
+    rotated back, dV not; the layouts of ``tools/time_heads.heads_grads``),
+    as the training path runs them, each beside three single-tensor
+    launches on the same tensors.  Each against its plain version (1e-2
+    of the largest entry), two launches bitwise equal."""
     import torch
 
     from opadpo_torch.ops import heads_layout
     from opadpo_torch.ops.rope import rope_frequencies
+    from opadpo_torch.tools.time_heads import heads_grads
 
     dev = "cuda"
     h, hd = 32, 128
@@ -511,12 +516,14 @@ def _heads_case(b, s, g, flush):
                      dtype=torch.bfloat16).permute(0, 2, 1, 3)
     qkv = [torch.randn(b, s, h * hd, generator=g, device=dev,
                        dtype=torch.bfloat16) for _ in range(3)]
+    grads = heads_grads(b, s, h, hd, g, kv_len)
     ropes = heads_layout.QKV_ROPE
 
-    def three_single():
-        return [heads_layout.scatter_heads_cuda(t, cos, sin, pos, h, r)
-                for t, r in zip(qkv, ropes)]
-
+    three_single = {
+        "scatter_qkv": lambda: [heads_layout.scatter_heads_cuda(
+            t, cos, sin, pos, h, r) for t, r in zip(qkv, ropes)],
+        "gather_qkv": lambda: [heads_layout.gather_heads_cuda(
+            t, cos, sin, pos, r) for t, r in zip(grads, ropes)]}
     cases = {
         "scatter": (lambda: [heads_layout.scatter_heads_cuda(
             x, cos, sin, pos, h, True)], lambda: [heads_layout.
@@ -528,31 +535,45 @@ def _heads_case(b, s, g, flush):
             qkv, cos, sin, pos, h, ropes, (1, 1, 1)), lambda: [
             heads_layout.scatter_heads_plain(t, cos, sin, pos, h, r)
             for t, r in zip(qkv, ropes)], 3, 2),
+        "gather_qkv": (lambda: heads_layout.gather_heads_multi_cuda(
+            grads, cos, sin, pos, ropes, (1, 1, 1)), lambda: [
+            heads_layout.gather_heads_plain(t, cos, sin, pos, r)
+            for t, r in zip(grads, ropes)], 3, 2),
     }
-    res = {"shape": [b, s, h * hd]}
+    res = {"shape": [b, s, h * hd],
+           "grad_layouts": {"dq": "[B,S,H,hd] permuted", "dk, dv":
+                            f"slice at {kv_len - s} of [{b},{kv_len},{h},"
+                            f"{hd}] permuted" if kv_len else
+                            "[B,H,S,hd] contiguous"}}
     for name, (kernel, plain, tensors, rotated) in cases.items():
-        outs, refs = kernel(), plain()
+        outs, again, refs = kernel(), kernel(), plain()
         torch.cuda.synchronize()
+        check(all(torch.equal(o, a) for o, a in zip(outs, again)),
+              f"{name}_heads: two launches differ")
         err = max((o.float() - r.float()).abs().max().item()
                   for o, r in zip(outs, refs))
         top = max(r.float().abs().max().item() for r in refs)
         check(err <= 1e-2 * top, f"{name}_heads error {err} > 1e-2 x {top}")
-        # one read and one write of each [b, s, 4096] bf16 tensor, the
-        # positions, and one cos and one sin half-row per position
+        # one read and one write of each [b, s, 4096] bf16 tensor (no GQA:
+        # a gather reads what it writes), the positions, and one cos and
+        # one sin half-row per position
         nbytes = tensors * 2 * b * s * h * hd * 2 + b * s * 8 \
             + 2 * b * s * (hd // 2) * 4
         bound_ms, bound_by = _bound(nbytes, rotated * 6 * b * s * h * hd)
         res[name] = {"err": err, "ms": time_ms(kernel, flush),
                      "plain_ms": time_ms(plain, flush), "bound_ms": bound_ms,
                      "bound_by": bound_by, "bytes": nbytes}
-    res["scatter_qkv"]["three_single_ms"] = time_ms(three_single, flush)
+    for name, fn in three_single.items():
+        res[name]["three_single_ms"] = time_ms(fn, flush)
     log(f"[heads] {json.dumps(res)}")
     return res
 
 
 def phase_heads(g, flush):
-    """#4 and #5 at the training streams' shapes, and heads_layout.cu's
-    ptxas report (a spill, C7512, C7513 or C7514 fails)."""
+    """#4 and #5 at the training streams' shapes (the response stream's
+    dK / dV as slices of its [prefix ++ response] gradient), and
+    heads_layout.cu's ptxas report (a spill, C7512, C7513 or C7514
+    fails)."""
     import torch
 
     from opadpo_torch.ops import heads_layout
@@ -562,21 +583,26 @@ def phase_heads(g, flush):
         log(f"[heads] ptxas heads_layout.cu: {line}")
     check(not faults, f"heads_layout.cu: ptxas reports {faults}")
     res = {"prefix": _heads_case(2, 703, g, flush),
-           "response": _heads_case(6, 896, g, flush)}
+           "response": _heads_case(6, 896, g, flush, kv_len=1599)}
+    dev = torch.device("cuda", 0)
     for name, r in res.items():
         b, s = r["shape"][:2]
-        c, one = r["scatter_qkv"], r["scatter"]
-        blocks, groups = heads_layout.scatter_grid(      # 3 x 32 heads
-            b, s, 96, heads_layout._scatter_slots(torch.device("cuda", 0),
-                                                  128))
-        log(f"[heads] #4 {name} {r['shape']}: q/k/v in one launch "
-            f"{c['ms']:.4f} ms = {100 * c['bound_ms'] / c['ms']:.1f} % of its "
-            f"{c['bound_ms']:.4f} ms bound ({blocks} x {b} x {groups} CTAs); "
-            f"three single launches {c['three_single_ms']:.4f} ms; one "
-            f"tensor {one['ms']:.4f} ms = "
-            f"{100 * one['bound_ms'] / one['ms']:.1f} % of "
-            f"{one['bound_ms']:.4f}; the per-head kernel "
-            f"{HEADS_WAS_MS[name]} ms a tensor (PERF.md)")
+        for kernel, multi, one, slots, was in (
+                (4, "scatter_qkv", "scatter",
+                 heads_layout._scatter_slots(dev, 128), HEADS_WAS_MS),
+                (5, "gather_qkv", "gather",
+                 heads_layout._gather_slots(dev, 128, 1), GATHER_WAS_MS)):
+            c, single = r[multi], r[one]
+            blocks, groups = heads_layout.scatter_grid(b, s, 96, slots)
+            log(f"[heads] #{kernel} {name} {r['shape']}: three tensors in "
+                f"one launch {c['ms']:.4f} ms = "
+                f"{100 * c['bound_ms'] / c['ms']:.1f} % of its "
+                f"{c['bound_ms']:.4f} ms bound ({blocks} x {b} x {groups} "
+                f"CTAs); three single launches {c['three_single_ms']:.4f} "
+                f"ms; one tensor {single['ms']:.4f} ms = "
+                f"{100 * single['bound_ms'] / single['ms']:.1f} % of "
+                f"{single['bound_ms']:.4f}; the per-head kernel "
+                f"{was[name]} ms a tensor (PERF.md)")
     return res
 
 
@@ -1797,7 +1823,7 @@ def expected_launches(cfg, dpo, train: bool) -> dict:
         per["flash_fwd"] += 2 * n_layers
         per["scatter_heads"] += 2 * n_layers
         per.update(flash_bwd_dq=2 * n_layers, flash_bwd_dkv=2 * n_layers,
-                   gather_heads=6 * n_layers)
+                   gather_heads=2 * n_layers)
     forwards = 2 if dpo.CoPO else 1
     return {k: forwards * v for k, v in per.items()}
 
@@ -2009,15 +2035,18 @@ def quant_kernel_entries(qk, q_serve, q_train):
 
 def heads_kernel_entries(heads, train):
     """The kernels line's entries of #4 and #5: launches over the bf16
-    training run; #4's numbers are the q/k/v launch of the response stream,
-    as the path runs it, with one tensor's and the prefix's beside."""
+    training run; numbers of the launch over a stream's three tensors at
+    the response stream's shape, as the path runs it, with the prefix's,
+    three single launches' and one tensor's beside."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     out = []
-    for kname, line, cases, what in (
-            ("scatter_heads", "582", ("scatter_qkv", "scatter"),
+    for kname, line, multi, one, what in (
+            ("scatter_heads", "582", "scatter_qkv", "scatter",
              "q and k with RoPE and v in one launch"),
-            ("gather_heads", "602", ("gather",), "inverse RoPE")):
-        r, p = heads["response"][cases[0]], heads["prefix"][cases[0]]
+            ("gather_heads", "602", "gather_qkv", "gather",
+             "dQ and dK with the inverse RoPE and dV in one launch, dK "
+             "and dV slices of [6,1599,32,128] at 703")):
+        r, p = heads["response"][multi], heads["prefix"][multi]
         out.append({
             "name": kname, "route": "cuda",
             "source": "opadpo_torch/csrc/heads_layout.cu",
@@ -2025,17 +2054,16 @@ def heads_kernel_entries(heads, train):
             "launches": train["launches"][kname],
             "launches_per_train_step": train["launches_per_step"][kname],
             "max_abs_err": max(x[c]["err"] for x in heads.values()
-                               for c in cases),
+                               for c in (multi, one)),
             **{k: r[k] for k in keys}, "library_ms": None,
             "at": f"[6,896,4096] bf16, 32 heads of 128 (response stream), "
                   f"{what}; no one PyTorch call computes it",
-            "prefix": {k: p[k] for k in keys}})
-    out[0].update(
-        design="tma-tiles+tables-in-registers+tma-store",
-        three_single_ms={n: h["scatter_qkv"]["three_single_ms"]
-                         for n, h in heads.items()},
-        one_tensor={n: {k: h["scatter"][k] for k in keys}
-                    for n, h in heads.items()})
+            "design": "tma-tiles+tables-in-registers+tma-store",
+            "prefix": {k: p[k] for k in keys},
+            "three_single_ms": {n: h[multi]["three_single_ms"]
+                                for n, h in heads.items()},
+            "one_tensor": {n: {k: h[one][k] for k in keys}
+                           for n, h in heads.items()}})
     return out
 
 

@@ -14,10 +14,12 @@
 //
 // gather_heads replaces _gather_heads_kernel (the _to_heads VJP): a
 // gradient g, logically [B, H, S, hd] with any strides and unit stride on
-// hd, becomes [B, S, Hkv*hd], each output head the sum over its `group`
+// hd, becomes [B, S, Hkv*hd], each output head the f32 sum over its `group`
 // repeated heads of the inverse rotation R(-theta):
 //   out[:hd/2] = x1 cos + x2 sin,  out[hd/2:] = x2 cos - x1 sin.
-// Without RoPE (the V path) both are a plain layout change.
+// Without RoPE (the V path) only the heads are summed.  One launch takes up
+// to three such gradients (dQ, dK and dV of a stream), each with its own
+// strides, RoPE flag and group, sharing B, H, S, hd and the positions.
 //
 // The JAX package also runs these for its _from_heads epilogue, because
 // the Pallas kernel writes head-major output.  The port's flash kernels
@@ -50,19 +52,29 @@
 //    rows.  A stage is refilled once the store of the tile before it has
 //    read it, so loads, rotation and stores overlap.
 //
-// The gather kernel: one CTA handles 64 rows of one (b, kv head); a
-// thread moves 8 lanes of each half of a head row with 16-byte loads and
-// stores, so a warp reads and writes whole 256-byte head rows (hd = 128),
-// and the cos/sin rows come from the tables, which stay in L2.
+// The gather kernel is the scatter kernel run backwards:
+//  - Work.  A tile is 64 rows of one output (kv) head of one tensor; the
+//    CTAs and their runs of tiles (dQ's heads, then dK's, then dV's) are
+//    the scatter's, from the same grid rule (gather_grid).
+//  - Loads.  One TMA copy through a 4-D map over each gradient (hd x S x H
+//    x B, the view's own element strides, so a permuted or sliced view
+//    needs no copy) brings the `group` heads of a kv head, a box of (hd,
+//    64, group, 1); rows past S read as zeros.  4 tiles in flight where
+//    they fit (2 at least), each on its stage's mbarrier.
+//  - Tables once per row, as in the scatter kernel.
+//  - Rotation and sum in shared memory: each thread rotates its columns of
+//    every head of the tile in f32 registers, sums them and writes the sum
+//    over the first head's rows (in place at group 1); a tile without RoPE
+//    at group 1 (dV of a model without GQA) is not touched.  Then one
+//    thread stores the first head's rows by TMA through a 3-D map over out
+//    (Hkv*hd x S x B), which clips at S, and a stage is refilled once the
+//    store of the tile before it has read it.
 
 #include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
 
 namespace {
-
-constexpr int ROWS = 64;
-constexpr int NTHREADS = 128;
 
 struct Vec8 {
   float v[8];
@@ -106,6 +118,28 @@ __device__ __forceinline__ void rotate(Vec8& x1, Vec8& x2, const Vec8& c,
     } else {
       x1.v[e] = a * c.v[e] - b * s.v[e];
       x2.v[e] = b * c.v[e] + a * s.v[e];
+    }
+  }
+}
+
+// the cos / sin values of columns [c8, c8 + 8) of the rows s, s + RPP,
+// ... (PASSES rows) of batch b: table[pos[b, s]]; 1 and 0 past S or
+// without RoPE (cos NULL)
+template <int HD, int PASSES, int RPP>
+__device__ __forceinline__ void load_tables(const float* cos,
+                                            const float* sin, const int* pos,
+                                            int b, int S, int s, int c8,
+                                            Vec8 (&cs)[PASSES],
+                                            Vec8 (&sn)[PASSES]) {
+#pragma unroll
+  for (int ps = 0; ps < PASSES; ++ps, s += RPP) {
+    if (cos != nullptr && s < S) {
+      const int64_t at = int64_t(pos[int64_t(b) * S + s]) * HD + c8;
+      cs[ps] = load8f(cos + at);
+      sn[ps] = load8f(sin + at);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) cs[ps].v[e] = 1.f, sn[ps].v[e] = 0.f;
     }
   }
 }
@@ -183,18 +217,8 @@ scatter_heads_kernel(const __grid_constant__ ScatterParams p) {
   const int c8 = (tid % TPR) * 8;
   const int row0 = tid / TPR;
   Vec8 cs[PASSES], sn[PASSES];
-#pragma unroll
-  for (int ps = 0; ps < PASSES; ++ps) {
-    const int s = s0 + row0 + ps * RPP;
-    if (p.cos != nullptr && s < p.S) {
-      const int64_t at = int64_t(p.pos[int64_t(b) * p.S + s]) * HD + c8;
-      cs[ps] = load8f(p.cos + at);
-      sn[ps] = load8f(p.sin + at);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) cs[ps].v[e] = 1.f, sn[ps].v[e] = 0.f;
-    }
-  }
+  load_tables<HD, PASSES, RPP>(p.cos, p.sin, p.pos, b, p.S, s0 + row0, c8,
+                               cs, sn);
 
   for (int i = 0; i < count; ++i) {
     int j;
@@ -230,58 +254,166 @@ scatter_heads_kernel(const __grid_constant__ ScatterParams p) {
 }
 
 template <int HD>
-int scatter_launch(const ScatterParams& p, dim3 grid, cudaStream_t stream) {
+int scatter_allow() {
   static bool configured = false;
-  const int e = hopper::allow_smem(scatter_heads_kernel<HD>,
-                                   scatter_smem<HD>(), configured);
+  return hopper::allow_smem(scatter_heads_kernel<HD>, scatter_smem<HD>(),
+                            configured);
+}
+
+template <int HD>
+int scatter_launch(const ScatterParams& p, dim3 grid, cudaStream_t stream) {
+  const int e = scatter_allow<HD>();
   if (e != 0) return e;
   scatter_heads_kernel<HD><<<grid, STHREADS, scatter_smem<HD>(), stream>>>(
       p);
   return int(cudaGetLastError());
 }
 
-// grid (ceil(S / 64), Hkv, B); g is [B, H, S, hd] with strides (g_sb,
-// g_sh, g_ss), H = group * Hkv; out is [B, S, Hkv*hd] contiguous
-__global__ void __launch_bounds__(NTHREADS)
-gather_heads_kernel(const bf16* __restrict__ g, const float* __restrict__ cos,
-                    const float* __restrict__ sin,
-                    const int* __restrict__ pos, bf16* __restrict__ out,
-                    int S, int Hkv, int hd, int group, int64_t g_sb,
-                    int64_t g_sh, int64_t g_ss) {
-  const int j = blockIdx.y;
-  const int b = blockIdx.z;
-  const int half = hd / 2;
-  const int tpr = half / 8;
-  const int rpp = NTHREADS / tpr;
-  const int lane8 = (threadIdx.x % tpr) * 8;
-  for (int r = threadIdx.x / tpr; r < ROWS; r += rpp) {
-    const int s = blockIdx.x * ROWS + r;
-    if (s >= S) break;
-    Vec8 c, sn;
-    if (cos != nullptr) {
-      const int64_t t = int64_t(pos[int64_t(b) * S + s]) * hd + lane8;
-      c = load8f(cos + t);
-      sn = load8f(sin + t);
+// ---- the gather kernel ----
+
+constexpr int SMEM_MAX = 232448;          // a block's shared memory, opt-in
+
+struct GatherTensor {
+  CUtensorMap in;    // g: (hd, S, H, B), own strides, box (hd, SROWS, group, 1)
+  CUtensorMap out;   // out: (Hkv * hd, S, B), box (hd, SROWS, 1)
+  int rope, group, nout;   // RoPE flag, heads summed, output heads (Hkv)
+};
+
+struct GatherParams {
+  GatherTensor t[MAX_TENSORS];
+  const float* cos;  // NULL when no tensor takes RoPE
+  const float* sin;
+  const int* pos;
+  int tiles, S, groups;
+  int stages, stage;  // tiles in flight (2 .. SSTAGES), bytes a stage
+};
+
+// stages of a launch whose largest group is gmax (up to SSTAGES tiles of
+// gmax heads' 64 rows; fewer than 2 cannot run), and its shared memory
+inline int gather_stages(int hd, int gmax, int& smem) {
+  const int stage = gmax * SROWS * hd * 2;
+  const int fit = (SMEM_MAX - 1024 - 8 * SSTAGES) / stage;
+  const int stages = fit < SSTAGES ? fit : SSTAGES;
+  smem = stages * stage + 8 * SSTAGES + 1024;  // + alignment
+  return stages;
+}
+
+// grid (ceil(S / 64), B, groups)
+template <int HD>
+__global__ void __launch_bounds__(STHREADS, 3)
+gather_heads_kernel(const __grid_constant__ GatherParams p) {
+  constexpr int TPR = HD / 16;              // threads a row
+  constexpr int RPP = STHREADS / TPR;       // rows a pass
+  constexpr int PASSES = SROWS / RPP;
+  constexpr int HEAD = SROWS * HD;          // elements of one head's rows
+  extern __shared__ unsigned char raw_smem[];
+  unsigned char* smem =
+      raw_smem + ((1024 - (hopper::smem_u32(raw_smem) & 1023)) & 1023);
+  const uint32_t base = hopper::smem_u32(smem);
+  const uint32_t bar = base + p.stages * p.stage;
+  const int tid = threadIdx.x;
+  const int s0 = blockIdx.x * SROWS;
+  const int b = blockIdx.y;
+  const int lo = blockIdx.z * p.tiles / p.groups;
+  const int count = (blockIdx.z + 1) * p.tiles / p.groups - lo;
+
+  // tile lo + i of the launch -> its tensor and output head
+  auto locate = [&](int i, int& j) -> const GatherTensor& {
+    j = lo + i;
+    int t = 0;
+    while (j >= p.t[t].nout) j -= p.t[t++].nout;
+    return p.t[t];
+  };
+  auto issue = [&](int i) {                // thread 0: load tile i
+    int j;
+    const GatherTensor& T = locate(i, j);
+    const int st = i % p.stages;
+    const uint32_t full = bar + 8 * st;
+    hopper::mbar_expect_tx(full, T.group * HEAD * 2);
+    hopper::tma_load_4d(base + st * p.stage, &T.in, full, 0, s0,
+                        j * T.group, b);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) hopper::mbar_init(bar + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int i = 0; i < min(p.stages, count); ++i) issue(i);
+
+  // this thread's rows and columns, and their tables
+  const int c8 = (tid % TPR) * 8;
+  const int row0 = tid / TPR;
+  Vec8 cs[PASSES], sn[PASSES];
+  load_tables<HD, PASSES, RPP>(p.cos, p.sin, p.pos, b, p.S, s0 + row0, c8,
+                               cs, sn);
+
+  for (int i = 0; i < count; ++i) {
+    int j;
+    const GatherTensor& T = locate(i, j);
+    const int st = i % p.stages;
+    hopper::mbar_wait(bar + 8 * st, (i / p.stages) & 1);
+    if (T.rope || T.group > 1) {
+      bf16* tile = reinterpret_cast<bf16*>(smem + st * p.stage);
+#pragma unroll
+      for (int ps = 0; ps < PASSES; ++ps) {
+        bf16* r = tile + (row0 + ps * RPP) * HD + c8;
+        Vec8 a1 = load8(r), a2 = load8(r + HD / 2);
+        if (T.rope) rotate(a1, a2, cs[ps], sn[ps], true);
+        for (int q = 1; q < T.group; ++q) {
+          Vec8 x1 = load8(r + q * HEAD), x2 = load8(r + q * HEAD + HD / 2);
+          if (T.rope) rotate(x1, x2, cs[ps], sn[ps], true);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            a1.v[e] += x1.v[e];
+            a2.v[e] += x2.v[e];
+          }
+        }
+        store8(r, a1);
+        store8(r + HD / 2, a2);
+      }
+      hopper::fence_proxy_async();
     }
-    Vec8 a1, a2;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) a1.v[e] = a2.v[e] = 0.f;
-    for (int q = 0; q < group; ++q) {
-      const bf16* src = g + b * g_sb + (int64_t(j) * group + q) * g_sh +
-                        s * g_ss + lane8;
-      Vec8 x1 = load8(src);
-      Vec8 x2 = load8(src + half);
-      if (cos != nullptr) rotate(x1, x2, c, sn, true);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        a1.v[e] += x1.v[e];
-        a2.v[e] += x2.v[e];
+    __syncthreads();
+    if (tid == 0) {
+      hopper::tma_store_3d(&T.out, base + st * p.stage, j * HD, s0, b);
+      hopper::bulk_commit();
+      // refill the previous tile's stage once its store has read it
+      if (i >= 1 && i - 1 + p.stages < count) {
+        hopper::bulk_wait_read<1>();
+        issue(i - 1 + p.stages);
       }
     }
-    bf16* dst = out + (int64_t(b) * S + s) * Hkv * hd + j * hd + lane8;
-    store8(dst, a1);
-    store8(dst + half, a2);
   }
+  if (tid == 0) hopper::bulk_wait_read<0>();   // no store reads past exit
+}
+
+template <int HD>
+int gather_allow() {
+  static bool configured = false;
+  return hopper::allow_smem(gather_heads_kernel<HD>, SMEM_MAX, configured);
+}
+
+template <int HD>
+int gather_launch(const GatherParams& p, int smem, dim3 grid,
+                  cudaStream_t stream) {
+  const int e = gather_allow<HD>();
+  if (e != 0) return e;
+  gather_heads_kernel<HD><<<grid, STHREADS, smem, stream>>>(p);
+  return int(cudaGetLastError());
+}
+
+// CTAs of `kernel` (STHREADS threads, `smem` bytes of shared memory, the
+// size allowed by `allowed`, its cudaError_t) an SM holds at once, or
+// -(cudaError_t)
+template <typename Kernel>
+int ctas_per_sm(Kernel kernel, int allowed, int smem) {
+  if (allowed != 0) return -allowed;
+  int n = 0;
+  const cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, STHREADS, smem);
+  return e == cudaSuccess ? n : -int(e);
 }
 
 }  // namespace
@@ -336,44 +468,78 @@ extern "C" int opadpo_scatter_heads_bf16(int n, const void* const* x,
 
 // CTAs of the scatter kernel an SM holds at once, or -(cudaError_t)
 extern "C" int opadpo_scatter_heads_ctas_per_sm(int hd) {
-  int n = 0;
-  cudaError_t e;
-  if (hd == 128) {
-    static bool configured = false;
-    if (hopper::allow_smem(scatter_heads_kernel<128>, scatter_smem<128>(),
-                           configured))
-      return -1;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, scatter_heads_kernel<128>, STHREADS, scatter_smem<128>());
-  } else if (hd == 64) {
-    static bool configured = false;
-    if (hopper::allow_smem(scatter_heads_kernel<64>, scatter_smem<64>(),
-                           configured))
-      return -1;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, scatter_heads_kernel<64>, STHREADS, scatter_smem<64>());
-  } else {
-    return -int(cudaErrorInvalidValue);
-  }
-  return e == cudaSuccess ? n : -int(e);
+  if (hd == 128)
+    return ctas_per_sm(scatter_heads_kernel<128>, scatter_allow<128>(),
+                       scatter_smem<128>());
+  if (hd == 64)
+    return ctas_per_sm(scatter_heads_kernel<64>, scatter_allow<64>(),
+                       scatter_smem<64>());
+  return -int(cudaErrorInvalidValue);
 }
 
-// g: bf16 [B, H, S, hd] with strides g_sb, g_sh, g_ss (unit stride on hd);
-// cos, sin, pos as above (inverse rotation); out: bf16 [B, S, Hkv*hd]
-// contiguous, H = group * Hkv.  Returns the cudaError_t of the launch.
-extern "C" int opadpo_gather_heads_bf16(const void* g, const void* cos,
+// n (1..3) gradients: g[t] bf16, logically [B, H, S, hd], with element
+// strides g_strides[3t .. 3t + 2] on B, H and S (multiples of 8; unit
+// stride on hd; 16-byte aligned) -> out[t] bf16 [B, S, (H / group[t])*hd]
+// contiguous, each output head the sum of its group[t] heads, rotated back
+// where rope[t]; cos, sin and pos as for the scatter, or all NULL when no
+// tensor takes RoPE.  hd is 64 or 128, and two tiles of the largest group
+// must fit in a block's shared memory (gather_stages); `groups` (1 .. the
+// tiles, sum of H / group[t]) from ops/heads_layout.py gather_grid.
+// Returns as opadpo_scatter_heads_bf16 does.
+extern "C" int opadpo_gather_heads_bf16(int n, const void* const* g,
+                                        const int64_t* g_strides,
+                                        void* const* out, const int* rope,
+                                        const int* group, const void* cos,
                                         const void* sin, const void* pos,
-                                        void* out, int B, int S, int Hkv,
-                                        int hd, int group, int64_t g_sb,
-                                        int64_t g_sh, int64_t g_ss,
-                                        void* stream) {
-  if (hd <= 0 || hd % 16 != 0 || NTHREADS % (hd / 16) != 0 || S <= 0)
+                                        int B, int S, int H, int hd,
+                                        int groups, void* stream) {
+  if (n < 1 || n > MAX_TENSORS || (hd != 64 && hd != 128) || S <= 0 ||
+      B <= 0 || H <= 0 || groups < 1)
     return int(cudaErrorInvalidValue);
-  dim3 grid((S + ROWS - 1) / ROWS, Hkv, B);
-  gather_heads_kernel<<<grid, NTHREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(g), static_cast<const float*>(cos),
-      static_cast<const float*>(sin), static_cast<const int*>(pos),
-      static_cast<bf16*>(out), S, Hkv, hd, group, g_sb, g_sh, g_ss);
-  return int(cudaGetLastError());
+  GatherParams p = {};
+  int gmax = 1;
+  for (int t = 0; t < n; ++t) {
+    if (group[t] < 1 || H % group[t] != 0 || (rope[t] && cos == nullptr))
+      return int(cudaErrorInvalidValue);
+    const int64_t* st = g_strides + 3 * t;
+    const int64_t width = int64_t(H / group[t]) * hd;
+    int e = hopper::make_map_4d_bf16(&p.t[t].in, g[t], hd, S, H, B,
+                                     st[2] * 2, st[1] * 2, st[0] * 2, hd,
+                                     SROWS, group[t], 1);
+    if (e == 0)
+      e = hopper::make_map_3d_bf16(&p.t[t].out, out[t], width, S, B,
+                                   width * 2, int64_t(S) * width * 2, hd,
+                                   SROWS);
+    if (e != 0) return e;
+    p.t[t].rope = rope[t];
+    p.t[t].group = group[t];
+    p.t[t].nout = H / group[t];
+    p.tiles += H / group[t];
+    if (group[t] > gmax) gmax = group[t];
+  }
+  int smem;
+  p.stages = gather_stages(hd, gmax, smem);
+  if (groups > p.tiles || p.stages < 2) return int(cudaErrorInvalidValue);
+  p.stage = gmax * SROWS * hd * 2;
+  p.cos = static_cast<const float*>(cos);
+  p.sin = static_cast<const float*>(sin);
+  p.pos = static_cast<const int*>(pos);
+  p.S = S;
+  p.groups = groups;
+  const dim3 grid((S + SROWS - 1) / SROWS, B, groups);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return hd == 128 ? gather_launch<128>(p, smem, grid, st)
+                   : gather_launch<64>(p, smem, grid, st);
+}
+
+// CTAs of the gather kernel an SM holds at once when the launch's largest
+// group is gmax, or -(cudaError_t)
+extern "C" int opadpo_gather_heads_ctas_per_sm(int hd, int gmax) {
+  int smem;
+  if ((hd != 64 && hd != 128) || gmax < 1 ||
+      gather_stages(hd, gmax, smem) < 2)
+    return -int(cudaErrorInvalidValue);
+  return hd == 128
+             ? ctas_per_sm(gather_heads_kernel<128>, gather_allow<128>(), smem)
+             : ctas_per_sm(gather_heads_kernel<64>, gather_allow<64>(), smem);
 }

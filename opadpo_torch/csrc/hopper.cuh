@@ -6,8 +6,9 @@
 // stores, 128-byte swizzled wgmma descriptors and the wgmma forms they
 // use, the accumulator-fragment helpers, the matmuls' stage ring and
 // output store, and the host-side encoding of the 4-D tensor maps over
-// strided [B, S, H, D] bf16 views, of the 3-D maps over strided bf16
-// tensors and of the 2-D maps over contiguous bf16 / int8 matrices.
+// strided [B, S, H, D] bf16 views (swizzled, and unswizzled with any box),
+// of the 3-D maps over strided bf16 tensors and of the 2-D maps over
+// contiguous bf16 / int8 matrices.
 //
 // Fragment layout (wgmma m64nN, f32 accumulators): thread t of a
 // warpgroup holds rows (t/32)*16 + (t%32)/4 (+8) and, for each 8-column
@@ -579,6 +580,32 @@ inline int make_map_3d_bf16(CUtensorMap* map, const void* base, int64_t d0,
   const cuuint32_t box[3] = {cuuint32_t(b0), cuuint32_t(b1), 1};
   const cuuint32_t estr[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(base), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncodeBase + int(r);
+}
+
+// 4-D map over bf16 elements: dims (d0, d1, d2, d3), unit stride on d0 and
+// byte strides s1, s2, s3 (multiples of 16, in any order) on the others, a
+// box of b0 x b1 x b2 x b3, no swizzle; a load reads elements outside the
+// dims as zeros
+inline int make_map_4d_bf16(CUtensorMap* map, const void* base, int64_t d0,
+                            int64_t d1, int64_t d2, int64_t d3, int64_t s1,
+                            int64_t s2, int64_t s3, int b0, int b1, int b2,
+                            int b3) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kErrNoEncode;
+  const cuuint64_t dims[4] = {cuuint64_t(d0), cuuint64_t(d1), cuuint64_t(d2),
+                              cuuint64_t(d3)};
+  const cuuint64_t strides[3] = {cuuint64_t(s1), cuuint64_t(s2),
+                                 cuuint64_t(s3)};
+  const cuuint32_t box[4] = {cuuint32_t(b0), cuuint32_t(b1), cuuint32_t(b2),
+                             cuuint32_t(b3)};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                         const_cast<void*>(base), dims, strides, box, estr,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_NONE,

@@ -14,12 +14,13 @@
   is ``gather_heads``;
 - ``to_heads_qkv``: q, k and v of one stream in one ``scatter_heads_multi``
   launch (q and k rotated, k and v repeated ``rep`` times), its backward
-  one ``gather_heads`` per tensor.
+  dQ, dK and dV in one ``gather_heads_multi`` launch.
 
 On a CUDA tensor each wrapper launches its kernel in ``csrc/heads_layout.cu``
 (bf16 only) or raises; on a CPU tensor it runs the plain version beside it
-(the multi-tensor form: one plain call per tensor).  ``scatter_grid`` fixes
-the scatter kernel's grid from the shape.
+(the multi-tensor forms: one plain call per tensor).  ``scatter_grid``
+fixes both kernels' grids from the shape (``gather_grid`` is the same
+rule).
 The JAX package's epilogue ``_from_heads`` has no counterpart: the port's
 flash kernels write ``[B, S, H, hd]``, which is ``[B, S, H*hd]`` as it is.
 """
@@ -85,14 +86,12 @@ def _check_rope_inputs(cos_table, sin_table, positions, hd):
     return positions.to(torch.int32).contiguous()
 
 
-def _check_hd(hd):
-    if hd <= 0 or hd % 16 or 128 % (hd // 16):
-        raise ValueError(f"head dim {hd} not supported (16 to 256, a power "
-                         "of two)")
-
-
-SCATTER_ROWS = 64      # rows of one tile of the scatter kernel
-MAX_TENSORS = 3        # tensors one scatter launch takes
+SCATTER_ROWS = 64      # rows of one tile of either kernel
+MAX_TENSORS = 3        # tensors one launch of either kernel takes
+HEAD_DIMS = (64, 128)  # the kernels' instances
+# a block's shared memory (bytes, opt-in), of which the gather kernel
+# needs two stages of the launch's largest group of heads
+SMEM_MAX = 232448
 
 
 def scatter_grid(b: int, s: int, tiles: int, slots: int):
@@ -108,6 +107,10 @@ def scatter_grid(b: int, s: int, tiles: int, slots: int):
     return blocks, max(1, min(tiles, slots // (b * blocks)))
 
 
+# The gather kernel's grid: the same rule, over the launch's output (kv)
+# heads, its CTAs resident at once by its own occupancy.
+gather_grid = scatter_grid
+
 _slots: dict = {}
 
 
@@ -115,16 +118,30 @@ def _arr(ctype, vals):
     return (ctype * len(vals))(*vals)
 
 
-def _scatter_slots(device, hd) -> int:
-    """CTAs of the scatter kernel the card holds at once."""
-    key = (device.index, hd)
+def _resident(device, key, query) -> int:
+    """CTAs of one kernel the card holds at once: the SMs times
+    ``query()``, its CTAs an SM, cached by ``key``."""
+    key = (device.index, *key)
     if key not in _slots:
-        per_sm = _lib().opadpo_scatter_heads_ctas_per_sm(hd)
+        per_sm = query()
         if per_sm < 1:
-            raise RuntimeError(f"scatter_heads: occupancy query gave {per_sm}")
+            raise RuntimeError(f"{key[1]}: occupancy query gave {per_sm}")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         _slots[key] = sms * per_sm
     return _slots[key]
+
+
+def _scatter_slots(device, hd) -> int:
+    """CTAs of the scatter kernel the card holds at once."""
+    return _resident(device, ("scatter_heads", hd),
+                     lambda: _lib().opadpo_scatter_heads_ctas_per_sm(hd))
+
+
+def _gather_slots(device, hd, gmax) -> int:
+    """CTAs of the gather kernel the card holds at once, its largest group
+    of heads ``gmax``."""
+    return _resident(device, ("gather_heads", hd, gmax),
+                     lambda: _lib().opadpo_gather_heads_ctas_per_sm(hd, gmax))
 
 
 def scatter_heads_multi_cuda(xs, cos_table, sin_table, positions,
@@ -138,7 +155,7 @@ def scatter_heads_multi_cuda(xs, cos_table, sin_table, positions,
     hd = xs[0].shape[2] * reps[0] // num_heads
     if not 1 <= n <= MAX_TENSORS or len(ropes) != n or len(reps) != n:
         raise ValueError(f"{n} tensors: one launch takes 1 to {MAX_TENSORS}")
-    if hd not in (64, 128):
+    if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not supported (64 or 128)")
     nsrc = []
     for x, rep in zip(xs, reps):
@@ -188,34 +205,64 @@ def scatter_heads_cuda(x, cos_table, sin_table, positions, num_heads: int,
 scatter_heads_cuda.launches = 0
 
 
+def gather_heads_multi_cuda(gs, cos_table, sin_table, positions, ropes,
+                            groups):
+    """One launch of the gather kernel over up to three bf16 CUDA gradients
+    ``gs[t]``, logically ``[B, H, S, hd]`` with any strides (multiples of 8
+    elements, unit stride on hd, 16-byte aligned base), rotated back where
+    ``ropes[t]``, each group of ``groups[t]`` heads summed -> a list of
+    contiguous bf16 ``[B, S, (H/groups[t])*hd]``.  hd is 64 or 128."""
+    n = len(gs)
+    if not 1 <= n <= MAX_TENSORS or len(ropes) != n or len(groups) != n:
+        raise ValueError(f"{n} tensors: one launch takes 1 to {MAX_TENSORS}")
+    b, h, s, hd = gs[0].shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not supported (64 or 128)")
+    for g, group in zip(gs, groups):
+        if not g.is_cuda or g.dtype != torch.bfloat16 \
+                or g.device != gs[0].device:
+            raise ValueError("gather_heads_cuda takes bf16 CUDA tensors on "
+                             "one device")
+        if g.shape != (b, h, s, hd) or group < 1 or h % group:
+            raise ValueError(f"g {tuple(g.shape)} does not split into groups "
+                             f"of {group} heads like {(b, h, s, hd)}")
+        if g.stride(3) != 1 or any(st % 8 for st in g.stride()[:3]) \
+                or g.data_ptr() % 16:
+            raise ValueError("g needs unit stride on hd, strides of 16 bytes "
+                             "and a 16-byte aligned base")
+    gmax = max(groups)
+    if 2 * gmax * SCATTER_ROWS * hd * 2 > SMEM_MAX - 1024 - 32:
+        raise ValueError(f"groups of {gmax} heads of {hd}: two tiles do not "
+                         "fit in a block's shared memory")
+    rope = any(ropes)
+    pos = _check_rope_inputs(cos_table, sin_table, positions, hd) if rope \
+        else None
+    outs = [torch.empty((b, s, (h // group) * hd), dtype=torch.bfloat16,
+                        device=g.device) for g, group in zip(gs, groups)]
+    _, grid_groups = gather_grid(b, s, sum(h // group for group in groups),
+                                 _gather_slots(gs[0].device, hd, gmax))
+    err = _lib().opadpo_gather_heads_bf16(
+        n, _arr(ctypes.c_void_p, [g.data_ptr() for g in gs]),
+        _arr(ctypes.c_int64, [st for g in gs for st in g.stride()[:3]]),
+        _arr(ctypes.c_void_p, [o.data_ptr() for o in outs]),
+        _arr(ctypes.c_int, [int(r) for r in ropes]),
+        _arr(ctypes.c_int, groups),
+        cos_table.data_ptr() if rope else None,
+        sin_table.data_ptr() if rope else None,
+        pos.data_ptr() if rope else None, b, s, h, hd, grid_groups,
+        torch.cuda.current_stream(gs[0].device).cuda_stream)
+    _build.check(err, "gather_heads")
+    gather_heads_cuda.launches += 1        # the gather kernel's, any form
+    return outs
+
+
 def gather_heads_cuda(g, cos_table, sin_table, positions, rope: bool,
                       group: int = 1):
-    """Launch the gather-heads kernel: bf16 CUDA ``g``, logically ``[B, H, S,
-    hd]`` with any strides and unit stride on hd -> contiguous bf16 ``[B, S,
-    (H/group)*hd]``."""
-    b, h, s, hd = g.shape
-    if not g.is_cuda or g.dtype != torch.bfloat16:
-        raise ValueError("gather_heads_cuda takes a bf16 CUDA tensor")
-    if h % group:
-        raise ValueError(f"{h} heads do not split into groups of {group}")
-    _check_hd(hd)
-    if g.stride(3) != 1 or any(st % 8 for st in g.stride()[:3]) \
-            or g.data_ptr() % 16:
-        raise ValueError("g needs unit stride on hd and 16-byte aligned rows")
-    pos = None
-    if rope:
-        pos = _check_rope_inputs(cos_table, sin_table, positions, hd)
-    out = torch.empty((b, s, (h // group) * hd), dtype=torch.bfloat16,
-                      device=g.device)
-    err = _lib().opadpo_gather_heads_bf16(
-        g.data_ptr(), cos_table.data_ptr() if rope else None,
-        sin_table.data_ptr() if rope else None,
-        pos.data_ptr() if rope else None, out.data_ptr(), b, s, h // group,
-        hd, group, g.stride(0), g.stride(1), g.stride(2),
-        torch.cuda.current_stream(g.device).cuda_stream)
-    _build.check(err, "gather_heads")
-    gather_heads_cuda.launches += 1
-    return out
+    """Launch the gather-heads kernel on one tensor: bf16 CUDA ``g``,
+    logically ``[B, H, S, hd]`` with any strides and unit stride on hd ->
+    contiguous bf16 ``[B, S, (H/group)*hd]``."""
+    return gather_heads_multi_cuda([g], cos_table, sin_table, positions,
+                                   [rope], [group])[0]
 
 
 gather_heads_cuda.launches = 0
@@ -231,10 +278,13 @@ def _lib():
             ip, ip, ip, vp, vp, vp, i, i, i, i, vp]
         lib.opadpo_scatter_heads_ctas_per_sm.argtypes = [i]
         lib.opadpo_gather_heads_bf16.argtypes = [
-            vp, vp, vp, vp, vp, i, i, i, i, i, i64, i64, i64, vp]
+            i, ctypes.POINTER(vp), ctypes.POINTER(i64), ctypes.POINTER(vp),
+            ip, ip, vp, vp, vp, i, i, i, i, i, vp]
+        lib.opadpo_gather_heads_ctas_per_sm.argtypes = [i, i]
         for fn in (lib.opadpo_scatter_heads_bf16,
                    lib.opadpo_scatter_heads_ctas_per_sm,
-                   lib.opadpo_gather_heads_bf16):
+                   lib.opadpo_gather_heads_bf16,
+                   lib.opadpo_gather_heads_ctas_per_sm):
             fn.restype = ctypes.c_int
     return lib
 
@@ -267,6 +317,18 @@ def gather_heads(g, cos_table, sin_table, positions, rope: bool,
         return gather_heads_cuda(g, cos_table, sin_table, positions, rope,
                                  group)
     return gather_heads_plain(g, cos_table, sin_table, positions, rope, group)
+
+
+def gather_heads_multi(gs, cos_table, sin_table, positions, ropes, groups):
+    """``gather_heads`` of up to three gradients sharing B, H, S, hd and the
+    positions, tensor t with ``ropes[t]`` and ``groups[t]``; CUDA launches
+    the kernel once."""
+    if on_cuda(gs[0]):
+        return gather_heads_multi_cuda(gs, cos_table, sin_table, positions,
+                                       ropes, groups)
+    return [gather_heads_plain(g, cos_table, sin_table, positions, rope,
+                               group)
+            for g, rope, group in zip(gs, ropes, groups)]
 
 
 class _ToHeads(torch.autograd.Function):
@@ -311,11 +373,16 @@ class _ToHeadsQKV(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gq, gk, gv):
         cos_table, sin_table, positions = ctx.saved_tensors
-        grads = [gather_heads(g, cos_table, sin_table, positions, rope, r)
-                 if need else None
-                 for g, rope, r, need in zip(
-                     (gq, gk, gv), QKV_ROPE, (1, ctx.rep, ctx.rep),
-                     ctx.needs_input_grad[:3])]
+        need = [t for t in range(3) if ctx.needs_input_grad[t]]
+        grads = [None] * 3
+        if need:
+            gs, groups = (gq, gk, gv), (1, ctx.rep, ctx.rep)
+            outs = gather_heads_multi([gs[t] for t in need], cos_table,
+                                      sin_table, positions,
+                                      [QKV_ROPE[t] for t in need],
+                                      [groups[t] for t in need])
+            for t, out in zip(need, outs):
+                grads[t] = out
         return (*grads, None, None, None, None, None)
 
 
@@ -323,7 +390,8 @@ def to_heads_qkv(q2, k2, v2, cos_table, sin_table, positions,
                  num_heads: int, rep: int = 1):
     """q ``[B, S, H*hd]``, k and v ``[B, S, (H/rep)*hd]`` -> ``(q, k, v)``
     each ``[B, H, S, hd]``: RoPE on q and k, the GQA repeat on k and v, in
-    one scatter launch on CUDA; the VJP is ``gather_heads`` per tensor, as
-    three ``to_heads`` calls would give."""
+    one scatter launch on CUDA; the VJP, ``gather_heads`` of each gradient
+    (as three ``to_heads`` calls would give), is one gather launch over
+    the gradients asked for."""
     return _ToHeadsQKV.apply(q2, k2, v2, cos_table, sin_table, positions,
                              num_heads, rep)

@@ -397,6 +397,80 @@ def test_scatter_heads_qkv_matches_plain_on_gpu(rep, hd, s):
         assert (out.float() - ref.float()).abs().max().item() <= 1e-2 * top
 
 
+def _grads_on_gpu(b, h, s, hd, layout, g, offset=24):
+    """A bf16 gradient, logically ``[B, H, S, hd]``, laid out as the
+    training path hands it to the gather: ``bshd`` the permuted view of
+    the flash backward's ``[B, S, H, hd]``, ``slice`` that view of a
+    longer ``[B, offset + S, H, hd]`` at ``offset`` along S (the response
+    stream's dK / dV), ``bhsd`` contiguous."""
+    if layout == "bhsd":
+        return torch.randn(b, h, s, hd, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+    full = torch.randn(b, s + (offset if layout == "slice" else 0), h, hd,
+                       generator=g, device="cuda", dtype=torch.bfloat16)
+    return full.permute(0, 2, 1, 3)[:, :, full.shape[1] - s:]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [27, 703])
+@pytest.mark.parametrize("rep,hd", [(1, 128), (2, 128), (1, 64), (2, 64)])
+def test_gather_heads_qkv_matches_plain_on_gpu(rep, hd, s):
+    """dQ, dK and dV in one gather launch (``gather_heads_multi_cuda``: dQ
+    and dK rotated back, dK and dV summed over groups of ``rep`` heads),
+    in each of the three layouts the training path hands it, against
+    three calls of the plain version: within one bf16 rounding of the f32
+    result (1e-2 of the largest entry); two launches bitwise equal; one
+    launch counted per call; the tail block writes nothing past S (the
+    output is checked in full)."""
+    g = _gen()
+    dev = "cuda"
+    b, h = 2, 8
+    cos, sin = rope_frequencies(hd, 1024, device=dev)
+    pos = torch.randint(0, 1024, (b, s), generator=g, device=dev)
+    ropes, groups = (True, True, False), (1, rep, rep)
+    for layout in ("bshd", "slice", "bhsd"):
+        gs = [_grads_on_gpu(b, h, s, hd, layout, g) for _ in range(3)]
+        before = t_heads.gather_heads_cuda.launches
+        outs = t_heads.gather_heads_multi_cuda(gs, cos, sin, pos, ropes,
+                                               groups)
+        again = t_heads.gather_heads_multi_cuda(gs, cos, sin, pos, ropes,
+                                                groups)
+        assert t_heads.gather_heads_cuda.launches == before + 2
+        for gr, out, twice, rope, r in zip(gs, outs, again, ropes, groups):
+            ref = t_heads.gather_heads_plain(gr, cos, sin, pos, rope, r)
+            assert out.shape == (b, s, (h // r) * hd) and out.is_contiguous()
+            assert torch.equal(out, twice), layout
+            top = ref.float().abs().max().item()
+            err = (out.float() - ref.float()).abs().max().item()
+            assert err <= 1e-2 * top, (layout, rope, r, err, top)
+
+
+@pytest.mark.gpu
+def test_gather_heads_refuses_what_it_cannot_take_on_gpu():
+    """A gradient whose base is not 16-byte aligned, or whose row stride is
+    not a multiple of 8 elements, raises before any launch (no fallback),
+    as does a head dim without a kernel instance."""
+    g = _gen()
+    cos, sin = rope_frequencies(128, 256, device="cuda")
+    pos = torch.zeros(2, 32, dtype=torch.int64, device="cuda")
+    flat = torch.randn(2 * 4 * 32 * 128 + 8, generator=g, device="cuda",
+                       dtype=torch.bfloat16)
+    before = t_heads.gather_heads_cuda.launches
+    misaligned = flat[4:4 + 2 * 4 * 32 * 128].view(2, 4, 32, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        t_heads.gather_heads_multi_cuda([misaligned], cos, sin, pos, [True],
+                                        [1])
+    wide = torch.randn(2, 4, 32, 132, generator=g, device="cuda",
+                       dtype=torch.bfloat16)[..., :128]
+    with pytest.raises(ValueError, match="strides"):
+        t_heads.gather_heads_multi_cuda([wide], cos, sin, pos, [True], [1])
+    with pytest.raises(ValueError, match="head dim"):
+        t_heads.gather_heads_cuda(torch.zeros(2, 4, 32, 32, device="cuda",
+                                              dtype=torch.bfloat16),
+                                  None, None, None, False)
+    assert t_heads.gather_heads_cuda.launches == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,n,k", [(1, 200, 256), (8, 4096, 4096),
                                    (37, 300, 384), (577, 1024, 1024),

@@ -172,13 +172,36 @@ def test_to_heads_and_from_heads_match_jax(rep):
            1e-2, "from_heads")
 
 
+def _grad_in_layout(g, layout, rng, offset=5):
+    """numpy ``[B, H, S, hd]`` -> a bf16 tensor of its values, laid out as
+    a gradient reaches ``to_heads_qkv``'s backward: ``bshd`` the permuted
+    view of a contiguous ``[B, S, H, hd]`` (the flash backward's output),
+    ``slice`` that view of a longer ``[B, offset + S, H, hd]`` at
+    ``offset`` along S (the response stream's dK / dV out of the
+    ``[prefix ++ response]`` gradient), ``bhsd`` contiguous head-major."""
+    gt = t(g).to(torch.bfloat16)
+    if layout == "bhsd":
+        return gt
+    if layout == "bshd":
+        return gt.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+    b, h, s, hd = g.shape
+    big = t(rng.normal(size=(b, offset + s, h, hd)).astype(np.float32))
+    big = big.to(torch.bfloat16)
+    big[:, offset:] = gt.permute(0, 2, 1, 3)
+    return big.permute(0, 2, 1, 3)[:, :, offset:]
+
+
+@pytest.mark.parametrize("layout", ["bshd", "slice", "bhsd"])
 @pytest.mark.parametrize("rep", [1, 2])
-def test_to_heads_qkv_matches_jax(rep):
+def test_to_heads_qkv_matches_jax(rep, layout, monkeypatch):
     """``to_heads_qkv`` (q and k rotated, k and v repeated ``rep`` times,
     one scatter launch on the card) and its VJP against three calls of the
     JAX ``_to_heads`` custom VJP: q with RoPE, k with RoPE and the repeat,
-    v with the repeat only.  bf16 in both packages: 1e-2 of the largest
-    entry, one bf16 step."""
+    v with the repeat only.  The backward makes one ``gather_heads_multi``
+    call (one gather launch on the card) over the gradients asked for,
+    here in each ``layout`` the training path hands it, strides unchanged;
+    with k frozen, over dQ and dV alone.  bf16 in both packages: 1e-2 of
+    the largest entry, one bf16 step."""
     b, s, h, hd = 2, 27, 4, 64
     pos, (cos_g, sin_g) = _rope_inputs(b, s, hd, seed=10 + rep)
     rng = np.random.default_rng(10 + rep)
@@ -187,11 +210,19 @@ def test_to_heads_qkv_matches_jax(rep):
     gs = [rng.normal(size=(b, h, s, hd)).astype(np.float32)
           for _ in range(3)]
     cos, sin = rope_frequencies(hd, 256)
+    calls = []
+    multi = t_heads.gather_heads_multi
 
+    def spy(grads, *args):
+        calls.append([(tuple(g.shape), g.stride()) for g in grads])
+        return multi(grads, *args)
+
+    monkeypatch.setattr(t_heads, "gather_heads_multi", spy)
+    gts = [_grad_in_layout(g, layout, rng) for g in gs]
     xts = [t(x).to(torch.bfloat16).requires_grad_(True) for x in xs]
     outs = t_heads.to_heads_qkv(*xts, cos, sin, t(pos, torch.int64), h, rep)
-    dxs = torch.autograd.grad(outs, xts,
-                              [t(g).to(torch.bfloat16) for g in gs])
+    dxs = torch.autograd.grad(outs, xts, gts)
+    assert calls == [[(tuple(g.shape), g.stride()) for g in gts]]
     for name, x, g, out, dx, rope, r in zip(
             "qkv", xs, gs, outs, dxs, (True, True, False), (1, rep, rep)):
         j_out, vjp = jax.vjp(
@@ -202,7 +233,13 @@ def test_to_heads_qkv_matches_jax(rep):
         assert out.shape == (b, h, s, hd) and dx.shape == x.shape
         _close([out.detach().float().numpy(), dx.float().numpy()],
                [np.asarray(j_out, np.float32), np.asarray(j_dx, np.float32)],
-               1e-2, f"to_heads_qkv {name}")
+               1e-2, f"to_heads_qkv {name} {layout}")
+
+    xts[1] = xts[1].detach()
+    outs = t_heads.to_heads_qkv(*xts, cos, sin, t(pos, torch.int64), h, rep)
+    dq, dv = torch.autograd.grad(outs, [xts[0], xts[2]], gts)
+    assert len(calls) == 2 and len(calls[1]) == 2
+    assert torch.equal(dq, dxs[0]) and torch.equal(dv, dxs[2])
 
 
 def test_flash_attention_fused_shared_matches_jax():
