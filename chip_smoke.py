@@ -79,7 +79,31 @@ Phases, each fatal on failure:
      every loss and stat finite, the adapter moved by the last step, and
      the launch counters of kernels #1-#5 equal to the counts derived from
      the configuration;
-  13. the quantized paths: the same 7B model quantized to int8 in place
+  13. a checkpoint on disk: the same 7B weights written in the layout
+     users download (original LLaVA, two ``pytorch_model-*.bin`` shards
+     with their index and ``config.json``; the CLIP tower apart as
+     ``model.safetensors`` through the port's writer, its 24th layer and
+     ``post_layernorm`` random, for the loader to skip) and an r 256 /
+     alpha 512 PEFT adapter, read back by ``setup_model(model_dir,
+     vision_dir=...)`` and ``load_peft_adapter``: every tensor bitwise
+     equal, with the bytes read, the load time and GB/s and the peak host
+     RSS (free disk checked first: ~23 GB for these three phases);
+  14. the serve CLI on that checkpoint: ``serve.parse_args`` and
+     ``build_worker``, served as ``serve.main`` serves (an ephemeral
+     port): step 9's nine requests give step 9's answers string for
+     string, then with ``--adapter-path`` those of an in-memory worker
+     with the same adapter; #1 and #6 launched as every prefill and
+     decode step needs;
+  15. stage 4 from that checkpoint: ``configs/llava_dpo.yaml`` through the
+     port's YAML reader and overrides (r 256 / alpha 512, 2 steps of batch
+     2, checkpoint every 2), ``opadpo_train.train`` over 4 seeded rows of
+     the port's ``DPODataset`` / ``DPOCollator`` (query 128, responses
+     896; PNG images through PIL, or seeded pixels where PIL is missing):
+     2 finite log lines, ``checkpoint-2`` with a moved adapter,
+     ``completed``, a second call returning at once, and #1-#5 launched as
+     2 rollouts and 2 steps derive; the temporary directories go in a
+     ``finally``;
+  16. the quantized paths: the same 7B model quantized to int8 in place
      serves the 9 requests with an int8 decode head, then trains at the
      single-chip recipe (``configs/llava_dpo_singlechip.yaml``: w8a8 with
      the int8 backward, LoRA r 64 / alpha 128) cut to per-device batch 1:
@@ -92,7 +116,7 @@ Phases, each fatal on failure:
      derived from its batches, #9 / #10's odd-shape variant never launched
      (also in the tiny references of step 8), and the 13B run launching
      both of #11's kernels;
-  14. one JSON line of the 11 kernels' numbers, the card line, and last
+  17. one JSON line of the 11 kernels' numbers, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA GPU and the repository around it: anywhere else it exits
@@ -105,6 +129,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -136,17 +161,46 @@ def log(*a):
 
 class WordTokenizer:
     """Word-level stand-in for the LLaMA tokenizer, with the HF surface the
-    server uses.  Like the real one it keeps these serving prompts under
-    128 tokens (a character-level one would not), so a batch takes the
-    shapes real traffic gives: qlen 128, 703 positions with the image.
-    Ids lie in [3, 32000); BOS is 1, EOS 2, pad 0."""
+    server and the DPO collator use.  Like the real one it keeps these
+    serving prompts under 128 tokens (a character-level one would not), so
+    a batch takes the shapes real traffic gives: qlen 128, 703 positions
+    with the image.  Ids lie in [3, 32000); BOS is 1, EOS 2, pad 0."""
 
     bos_token_id, eos_token_id, pad_token_id = 1, 2, 0
+    padding_side = "right"
+    GLYPH = 30861        # '图', which the DPO collator turns into <image>
 
-    def __call__(self, text: str):
-        ids = [self.bos_token_id] + [3 + zlib.crc32(w.encode()) % 31997
-                                     for w in text.split()]
-        return types.SimpleNamespace(input_ids=ids)
+    def _ids(self, text: str):
+        return [self.bos_token_id] + [
+            self.GLYPH if w == "图" else 3 + zlib.crc32(w.encode()) % 31997
+            for w in text.split()]
+
+    def __call__(self, text, padding=None, truncation=False,
+                 max_length=None):
+        """One text -> its ids; a list -> padded rows (``padding``
+        "max_length" or longest, on ``padding_side``) with their
+        attention masks, as the DPO collator calls it."""
+        if isinstance(text, str):
+            ids = self._ids(text)
+            if truncation and max_length:
+                ids = ids[:max_length]
+            return types.SimpleNamespace(input_ids=ids,
+                                         attention_mask=[1] * len(ids))
+        import numpy as np
+
+        rows = [self._ids(x)[:max_length] if truncation and max_length
+                else self._ids(x) for x in text]
+        width = (max_length if padding == "max_length"
+                 else max(len(r) for r in rows))
+        ids = np.full((len(rows), width), self.pad_token_id, np.int64)
+        mask = np.zeros((len(rows), width), np.int64)
+        for i, r in enumerate(rows):
+            r = r[:width]
+            if self.padding_side == "left":
+                ids[i, width - len(r):], mask[i, width - len(r):] = r, 1
+            else:
+                ids[i, :len(r)], mask[i, :len(r)] = r, 1
+        return types.SimpleNamespace(input_ids=ids, attention_mask=mask)
 
     def decode(self, ids, skip_special_tokens: bool = True) -> str:
         special = (self.bos_token_id, self.eos_token_id, self.pad_token_id)
@@ -1265,12 +1319,22 @@ def _serve(model, cfg, reqs, warm=True, **worker_kw):
     (unless not ``warm``), with every kernel counter set to 0 just before
     them -> (responses, ``Sampler.stats`` of their batches, the counters
     just after, wall s)."""
+    from opadpo_torch.serve import InferenceWorker
+
+    return _serve_worker(InferenceWorker(model, cfg, WordTokenizer(),
+                                         **worker_kw), reqs, warm)
+
+
+def _serve_worker(worker, reqs, warm=True, args=None):
+    """``_serve`` for a worker already built, behind the server that
+    ``serve.main`` starts for ``args`` (a server on an ephemeral local port
+    without them); the worker is closed at the end."""
     from http.server import ThreadingHTTPServer
 
-    from opadpo_torch.serve import InferenceWorker, make_handler
+    from opadpo_torch.serve import make_handler, make_server
 
-    worker = InferenceWorker(model, cfg, WordTokenizer(), **worker_kw)
-    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(worker))
+    server = (make_server(args, worker) if args is not None else
+              ThreadingHTTPServer(("127.0.0.1", 0), make_handler(worker)))
     threading.Thread(target=server.serve_forever, daemon=True).start()
     port = server.server_address[1]
     counters = _counters()
@@ -1932,6 +1996,363 @@ def phase_train(model, card, label="train", n_steps: int = 2, b: int = 2,
     return res
 
 
+def _gb(nbytes):
+    return nbytes / 1e9
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_rss_gb():
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def phase_checkpoint(model, card, root):
+    """The served and trained 7B bf16 weights written to disk in the
+    layout users download (original LLaVA: two ``pytorch_model-*.bin``
+    shards, their index and ``config.json``; the CLIP tower apart as
+    ``model.safetensors`` through the port's writer, with a 24th layer and
+    ``post_layernorm`` drawn at random, which the loader must skip) and an
+    r 256 / alpha 512 PEFT adapter, then read back through
+    ``setup_model(model_dir, vision_dir=...)`` and ``load_peft_adapter``:
+    every tensor bitwise equal to the one in memory.  -> (result, the
+    in-memory adapter, the directories)."""
+    import torch
+
+    from opadpo_torch.models import loader
+    from opadpo_torch.models import safetensors_io as sio
+    from opadpo_torch.models.lora import named_leaves
+    from opadpo_torch.pipeline.runtime import setup_model
+    from opadpo_torch.tools.profile_train import RECIPE_LORA, make_adapters
+
+    cfg, dev = model.cfg, next(model.parameters()).device
+    dirs = {k: os.path.join(root, k) for k in ("llava", "clip", "opa",
+                                                "stage4")}
+    adapter, _ = make_adapters(cfg, RECIPE_LORA,
+                               torch.Generator(device=dev).manual_seed(5))
+    n_lora = sum(t.numel() for _, t in named_leaves(adapter))
+    model_bytes = sum(t.numel() * t.element_size()
+                      for t in model.parameters())
+    # base + CLIP, the f32 PEFT adapter, and stage 4's checkpoint-2 (f32
+    # PEFT adapter, bf16 full adapter and two bf16 moments)
+    need = model_bytes + n_lora * (4 + 4 + 3 * 2)
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    log(f"[ckpt] {_gb(free):.1f} GB free at {root}; the three phases need "
+        f"about {_gb(need):.1f} GB")
+    check(free > 1.1 * need, f"only {_gb(free):.1f} GB free at {root}, "
+          f"need {_gb(1.1 * need):.1f} GB for the checkpoint phases")
+
+    rss = {"before": _peak_rss_gb()}
+    t0 = time.perf_counter()
+    shards = loader.save_llava_checkpoint(model, dirs["llava"], num_shards=2)
+    clip = loader.clip_state_dict(model.vision)
+    g = torch.Generator(device=dev).manual_seed(6)
+    top = cfg.vision.num_layers - 1
+    for name, w in loader.clip_state_dict(model.vision, "x.").items():
+        if name.startswith("x.encoder.layers.0."):
+            key = name.replace("x.encoder.layers.0.",
+                               f"vision_model.encoder.layers.{top}.")
+            clip[key] = (torch.randn(w.shape, generator=g, device=dev)
+                         * 0.02).to(w.dtype)
+    for part in ("weight", "bias"):
+        clip[f"vision_model.post_layernorm.{part}"] = torch.randn(
+            cfg.vision.hidden_size, generator=g, device=dev)
+    os.makedirs(dirs["clip"])
+    sio.save_file(clip, os.path.join(dirs["clip"], "model.safetensors"))
+    loader.save_peft_adapter(adapter, dirs["opa"], RECIPE_LORA)
+    write_s = time.perf_counter() - t0
+    rss["written"] = _peak_rss_gb()
+    sizes = {k: _dir_bytes(dirs[k]) for k in ("llava", "clip", "opa")}
+    log(f"[ckpt] wrote {shards} ({_gb(sizes['llava']):.2f} GB), CLIP "
+        f"{_gb(sizes['clip']):.3f} GB ({top + 1} layers + post_layernorm), "
+        f"adapter {_gb(sizes['opa']):.3f} GB (f32, r {RECIPE_LORA.rank}) in "
+        f"{write_s:.1f} s")
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    cfg2, loaded = setup_model(dirs["llava"], vision_dir=dirs["clip"],
+                               device=dev)
+    _sync(dev)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lora = loader.load_peft_adapter(dirs["opa"], cfg.llama, device=dev)
+    _sync(dev)
+    adapter_s = time.perf_counter() - t0
+    rss["loaded"] = _peak_rss_gb()
+    check(cfg2 == cfg, f"config.json gave {cfg2}, not the 7B's {cfg}")
+    want, got = model.state_dict(), loaded.state_dict()
+    check(set(got) == set(want), "loaded parameter names differ")
+    bad = [k for k in want if got[k].dtype != want[k].dtype
+           or not torch.equal(got[k], want[k])]
+    check(not bad, f"{len(bad)} loaded tensors differ, e.g. {bad[:3]}")
+    a, b = named_leaves(adapter), named_leaves(lora)
+    check([p for p, _ in a] == [p for p, _ in b], "adapter entries differ")
+    bad = [p for (p, x), (_, y) in zip(a, b)
+           if x.dtype != y.dtype or not torch.equal(x, y)]
+    check(not bad, f"{len(bad)} adapter tensors differ, e.g. {bad[:3]}")
+    del loaded, lora, got
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    read = sizes["llava"] + sizes["clip"]
+    res = {"model_gb": _gb(sizes["llava"]), "clip_gb": _gb(sizes["clip"]),
+           "adapter_gb": _gb(sizes["opa"]), "write_s": write_s,
+           "load_s": load_s, "load_gb_per_s": _gb(read) / load_s,
+           "adapter_load_s": adapter_s,
+           "adapter_gb_per_s": _gb(sizes["opa"]) / adapter_s,
+           "peak_host_rss_gb": rss, "tensors_checked": len(want) + len(a),
+           "card": card}
+    log(f"[ckpt] setup_model read {_gb(read):.2f} GB in {load_s:.2f} s "
+        f"({res['load_gb_per_s']:.2f} GB/s, file dtype to the card, cast "
+        f"there); adapter {adapter_s:.2f} s ({res['adapter_gb_per_s']:.2f} "
+        f"GB/s); peak host RSS (the process's, ru_maxrss) {rss['before']:.2f}"
+        f" GB before this phase, {rss['written']:.2f} after writing, "
+        f"{rss['loaded']:.2f} after loading; {res['tensors_checked']} "
+        f"tensors bitwise equal; card: {card}")
+    log(f"[ckpt] {json.dumps(res)}")
+    return res, adapter, dirs
+
+
+def phase_serve_cli(model, card, dirs, adapter, plain_answers):
+    """``serve.parse_args`` / ``build_worker`` on the checkpoint written
+    by ``phase_checkpoint``, served as ``serve.main`` serves it (its
+    ``make_server``, on an ephemeral port): phase 9's nine requests
+    give phase 9's answers, string for string, with every prefill and
+    decode step on #1 and #6; then with ``--adapter-path`` the answers of
+    an in-memory worker given the same adapter."""
+    import torch
+
+    from opadpo_torch import serve
+
+    cfg, dev = model.cfg, next(model.parameters()).device
+    prompts = [f"Describe object {i} in the image in detail."
+               for i in range(8)]
+    reqs = [{"prompt": p} for p in prompts]
+    reqs.append({"prompt": prompts[0], "max_new_tokens": 8})
+    argv = ["--model-path", dirs["llava"], "--vision-path", dirs["clip"],
+            "--kv-bits", "8", "--max-new-tokens", "64", "--max-batch", "8",
+            "--port", "0", "--device", dev.type]
+    res = {"card": card}
+    for label, extra in (("base", []), ("adapter",
+                                        ["--adapter-path", dirs["opa"]])):
+        args = serve.parse_args(argv + extra)
+        t0 = time.perf_counter()
+        worker = serve.build_worker(args, tokenizer=WordTokenizer())
+        _sync(dev)
+        build_s = time.perf_counter() - t0
+        scaling = worker.sampler.lora_scaling
+        results, stats, launches, wall = _serve_worker(worker, reqs,
+                                                       args=args)
+        del worker
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        texts = [r["text"] for r in results]
+        _check_attention_launches(cfg, stats, launches)
+        if label == "base":
+            want = plain_answers
+        else:
+            check(scaling == 2.0, f"adapter scaling {scaling}, not 512 / 256")
+            want = [r["text"] for r in _serve(
+                model, cfg, reqs, lora=adapter, lora_scaling=2.0,
+                max_batch=8, max_new_tokens=64, kv_bits=8,
+                device=dev.type)[0]]
+            check(want != plain_answers, "the adapter changed no answer")
+        diff = [i for i, (a, b) in enumerate(zip(texts, want)) if a != b]
+        check(not diff, f"CLI server ({label}) answers {diff} differ: "
+              f"{[texts[i][:60] for i in diff]} vs "
+              f"{[want[i][:60] for i in diff]}")
+        res[label] = {"build_worker_s": build_s,
+                      **_serve_metrics(stats, wall, len(reqs)),
+                      "launches_flash": launches["flash_fwd"],
+                      "launches_decode": launches["decode_attention_int8"]}
+        log(f"[serve-cli] {label}: build_worker {build_s:.1f} s; "
+            f"{len(reqs)} answers equal to the "
+            f"{'phase-9' if label == 'base' else 'in-memory adapter'} "
+            f"server's; launches flash {launches['flash_fwd']}, int8 decode "
+            f"{launches['decode_attention_int8']}; card: {card}")
+    log(f"[serve-cli] {json.dumps(res)}")
+    return res
+
+
+STAGE4_ROWS = 4
+
+
+def _stage4_rows(have_pil):
+    """Seeded stage-4 rows at the reference geometry: a query, three
+    responses of 600-890 words (896 tokens after padding) and a GPT-4V
+    report that splits the generated response into sentences and rewrites
+    each; an image as PNG bytes when PIL imports, else a seed."""
+    import base64
+    import io
+
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+    vocab = [f"w{i}" for i in range(5000)]
+
+    def words(n):
+        return " ".join(vocab[j] for j in rng.integers(0, len(vocab), n))
+
+    rows = []
+    for i in range(STAGE4_ROWS):
+        sentences = [words(int(rng.integers(30, 60))) + "."
+                     for _ in range(int(rng.integers(12, 16)))]
+        rewritten = [words(int(rng.integers(30, 60))) + "."
+                     for _ in sentences]
+        report = {f"sentence {j + 1}": {
+            "copied content": c, "score": int(rng.integers(1, 5)),
+            "error type": ["image_recognition_error", "correct",
+                           "language_comprehension_error"][j % 3],
+            "rewritten content": r}
+            for j, (c, r) in enumerate(zip(sentences, rewritten))}
+        report["Added"] = {"rewritten content": words(12) + "."}
+        row = {"queries": f"<image>\nDescribe image {i} in detail.",
+               "standard_response": words(int(rng.integers(600, 890))),
+               "original_generate_response": " ".join(sentences),
+               "AI_pseudo_response": " ".join(rewritten),
+               "AI_json_report": json.dumps(report), "seed": i}
+        if have_pil:
+            from PIL import Image
+
+            arr = rng.integers(0, 256, (300, 400, 3), np.uint8)
+            buf = io.BytesIO()
+            Image.fromarray(arr).save(buf, format="PNG")
+            row["image_bytes"] = base64.b64encode(buf.getvalue()).decode()
+        rows.append(row)
+    return rows
+
+
+def phase_stage4(cfg, card, dirs, train_res, device="cuda"):
+    """Stage 4 from the checkpoint: ``configs/llava_dpo.yaml`` through the
+    port's reader with overrides (the checkpoint, the CLIP directory and
+    the OPA adapter; r 256 / alpha 512; 2 steps of batch 2, checkpoint
+    every 2), ``opadpo_train.train`` over 4 seeded rows built by the
+    port's ``DPODataset`` and ``DPOCollator``: 2 finite log lines,
+    ``checkpoint-2`` with a moved adapter, ``completed``, a second call
+    that returns at once, and #1-#5 launched as 2 rollouts and 2 train
+    steps derive."""
+    import numpy as np
+
+    from opadpo_torch.data.collators import DPOCollator
+    from opadpo_torch.data.datasets import DPODataset
+    from opadpo_torch.data.image_processing import _normalise
+    from opadpo_torch.device import resolve_device
+    from opadpo_torch.engine.dpo import DpoConfig
+    from opadpo_torch.models.loader import load_peft_adapter
+    from opadpo_torch.models.lora import named_leaves
+    from opadpo_torch.pipeline import opadpo_train
+    from opadpo_torch.pipeline.config import apply_overrides, load_config
+
+    try:
+        import PIL  # noqa: F401
+        have_pil = True
+    except ImportError:
+        have_pil = False
+
+    class SeededPixels(DPODataset):
+        """DPODataset with the image decode alone replaced: seeded pixels
+        through the CLIP normalisation (this machine has no PIL)."""
+
+        def pixels(self, item):
+            arr = np.random.default_rng(item["seed"]).integers(
+                0, 256, (self.image_size, self.image_size, 3))
+            return _normalise(arr.astype(np.float32))
+
+    rows = _stage4_rows(have_pil)
+    dataset = (DPODataset if have_pil else SeededPixels)(
+        rows, image_size=cfg.vision.image_size)
+    log("[stage4] images: " + ("PNG bytes through PIL" if have_pil
+                                else "seeded pixel arrays (no PIL here)"))
+    tok = WordTokenizer()
+    collator = DPOCollator(tok, query_len=128, response_len=896)
+    probe = collator([dataset[0], dataset[1]])
+    check(probe["queries"].shape == (2, 128)
+          and probe["AI_pseudo_response"].shape == (2, 896),
+          f"collated shapes {probe['queries'].shape}")
+    check(all(int((q == -200).sum()) == 1 for q in probe["queries"]),
+          "each query must hold one image token")
+    module = {"train_dataset": dataset, "eval_dataset": None,
+              "data_collator": collator}
+    out, dev = dirs["stage4"], resolve_device(device)
+    tcfg = apply_overrides(load_config(os.path.join(ROOT, "configs",
+                                                   "llava_dpo.yaml")), [
+        f"base_model={dirs['llava']}", f"image_checkpoint={dirs['clip']}",
+        f"policy_lora_dir={dirs['opa']}", "training.lora_r=256",
+        "training.lora_alpha=512", "training.max_step=2",
+        "training.rollout_batch_size=2", "training.step_batch_size=2",
+        "training.rollout_per_device_batch_size=2",
+        "training.step_per_device_batch_size=2", "training.save_steps=2",
+        f"training.output_dir={out}", f"training.device={dev.type}"])
+    saved_env = {k: os.environ.pop(k) for k in
+                 ("OUTPUT_DIR", "MODEL_DIR", "DATA_DIR", "IMAGE_DIR",
+                  "POLICY_LORA_DIR") if k in os.environ}
+    counters = _counters()
+    try:
+        _reset(counters)
+        t0 = time.perf_counter()
+        timer = opadpo_train.train(tcfg, tokenizer=tok, data_module=module)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = _read(counters)
+        t0 = time.perf_counter()
+        again = opadpo_train.train(tcfg, tokenizer=tok, data_module=module)
+        again_s = time.perf_counter() - t0
+    finally:
+        os.environ.update(saved_env)
+    check(timer is not None and again is None and again_s < 30,
+          f"the completed run did not return at once ({again_s:.1f} s)")
+    with open(os.path.join(out, "train_log.jsonl")) as f:
+        lines = [json.loads(x) for x in f]
+    check(len(lines) == 2 and all(np.isfinite(x["loss/total"])
+                                  for x in lines),
+          f"train_log.jsonl: {lines}")
+    ckpt = os.path.join(out, "checkpoint-2", "adapter_model", "lora_policy")
+    check(os.path.exists(os.path.join(out, "completed")), "no completed")
+    start = load_peft_adapter(dirs["opa"], cfg.llama, device=dev)
+    end = load_peft_adapter(ckpt, cfg.llama, device=dev)
+    moved = sum(int((x != y).sum()) for (_, x), (_, y) in
+                zip(named_leaves(start), named_leaves(end)))
+    del start, end
+    check(moved > 0, "checkpoint-2's adapter equals the starting one")
+    dpo = DpoConfig()
+    per = {k: expected_launches(cfg, dpo, False)[k]
+           + expected_launches(cfg, dpo, True)[k]
+           for k in expected_launches(cfg, dpo, True)}
+    want = {k: 2 * per.get(k, 0) for k in launches}
+    check(launches == want, f"stage-4 launches {launches}, expected {want}")
+    step_s = [x["objective/train_seconds"] for x in lines]
+    res = {"train_s": wall, "rollout_s": [x["objective/rollout_seconds"]
+                                          for x in lines],
+           "step_s": step_s, "losses": [x["loss/total"] for x in lines],
+           "phase12_step_s": train_res["step_s"],
+           "adapter_entries_moved": moved,
+           "checkpoint_gb": _gb(_dir_bytes(os.path.join(out,
+                                                        "checkpoint-2"))),
+           "launches": launches, "images": "pil" if have_pil else "seeded",
+           "timers": timer.summary(), "card": card}
+    log(f"[stage4] train() {wall:.1f} s (load, 2 rollouts, 2 steps, "
+        f"checkpoint-2 {res['checkpoint_gb']:.2f} GB); dpo step "
+        f"{[round(x, 3) for x in step_s]} s beside phase 12's "
+        f"{[round(x, 3) for x in train_res['step_s']]} s; losses "
+        f"{res['losses']}; {moved} adapter entries moved; a second call "
+        f"returned in {again_s:.2f} s; card: {card}")
+    log(f"[stage4] {json.dumps(res)}")
+    return res
+
+
 SINGLE_CHIP_STEPS = 2
 
 
@@ -2142,6 +2563,18 @@ def main() -> int:
     spec = phase_spec_serve(model, card, plain_answers)
     torch.cuda.empty_cache()
     train = phase_train(model, card)
+    root = os.path.join(ROOT, "build", f"smoke_checkpoints_{os.getpid()}")
+    try:
+        ckpt, adapter, dirs = phase_checkpoint(model, card, root)
+        cli = phase_serve_cli(model, card, dirs, adapter, plain_answers)
+        del adapter
+        gc.collect()
+        torch.cuda.empty_cache()
+        stage4 = phase_stage4(model.cfg, card, dirs, train)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     q_serve, q_train = {}, {}
     q_serve["7b-int8"], q_train["7b-int8"] = phase_7b_int8(model, card)
     del model                       # the 13B phase runs without the 7B
@@ -2216,6 +2649,18 @@ def main() -> int:
     kernels += slice4_kernel_entries(decode, rollout, spec)
     kernels += quant_kernel_entries(qk, {"path-a": rollout, **q_serve},
                                     q_train)
+    for entry in kernels:
+        # the checkpoint paths' own runs, each counted from 0
+        if entry["name"] in stage4["launches"]:
+            entry["launches_stage4"] = stage4["launches"][entry["name"]]
+        key = {"flash_fwd": "launches_flash",
+               "decode_attention_int8": "launches_decode"}.get(entry["name"])
+        if key:
+            entry["launches_serve_cli"] = (cli["base"][key]
+                                           + cli["adapter"][key])
+    log(f"[ckpt] load {ckpt['load_s']:.2f} s ({ckpt['load_gb_per_s']:.2f} "
+        f"GB/s), peak host RSS {ckpt['peak_host_rss_gb']} GB; stage-4 "
+        f"steps {stage4['step_s']} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

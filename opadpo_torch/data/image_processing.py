@@ -106,3 +106,11 @@ def preprocess_images(sources, image_dir: Optional[str] = None,
         out[i] = clip_preprocess(load_image(s, image_dir),
                                  pad_to_square=pad_to_square, size=size)
     return out
+
+
+def preprocess_image(source, image_dir: Optional[str] = None,
+                     size: int = CROP_SIZE,
+                     pad_to_square: bool = True) -> np.ndarray:
+    """One source (path / bytes / base64 / PIL) -> f32 [size, size, 3]."""
+    return clip_preprocess(load_image(source, image_dir),
+                           pad_to_square=pad_to_square, size=size)

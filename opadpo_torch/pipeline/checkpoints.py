@@ -1,0 +1,126 @@
+"""Checkpoint directory contract + save/resume.  Port of
+``opadpo_tpu/pipeline/checkpoints.py``, with ``torch.save`` where the JAX
+package writes orbax checkpoints.
+
+    output_dir/
+      checkpoint-<N>/
+        adapter_model/lora_policy/   <- PEFT adapter (adapter_model.bin
+                                        + adapter_config.json)
+        adapter_full.pt              <- the whole trainable adapter tree
+        optimizer.pt                 <- AdamW moments, accumulator, counts
+        trainer_state.json
+      completed                      <- marker file
+
+Discovery scans the ``checkpoint-N`` directories and the ``completed``
+marker (reference ``utils/lora_utils.py:31-47``); resume parses the step
+from the directory name and fast-forwards the data loader.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+from typing import Optional, Tuple
+
+import torch
+
+from opadpo_torch.engine.train_state import TrainState
+from opadpo_torch.models.loader import load_peft_adapter, save_peft_adapter
+from opadpo_torch.models.lora import named_leaves
+
+ADAPTER_MODEL_DIR = "adapter_model"
+COMPLETED_MARKER = "completed"
+_CKPT_RE = re.compile(r"^checkpoint-(\d+)$")
+
+
+def get_last_checkpoint(output_dir: str) -> Tuple[Optional[str], bool]:
+    """(latest checkpoint dir | None, training_completed)."""
+    if not os.path.isdir(output_dir):
+        return None, False
+    completed = os.path.exists(os.path.join(output_dir, COMPLETED_MARKER))
+    best_step, best_dir = -1, None
+    for name in os.listdir(output_dir):
+        m = _CKPT_RE.match(name)
+        if m and int(m.group(1)) > best_step:
+            best_step = int(m.group(1))
+            best_dir = os.path.join(output_dir, name)
+    return best_dir, completed
+
+
+def parse_checkpoint_step(checkpoint_dir: str) -> int:
+    m = _CKPT_RE.match(os.path.basename(os.path.normpath(checkpoint_dir)))
+    return int(m.group(1)) if m else 0
+
+
+def mark_completed(output_dir: str) -> None:
+    with open(os.path.join(output_dir, COMPLETED_MARKER), "w") as f:
+        f.write("done\n")
+
+
+def _host(tensors):
+    return None if tensors is None else [t.detach().cpu() for t in tensors]
+
+
+def save_train_state(ckpt_dir: str, state: TrainState, lora_cfg,
+                     adapter_name: str = "lora_policy",
+                     extra: Optional[dict] = None) -> None:
+    """Save the adapter and the optimizer state.
+
+    The PEFT ``adapter_model/<name>/`` holds the decoder's adapter (the
+    format the reference's eval stack loads); ``adapter_full.pt`` holds the
+    whole trainable tree (vision-tower and projector parts too) and is what
+    ``restore_train_state`` reads; ``optimizer.pt`` the AdamW moments, the
+    gradient accumulator and the counts."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    save_peft_adapter(state.params,
+                      os.path.join(ckpt_dir, ADAPTER_MODEL_DIR, adapter_name),
+                      lora_cfg)
+    torch.save({path: t.detach().cpu()
+                for path, t in named_leaves(state.params)},
+               os.path.join(ckpt_dir, "adapter_full.pt"))
+    torch.save({"mu": _host(state.mu), "nu": _host(state.nu),
+                "acc": _host(state.acc), "count": state.count,
+                "mini_step": state.mini_step, "step": state.step},
+               os.path.join(ckpt_dir, "optimizer.pt"))
+    if extra is not None:
+        with open(os.path.join(ckpt_dir, "trainer_state.json"), "w") as f:
+            json.dump(extra, f, indent=2)
+
+
+@torch.no_grad()
+def restore_train_state(ckpt_dir: str, state: TrainState, llama_cfg,
+                        adapter_name: str = "lora_policy") -> TrainState:
+    """Restore the adapter and the optimizer into the template ``state``,
+    in place (each tensor keeps its device and dtype), and return it.
+    Without ``adapter_full.pt`` the decoder layers' adapter comes from the
+    PEFT directory, the template's other parts kept."""
+    full = os.path.join(ckpt_dir, "adapter_full.pt")
+    leaves = named_leaves(state.params)
+    if os.path.exists(full):
+        saved = torch.load(full, map_location="cpu", weights_only=True)
+        if set(saved) != {p for p, _ in leaves}:
+            raise ValueError(f"{full}: adapter entries differ from the "
+                             "template's")
+        for path, t in leaves:
+            t.copy_(saved[path])
+    else:
+        lora = load_peft_adapter(
+            os.path.join(ckpt_dir, ADAPTER_MODEL_DIR, adapter_name),
+            llama_cfg, dtype=torch.float32, device="cpu")
+        saved = dict(named_leaves({"llama": lora["llama"]}))
+        for path, t in leaves:
+            if path in saved:
+                t.copy_(saved[path])
+    opt = torch.load(os.path.join(ckpt_dir, "optimizer.pt"),
+                     map_location="cpu", weights_only=True)
+    for dst, src in ((state.mu, opt["mu"]), (state.nu, opt["nu"]),
+                     (state.acc, opt["acc"])):
+        if (dst is None) != (src is None):
+            raise ValueError("gradient accumulation differs from the "
+                             "checkpoint's")
+        for d, s in zip(dst or [], src or []):
+            d.copy_(s)
+    state.count, state.mini_step, state.step = (
+        opt["count"], opt["mini_step"], opt["step"])
+    return state

@@ -1,20 +1,23 @@
 """Model set-up for the pipeline entry points: port of
 ``opadpo_tpu/pipeline/runtime.py`` (``llava_config_from_hf``,
-``setup_model``).
+``load_tokenizer``, ``setup_model``, ``StepTimer``).
 
 One device, no mesh: multi-GPU set-up comes with ``torch.distributed``
-(ROADMAP Queue 1 item 11).  Loading checkpoint weights waits for the
-HF/PEFT loader (ROADMAP slice order, the module slice after slice 4); the
-random-weight branches (``tiny``, ``skip_loading_weights``), the QLoRA
-quantization and the w8a8 switches are here.
+(ROADMAP Queue 1 item 8).  ``setup_model`` loads a checkpoint directory
+through ``models/loader`` or draws random weights (``tiny``,
+``skip_loading_weights``), then applies the QLoRA quantization and the
+w8a8 switches.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import json
 import os
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from opadpo_torch.device import resolve_device
@@ -23,6 +26,7 @@ from opadpo_torch.models import llama as llama_model
 from opadpo_torch.models import llava as llava_model
 from opadpo_torch.models import projector as projector_model
 from opadpo_torch.models.llava import Llava, LlavaConfig
+from opadpo_torch.models.loader import load_llava_checkpoint
 from opadpo_torch.ops import quant
 
 
@@ -30,7 +34,9 @@ def llava_config_from_hf(model_dir: str) -> LlavaConfig:
     """LlavaConfig from a HF checkpoint's ``config.json`` (only that file
     is read)."""
     with open(os.path.join(model_dir, "config.json")) as f:
-        hf = json.load(f)
+        top = json.load(f)
+    # a llava-hf config keeps the decoder's dimensions under text_config
+    hf = {**top, **top.get("text_config", {})}
     heads = hf.get("num_attention_heads", 32)
     lm = llama_model.LlamaConfig(
         vocab_size=hf.get("vocab_size", 32000),
@@ -51,8 +57,25 @@ def llava_config_from_hf(model_dir: str) -> LlavaConfig:
     return LlavaConfig(lm, vis, proj)
 
 
+def load_tokenizer(model_dir: str, model_max_length: int = 2048):
+    """The checkpoint's Vicuna/LLaMA tokenizer with the reference's pad
+    handling (pad -> unk, id 0).  Needs ``transformers``."""
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as e:
+        raise ImportError(
+            "load_tokenizer needs the transformers package, which is not "
+            "installed; pass a tokenizer object instead") from e
+    tok = AutoTokenizer.from_pretrained(model_dir, use_fast=False,
+                                        model_max_length=model_max_length)
+    if tok.pad_token is None:
+        tok.pad_token = tok.unk_token
+    return tok
+
+
 def setup_model(
     model_dir: Optional[str] = None,
+    vision_dir: Optional[str] = None,
     skip_loading_weights: bool = False,
     tiny: bool = False,
     seed: int = 42,
@@ -62,7 +85,10 @@ def setup_model(
     act_bwd_int8: bool = False,
     device: str = "cuda",
 ) -> Tuple[LlavaConfig, Llava]:
-    """(cfg, model) on ``device``.  ``tiny``: the tiny random model;
+    """(cfg, model) on ``device``.  A ``model_dir``: the checkpoint there
+    (``models/loader.load_llava_checkpoint``; its configuration from its
+    ``config.json``, the vision tower from ``vision_dir`` when the
+    directory lacks it).  ``tiny``: the tiny random model;
     ``skip_loading_weights`` (or no ``model_dir``): random weights at the
     configuration of ``model_dir``'s ``config.json`` (LLaVA-1.5-7B without
     one), drawn from ``seed``.  ``bits`` 8 / 4: the QLoRA base (int8 / int4
@@ -92,11 +118,29 @@ def setup_model(
         else:
             model = llava_model.init_params(cfg, gen, dev)
     else:
-        raise NotImplementedError(
-            f"loading the checkpoint in {model_dir!r}: the HF/PEFT loader "
-            "comes with the module slice after slice 4 (ROADMAP, slice "
-            "order); pass skip_loading_weights=True for random weights")
+        cfg = llava_config_from_hf(model_dir)
+        model = load_llava_checkpoint(model_dir, cfg, vision_dir, dev)
     if bits in (8, 4) and not quant.is_quantized(model):
         quant.quantize_params(model, bits=bits, mode=mode)
     quant.set_quant_mode(model, mode)
     return cfg, model
+
+
+@dataclasses.dataclass
+class StepTimer:
+    """Per-step wall-clock records, named (``rollout``, ``train``) with any
+    counters beside them, and their means by name."""
+
+    history: list = dataclasses.field(default_factory=list)
+
+    def record(self, name: str, seconds: float, **counters):
+        entry = {"name": name, "seconds": seconds, **counters}
+        self.history.append(entry)
+        return entry
+
+    def summary(self) -> dict:
+        agg = collections.defaultdict(list)
+        for e in self.history:
+            agg[e["name"]].append(e["seconds"])
+        return {k: {"mean_s": float(np.mean(v)), "count": len(v)}
+                for k, v in agg.items()}

@@ -16,19 +16,28 @@ are the decode modes the ``Sampler`` takes: the prompt cache's bits
 (``decode_chunk``) and speculative decode (``spec_k``, ``spec_draft``,
 ``spec_advance``).
 
-The worker runs on the GPU unless it is given ``device="cpu"``.  The CLI
-``main()`` waits for the HF/PEFT loader of the next slice.
+The worker runs on the GPU unless it is given ``device="cpu"``.
+
+    python -m opadpo_torch.serve --model-path DIR [--vision-path CLIP_DIR]
+        [--adapter-path PEFT_DIR] [--kv-bits 8] ...
+
+``parse_args`` takes the JAX server's flags; those whose modes the port
+does not have yet are argparse errors naming their ROADMAP item.
+``build_worker`` loads the checkpoint (``pipeline.runtime.setup_model``),
+the tokenizer and the PEFT adapter (scaled by its ``lora_alpha / r``) and
+starts the worker; ``main`` serves it with a ``ThreadingHTTPServer``.
 """
 
 from __future__ import annotations
 
+import argparse
 import base64
 import json
 import queue
 import threading
 import time
 import traceback
-from http.server import BaseHTTPRequestHandler
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List
 
 import numpy as np
@@ -221,3 +230,122 @@ def make_handler(worker: InferenceWorker):
             self._send(200 if "error" not in resp else 500, resp)
 
     return Handler
+
+
+_CONTINUOUS = "(ROADMAP Queue 1 item 6, the continuous engine)"
+
+
+def _parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="LLaVA inference server on one "
+                                "GPU (the PyTorch port)")
+    p.add_argument("--model-path", required=True)
+    p.add_argument("--vision-path", default=None)
+    p.add_argument("--adapter-path", default=None)
+    p.add_argument("--port", type=int, default=8400,
+                   help="0 takes a free port")
+    p.add_argument("--device", default="cuda",
+                   help="cpu runs the plain PyTorch versions of the kernels")
+    p.add_argument("--bits", type=int, default=16, choices=(16, 8, 4))
+    p.add_argument("--max-batch", type=int, default=8)
+    p.add_argument("--max-new-tokens", type=int, default=512)
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="0 = greedy (default); >0 = sampled decoding")
+    p.add_argument("--top-k", type=int, default=0)
+    p.add_argument("--top-p", type=float, default=1.0)
+    p.add_argument("--kv-bits", type=int, default=16, choices=(16, 8, 4),
+                   help="quantized prompt-KV cache (8 = int8, 4 = packed "
+                        "int4) read by the decode-attention kernels")
+    p.add_argument("--head-bits", type=int, default=16, choices=(16, 8, 4),
+                   help="int8 / int4 lm_head during decode")
+    p.add_argument("--decode-chunk", type=int, default=0,
+                   help="fold suffix KV into the prompt cache every N steps")
+    p.add_argument("--continuous", action="store_true",
+                   help="not ported " + _CONTINUOUS)
+    for flag in ("--seg-len", "--query-len", "--admit-group"):
+        p.add_argument(flag, type=int, default=None,
+                       help="continuous mode only: not ported " + _CONTINUOUS)
+    p.add_argument("--visual-tokens", type=int, default=0,
+                   help="visual-token pruning: not ported (0 = all 576 "
+                        "patches, the only value taken)")
+    p.add_argument("--pil-preprocess", action="store_true",
+                   help="accepted for the JAX server's command lines: PIL "
+                        "is the port's only image path")
+    p.add_argument("--spec-k", type=int, default=0,
+                   help="speculative decoding: verify k draft tokens per "
+                        "group; needs greedy decoding or --top-k > 0")
+    p.add_argument("--spec-draft", default="ngram", choices=("ngram", "pad"),
+                   help="draft source for --spec-k")
+    p.add_argument("--spec-advance", default="shared",
+                   choices=("shared", "per_row"),
+                   help="per_row keeps each request's accepted run "
+                        "(better at batch>1)")
+    return p
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The server's flags; a flag the port cannot honour yet, or an
+    impossible combination, is an argparse error (exit 2)."""
+    p = _parser()
+    args = p.parse_args(argv)
+    if args.continuous:
+        p.error("--continuous: slot-pool continuous batching is not ported "
+                "yet " + _CONTINUOUS)
+    for name in ("seg_len", "query_len", "admit_group"):
+        if getattr(args, name) is not None:
+            p.error(f"--{name.replace('_', '-')} belongs to --continuous, "
+                    "which is not ported yet " + _CONTINUOUS)
+    if args.visual_tokens:
+        p.error("--visual-tokens: visual-token pruning is not ported "
+                "(models/llava.py refuses it; ROADMAP, modules without "
+                "kernels)")
+    if args.spec_k and args.temperature > 0 and args.top_k == 0:
+        p.error("--spec-k with --temperature > 0 needs --top-k > 0 "
+                "(speculative sampling draws from the top-k set)")
+    return args
+
+
+def build_worker(args: argparse.Namespace, tokenizer=None
+                 ) -> InferenceWorker:
+    """The checkpoint of ``args.model_path`` (vision tower from
+    ``args.vision_path`` when the directory lacks it) at ``args.bits``,
+    its tokenizer (``tokenizer`` when given, else the checkpoint's), the
+    PEFT adapter of ``args.adapter_path`` scaled by its ``lora_alpha /
+    r``, behind an ``InferenceWorker``."""
+    from opadpo_torch.models.loader import adapter_scaling, load_peft_adapter
+    from opadpo_torch.pipeline.runtime import load_tokenizer, setup_model
+
+    cfg, model = setup_model(args.model_path, vision_dir=args.vision_path,
+                             bits=args.bits, device=args.device)
+    if tokenizer is None:
+        tokenizer = load_tokenizer(args.model_path)
+    lora, scaling = None, 1.0
+    if args.adapter_path:
+        lora = load_peft_adapter(args.adapter_path, cfg.llama,
+                                 device=args.device)
+        scaling = adapter_scaling(args.adapter_path)
+    return InferenceWorker(model, cfg, tokenizer, lora=lora,
+                           lora_scaling=scaling, max_batch=args.max_batch,
+                           max_new_tokens=args.max_new_tokens,
+                           kv_bits=args.kv_bits, head_bits=args.head_bits,
+                           decode_chunk=args.decode_chunk,
+                           temperature=args.temperature, top_k=args.top_k,
+                           top_p=args.top_p, spec_k=args.spec_k,
+                           spec_draft=args.spec_draft,
+                           spec_advance=args.spec_advance,
+                           device=args.device)
+
+
+def make_server(args: argparse.Namespace,
+                worker: InferenceWorker) -> ThreadingHTTPServer:
+    return ThreadingHTTPServer(("0.0.0.0", args.port), make_handler(worker))
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    server = make_server(args, build_worker(args))
+    print(f"serving on :{server.server_address[1]}", flush=True)
+    server.serve_forever()
+
+
+if __name__ == "__main__":
+    main()

@@ -159,30 +159,53 @@ def test_quantize_prompt_kv_bit_exact():
 def test_port_imports_no_jax():
     """Every opadpo_torch module, and chip_smoke.py, imports in a process
     where ``jax`` and ``opadpo_tpu`` cannot be imported; the training
-    slice's, the quantized base's and speculative decode's modules are
-    among them."""
-    code = (
-        "import sys, pkgutil, importlib, runpy\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['opadpo_tpu'] = None\n"
-        "import opadpo_torch\n"
-        "names = [m.name for m in pkgutil.walk_packages("
-        "opadpo_torch.__path__, 'opadpo_torch.')]\n"
-        "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 30, names\n"
-        "assert {'opadpo_torch.engine.dpo', 'opadpo_torch.engine.train_state',"
-        " 'opadpo_torch.ops.heads_layout', 'opadpo_torch.ops.logprobs',"
-        " 'opadpo_torch.ops.image_ops', 'opadpo_torch.ops.quant',"
-        " 'opadpo_torch.pipeline.runtime', 'opadpo_torch.engine.speculative'}"
-        " <= set(names), names\n"
-        "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
-        "assert not any(k == 'jax' or k.startswith(('jax.', 'opadpo_tpu'))"
-        " for k, v in sys.modules.items() if v is not None)\n"
-        "print('ok', len(names))\n")
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0, res.stderr
-    assert res.stdout.startswith("ok")
+    slice's, the quantized base's, speculative decode's and the stage-4
+    slice's modules are among them.  A second process also blocks the
+    packages the GPU machine lacks (``yaml``, ``safetensors``,
+    ``transformers``, ``datasets``, ``PIL``): every module still imports,
+    and the config reader and the safetensors reader and writer work."""
+    blocked_missing = ("yaml", "safetensors", "transformers", "datasets",
+                       "PIL")
+    for extra in ((), blocked_missing):
+        code = (
+            "import sys, pkgutil, importlib, runpy, os, tempfile\n"
+            f"for m in ('jax', 'opadpo_tpu') + {extra!r}:\n"
+            "    sys.modules[m] = None\n"
+            "import opadpo_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages("
+            "opadpo_torch.__path__, 'opadpo_torch.')]\n"
+            "for n in names: importlib.import_module(n)\n"
+            "assert len(names) >= 40, names\n"
+            "assert {'opadpo_torch.engine.dpo', 'opadpo_torch.engine.train_state',"
+            " 'opadpo_torch.ops.heads_layout', 'opadpo_torch.ops.logprobs',"
+            " 'opadpo_torch.ops.image_ops', 'opadpo_torch.ops.quant',"
+            " 'opadpo_torch.pipeline.runtime', 'opadpo_torch.engine.speculative',"
+            " 'opadpo_torch.models.loader', 'opadpo_torch.models.safetensors_io',"
+            " 'opadpo_torch.pipeline.config', 'opadpo_torch.pipeline.checkpoints',"
+            " 'opadpo_torch.pipeline.opadpo_train', 'opadpo_torch.serve',"
+            " 'opadpo_torch.data.datasets', 'opadpo_torch.data.collators',"
+            " 'opadpo_torch.data.loading', 'opadpo_torch.data.tokenization',"
+            " 'opadpo_torch.data.char_tokenizer', 'opadpo_torch.utils.metrics'}"
+            " <= set(names), names\n"
+            "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
+            "from opadpo_torch.pipeline.config import load_config\n"
+            "cfg = load_config('configs/llava_dpo.yaml')\n"
+            "assert cfg.training['learning_rate'] == 1e-6, cfg\n"
+            "import torch\n"
+            "from opadpo_torch.models import safetensors_io as sio\n"
+            "t = {'w': torch.randn(3, 4).bfloat16(),"
+            " 'i': torch.arange(5, dtype=torch.int8)}\n"
+            "path = os.path.join(tempfile.mkdtemp(), 'x.safetensors')\n"
+            "sio.save_file(t, path)\n"
+            "back = sio.load_file(path)\n"
+            "assert all(torch.equal(back[k], t[k]) for k in t)\n"
+            "assert not any(k == 'jax' or k.startswith(('jax.', 'opadpo_tpu'))"
+            " for k, v in sys.modules.items() if v is not None)\n"
+            "print('ok', len(names))\n")
+        res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                             capture_output=True, text=True, timeout=120)
+        assert res.returncode == 0, (extra, res.stderr)
+        assert res.stdout.startswith("ok")
 
 
 def test_cuda_default_entry_raises_without_gpu(monkeypatch):

@@ -176,8 +176,9 @@ def test_init_params_quantized_equals_quantize_after_init(bits):
 def test_setup_model_quantizes_once_and_validates(tmp_path):
     """``setup_model(tiny=True, bits=...)`` quantizes the block linears
     once (a second ``quantize_params`` leaves the modules as they are),
-    sets the w8a8 switches, and rejects what the JAX package rejects; the
-    HF config reader reads ``config.json`` alone."""
+    sets the w8a8 switches, and rejects what the JAX package rejects; a
+    directory without ``config.json`` is no checkpoint; the HF config
+    reader reads ``config.json`` alone."""
     cfg, model = runtime.setup_model(tiny=True, bits=8, act_bits=8,
                                      act_outlier_cols=2, act_bwd_int8=True,
                                      device="cpu")
@@ -194,8 +195,8 @@ def test_setup_model_quantizes_once_and_validates(tmp_path):
         runtime.setup_model(tiny=True, bits=4, act_bits=8, device="cpu")
     with pytest.raises(ValueError):
         runtime.setup_model(tiny=True, bits=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="loader"):
-        runtime.setup_model(str(tmp_path), device="cpu")
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        runtime.setup_model(str(tmp_path), device="cpu")   # not a checkpoint
     (tmp_path / "config.json").write_text(
         '{"hidden_size": 5120, "intermediate_size": 13824, '
         '"num_hidden_layers": 40, "num_attention_heads": 40}')
