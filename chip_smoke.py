@@ -17,10 +17,12 @@ Phases, each fatal on failure:
   4. the flash backward kernels, dQ (#2) and dK/dV (#3, both TMA rings
      and warp-specialised wgmma), against the plain backward at the
      training shapes ([2, 703, 32, 128] causal prefix, the response stream
-     at [6, 896 over 1599, 32, 128]): each output and each of its rows, two
-     launches bitwise equal; their ptxas report (a spill, C7508 or C7514
-     fails), shared memory, and each kernel's share of its bound beside
-     SDPA's backward and the WMMA kernels' earlier times;
+     at [6, 896 over 1599, 32, 128]) and at the CLIP tower's shape on the
+     stage-3 path ([4, 577, 16, 64] bidirectional, no key mask): each
+     output and each of its rows, two launches bitwise equal; their ptxas
+     report (a spill, C7508 or C7514 fails), shared memory, and each
+     kernel's share of its bound beside SDPA's backward and the WMMA
+     kernels' earlier times;
   5. the head-layout kernels, scatter (#4, TMA tiles, RoPE) and gather
      (#5, inverse RoPE), against their plain versions at [2, 703, 4096]
      and [6, 896, 4096], and #4 over a stream's q, k and v in one launch
@@ -55,7 +57,9 @@ Phases, each fatal on failure:
      base (and a decode head of that width): prefill, two decode steps over
      the int8 and over the int4 cache, a G = 3 verify group over the int8
      cache, and one tiny OPA-DPO step (rollout, loss, LoRA gradients,
-     AdamW); then, in f32, greedy speculative decode (k 3, kv 16 and 8,
+     AdamW); one tiny OPA-SFT step with the vision adapter and the
+     entropy branch (attention masking, one mask on both sides); then, in
+     f32, greedy speculative decode (k 3, kv 16 and 8,
      both advances) token-exact against plain greedy on the GPU, and
      greedy int4 chunk-256 decode over 300 tokens (one fold) token-exact
      against the CPU;
@@ -87,7 +91,7 @@ Phases, each fatal on failure:
      alpha 512 PEFT adapter, read back by ``setup_model(model_dir,
      vision_dir=...)`` and ``load_peft_adapter``: every tensor bitwise
      equal, with the bytes read, the load time and GB/s and the peak host
-     RSS (free disk checked first: ~23 GB for these three phases);
+     RSS (free disk checked first: ~24 GB for these five phases);
   14. the serve CLI on that checkpoint: ``serve.parse_args`` and
      ``build_worker``, served as ``serve.main`` serves (an ephemeral
      port): step 9's nine requests give step 9's answers string for
@@ -103,7 +107,23 @@ Phases, each fatal on failure:
      ``completed``, a second call returning at once, and #1-#5 launched as
      2 rollouts and 2 steps derive; the temporary directories go in a
      ``finally``;
-  16. the quantized paths: the same 7B model quantized to int8 in place
+  16. stages 1-2 from that checkpoint: ``configs/llava_online_generation.
+     yaml`` (batch 8, responses cut to 256 tokens, bf16 KV, top-k 30,
+     top-p 0.95), ``online_generation.run`` over 16 seeded prompts given
+     in memory, a stub in place of the GPT-4V service (no network) and a
+     dummy ``API_KEY``, so the threaded correction path runs: 2 shards,
+     a report and a corrected response in every record, a second run a
+     no-op, #1 once per block and layer per prefill; ``merge_and_filter``
+     keeps the 16 rows;
+  17. stage 3 from that checkpoint on those rows: ``configs/llava_opa.yaml``
+     (r 256 / alpha 512, the vision tower tuned, per-device batch 4,
+     accumulation cut to 2, 1 epoch), ``opa_train.train`` through the
+     port's ``SFTDataset`` / ``SFTCollator``: 8 micro-steps of 4 rows of
+     1599 spliced positions, finite losses, ``checkpoint-final`` with
+     moved vision and projector adapters, a decoder-only PEFT directory,
+     ``completed``, and #1-#5 launched as ``expected_sft_launches``
+     derives; micro-step time, positions per second and peak memory;
+  18. the quantized paths: the same 7B model quantized to int8 in place
      serves the 9 requests with an int8 decode head, then trains at the
      single-chip recipe (``configs/llava_dpo_singlechip.yaml``: w8a8 with
      the int8 backward, LoRA r 64 / alpha 128) cut to per-device batch 1:
@@ -116,7 +136,7 @@ Phases, each fatal on failure:
      derived from its batches, #9 / #10's odd-shape variant never launched
      (also in the tiny references of step 8), and the 13B run launching
      both of #11's kernels;
-  17. one JSON line of the 11 kernels' numbers, the card line, and last
+  19. one JSON line of the 11 kernels' numbers, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA GPU and the repository around it: anywhere else it exits
@@ -128,6 +148,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import shutil
 import statistics
@@ -161,19 +182,27 @@ def log(*a):
 
 class WordTokenizer:
     """Word-level stand-in for the LLaMA tokenizer, with the HF surface the
-    server and the DPO collator use.  Like the real one it keeps these
-    serving prompts under 128 tokens (a character-level one would not), so
-    a batch takes the shapes real traffic gives: qlen 128, 703 positions
-    with the image.  Ids lie in [3, 32000); BOS is 1, EOS 2, pad 0."""
+    server, the collators and the rollout stage use.  Like the real one it
+    keeps these serving prompts under 128 tokens (a character-level one
+    would not), so a batch takes the shapes real traffic gives: qlen 128,
+    703 positions with the image.  Ids lie in [3, 32000); BOS is 1, EOS 2,
+    pad 0; "</s>" is EOS wherever it stands, as sentencepiece reads it, so
+    the SFT labels' masking walk counts the templated turns as it does
+    with the real tokenizer."""
 
     bos_token_id, eos_token_id, pad_token_id = 1, 2, 0
     padding_side = "right"
+    model_max_length = 2048
     GLYPH = 30861        # '图', which the DPO collator turns into <image>
+
+    def _id(self, w: str) -> int:
+        if w == "</s>":
+            return self.eos_token_id
+        return self.GLYPH if w == "图" else 3 + zlib.crc32(w.encode()) % 31997
 
     def _ids(self, text: str):
         return [self.bos_token_id] + [
-            self.GLYPH if w == "图" else 3 + zlib.crc32(w.encode()) % 31997
-            for w in text.split()]
+            self._id(w) for w in text.replace("</s>", " </s> ").split()]
 
     def __call__(self, text, padding=None, truncation=False,
                  max_length=None):
@@ -206,6 +235,9 @@ class WordTokenizer:
         special = (self.bos_token_id, self.eos_token_id, self.pad_token_id)
         return " ".join(f"<{int(i)}>" for i in ids
                         if not (skip_special_tokens and i in special))
+
+    def batch_decode(self, rows, skip_special_tokens: bool = True) -> list:
+        return [self.decode(r, skip_special_tokens) for r in rows]
 
 
 def time_ms(fn, flush, n=20, warmup=3):
@@ -401,13 +433,14 @@ def bwd_row_err(a, ref):
             / den.clamp_min(1e-30)).max().item()
 
 
-def _bwd_case(b, sq, skv, h, d, g, flush):
-    """Both backward kernels against the plain backward, causal, keys
+def _bwd_case(b, sq, skv, h, d, g, flush, causal=True):
+    """Both backward kernels against the plain backward: causal, with keys
     left-padded by 29 per row (so the square case has fully masked rows,
     as a left-padded prefix does, with a zero output gradient, as nothing
-    on the training path reads them): each output within 2e-2 of its
-    largest |ref|, each row within BWD_ROW_TOL (``bwd_row_err``), and a
-    second launch bitwise equal to the first."""
+    on the training path reads them), or, with ``causal`` False,
+    bidirectional with no key mask (the CLIP tower's attention): each
+    output within 2e-2 of its largest |ref|, each row within BWD_ROW_TOL
+    (``bwd_row_err``), and a second launch bitwise equal to the first."""
     import torch
     import torch.nn.functional as F
 
@@ -418,23 +451,25 @@ def _bwd_case(b, sq, skv, h, d, g, flush):
                          dtype=torch.bfloat16) for _ in range(2))
     k, v = (torch.randn(b, skv, h, d, generator=g, device=dev,
                         dtype=torch.bfloat16) for _ in range(2))
-    mask = torch.ones(b, skv, dtype=torch.int32, device=dev)
-    for i in range(b):
-        mask[i, :29 * i] = 0
-        do[i, :max(0, 29 * i - (skv - sq))] = 0
+    mask = None
+    if causal:
+        mask = torch.ones(b, skv, dtype=torch.int32, device=dev)
+        for i in range(b):
+            mask[i, :29 * i] = 0
+            do[i, :max(0, 29 * i - (skv - sq))] = 0
     scale = d ** -0.5
-    o, lse = attention.flash_fwd_cuda(q, k, v, mask, True, scale)
-    inputs = attention.flash_bwd_inputs(q, k, v, mask, True, o, lse, do)
+    o, lse = attention.flash_fwd_cuda(q, k, v, mask, causal, scale)
+    inputs = attention.flash_bwd_inputs(q, k, v, mask, causal, o, lse, do)
 
     def kernels():
-        dq = attention.flash_bwd_dq_cuda(q, k, v, mask, True, scale, o, lse,
-                                         do, inputs)
-        dk, dv = attention.flash_bwd_dkv_cuda(q, k, v, mask, True, scale, o,
-                                              lse, do, inputs)
+        dq = attention.flash_bwd_dq_cuda(q, k, v, mask, causal, scale, o,
+                                         lse, do, inputs)
+        dk, dv = attention.flash_bwd_dkv_cuda(q, k, v, mask, causal, scale,
+                                              o, lse, do, inputs)
         return dq, dk, dv
 
     got, again = kernels(), kernels()
-    ref = attention.flash_bwd_reference(q, k, v, mask, True, scale, o, lse,
+    ref = attention.flash_bwd_reference(q, k, v, mask, causal, scale, o, lse,
                                         do)
     torch.cuda.synchronize()
     errs, row_errs = {}, {}
@@ -452,24 +487,27 @@ def _bwd_case(b, sq, skv, h, d, g, flush):
               f"{[b, sq, skv, h, d]}")
         errs[name], row_errs[name] = err, row
     dq_ms = time_ms(lambda: attention.flash_bwd_dq_cuda(
-        q, k, v, mask, True, scale, o, lse, do, inputs), flush)
+        q, k, v, mask, causal, scale, o, lse, do, inputs), flush)
     dkv_ms = time_ms(lambda: attention.flash_bwd_dkv_cuda(
-        q, k, v, mask, True, scale, o, lse, do, inputs), flush)
+        q, k, v, mask, causal, scale, o, lse, do, inputs), flush)
     plain_ms = time_ms(lambda: attention.flash_bwd_reference(
-        q, k, v, mask, True, scale, o, lse, do), flush)
+        q, k, v, mask, causal, scale, o, lse, do), flush)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt,
-                                         attn_mask=_keep(mask, sq, skv, True))
+    out = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=(_keep(mask, sq, skv, True) if causal
+                               else None))
     dot = do.transpose(1, 2)
     library_ms = time_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True), flush)
-    pairs = b * h * _pairs(sq, skv, True)
+    pairs = b * h * _pairs(sq, skv, causal)
     q_bytes, kv_bytes = b * sq * h * d * 2, b * skv * h * d * 2
-    stats = 2 * b * h * sq * 4 + b * skv * 4
+    # lse and delta [B, H, Sq] f32, and the key bias [B, Skv] f32 if masked
+    stats = 2 * b * h * sq * 4 + (b * skv * 4 if causal else 0)
     dq_bound = _bound(3 * q_bytes + 2 * kv_bytes + stats, 6 * d * pairs)
     dkv_bound = _bound(2 * q_bytes + 4 * kv_bytes + stats, 8 * d * pairs)
-    res = {"shape": [b, sq, skv, h, d], "err": errs, "row_err": row_errs,
+    res = {"shape": [b, sq, skv, h, d], "causal": causal, "err": errs,
+           "row_err": row_errs,
            "dq_ms": dq_ms, "dkv_ms": dkv_ms, "plain_ms": plain_ms,
            "library_ms": library_ms,
            "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
@@ -522,17 +560,20 @@ def phase_flash_bwd(g, flush):
         f"{name} D {d}: {lib.opadpo_flash_bwd_smem_bytes(which, d)} B"
         for which, name in ((0, "dQ"), (1, "dK/dV")) for d in (64, 128)))
     res = {"prefix": _bwd_case(2, 703, 703, 32, 128, g, flush),
-           "response": _bwd_case(6, 896, 1599, 32, 128, g, flush)}
+           "response": _bwd_case(6, 896, 1599, 32, 128, g, flush),
+           # the CLIP tower's backward on the stage-3 path (vision adapter):
+           # hd 64, bidirectional, no key mask, 577 = 9 x 64 + 1 rows
+           "clip": _bwd_case(4, 577, 577, 16, 64, g, flush, causal=False)}
     for name, r in res.items():
-        was_dq, was_dkv = FLASH_BWD_WAS_MS[name]
+        was = (" the WMMA kernels {} + {} ms (PERF.md);".format(
+            *FLASH_BWD_WAS_MS[name]) if name in FLASH_BWD_WAS_MS else "")
         log(f"[flash_bwd] {name}: dQ {r['dq_ms']:.4f} ms = "
             f"{100 * r['dq_share_of_bound']:.1f} % of its "
             f"{r['dq_bound_ms']:.4f} ms bound ({r['dq_bound_by']}), dK/dV "
             f"{r['dkv_ms']:.4f} ms = {100 * r['dkv_share_of_bound']:.1f} % "
             f"of {r['dkv_bound_ms']:.4f} ({r['dkv_bound_by']}); pair "
             f"{r['dq_ms'] + r['dkv_ms']:.4f} ms, SDPA backward "
-            f"{r['library_ms']:.4f} ms; the WMMA kernels {was_dq} + "
-            f"{was_dkv} ms (PERF.md); row errors {r['row_err']}")
+            f"{r['library_ms']:.4f} ms;{was} row errors {r['row_err']}")
     return res
 
 
@@ -1305,6 +1346,120 @@ def phase_train_reference(bits=16):
             "step_rel": e_step}
 
 
+def phase_sft_reference():
+    """One tiny OPA-SFT step in bf16 on the GPU (kernels) against the same
+    weights, adapter and batch on the CPU (plain versions): the vision and
+    projector adapters on (B drawn non-zero), the entropy branch on with
+    ``attention`` masking (each device draws the patch mask from a CPU
+    generator of one seed, so both read one mask), right-padded rows.  The
+    loss and stats, the adapter's gradients (all of it, and its vision and
+    projector parts alone), the GPU's AdamW update against the CPU's from
+    the same gradients, and #1-#5's launches against
+    ``expected_sft_launches``.  The tiny CLIP runs 1 head of 64 instead of
+    2 of 32: the backward kernels take head dims 64 and 128 only."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from opadpo_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+    from opadpo_torch.engine import sft as sft_engine
+    from opadpo_torch.engine.train_state import AdamW, OptimizerConfig, \
+        TrainState
+    from opadpo_torch.models import llava
+    from opadpo_torch.models.lora import LoraConfig, make_trainable, \
+        named_leaves, tree_map
+
+    tiny = llava.LlavaConfig.tiny()
+    cfg = dataclasses.replace(tiny, vision=dataclasses.replace(
+        tiny.vision, num_heads=1))
+    g = torch.Generator(device="cpu").manual_seed(4)
+    cpu_model = llava.init_params(cfg, g, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    lora = llava.init_lora(cfg, LoraConfig(rank=4, alpha=8.0), g,
+                           include_vision=True)
+    for path, t in named_leaves(lora):
+        if path.endswith("/b"):
+            t.copy_(torch.randn(t.shape, generator=g) * 0.05)
+    b, lq, lr = 2, 40, 88
+    ids = torch.randint(5, cfg.llama.vocab_size, (b, lq + lr), generator=g)
+    ids[:, 3] = IMAGE_TOKEN_INDEX
+    labels = torch.where(torch.arange(lq + lr) >= lq, ids, IGNORE_INDEX)
+    ids[1, -17:] = 0
+    labels[1, -17:] = IGNORE_INDEX
+    batch = {"input_ids": ids, "labels": labels,
+             "attention_mask": ((ids != 0) | (labels != IGNORE_INDEX)).long(),
+             "images": torch.randn(b, 28, 28, 3, generator=g)}
+    sft = sft_engine.SftConfig(entropy_loss=True,
+                               entropy_mask_method="attention",
+                               entropy_mask_ratio=0.5, entropy_loss_coef=0.5)
+    opt = AdamW(OptimizerConfig(learning_rate=1e-2, warmup_steps=0,
+                                total_steps=10))
+
+    def to(tree, dev):
+        return tree_map(lambda x: x.to(dev), tree)
+
+    counters = _counters()
+    out = {}
+    for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+        _reset(counters)
+        state = TrainState.create(make_trainable(to(lora, dev)), opt.cfg)
+        loss, stats = sft_engine.sft_loss(
+            state.params, model, sft, to(batch, dev),
+            torch.Generator(device="cpu").manual_seed(7))
+        leaves = named_leaves(state.params)
+        grads = torch.autograd.grad(loss, [t for _, t in leaves])
+        out[dev] = (loss.item(), {k: v.item() for k, v in stats.items()},
+                    dict(zip([p for p, _ in leaves], grads)), state)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = _read(counters)
+    want = {**expected_sft_launches(cfg, sft, vision=True),
+            **{k: 0 for k in launches if k not in (
+                "flash_fwd", "scatter_heads", "flash_bwd_dq",
+                "flash_bwd_dkv", "gather_heads")}}
+    check(launches == want, f"tiny SFT step launches {launches}, expected "
+          f"{want}")
+    (l_g, s_g, g_g, st_g), (l_c, s_c, g_c, st_c) = out["cuda"], out["cpu"]
+    e_stats = {k: abs(s_g[k] - s_c[k]) / max(abs(s_c[k]), 1.0) for k in s_c}
+    check(set(s_g) == set(s_c) == {"loss/base_sft", "loss/mask_sft",
+                                   "loss/entropy", "loss/total"},
+          f"SFT stats {sorted(s_g)}")
+    check(all(math.isfinite(v) for v in s_g.values()),
+          f"tiny SFT stats not finite: {s_g}")
+    e_grad = {part: _rel([g_g[p] for p in g_g if p.startswith(part)],
+                         [g_c[p] for p in g_c if p.startswith(part)])
+              for part in ("/", "/vision/", "/projector/")}
+    grads_g = [g_g[p] for p, _ in named_leaves(st_g.params)]
+    before = [t.detach().clone() for _, t in named_leaves(st_g.params)]
+    opt.apply_gradients(st_g, grads_g)
+    opt.apply_gradients(st_c, [x.cpu() for x in grads_g])
+    e_step = _rel([a.detach().cpu().float() - b0.cpu().float() for (_, a), b0
+                   in zip(named_leaves(st_g.params), before)],
+                  [a.detach().float() - b0.cpu().float() for (_, a), b0
+                   in zip(named_leaves(st_c.params), before)])
+    moved = {part: sum(int((a.detach() != b0).sum()) for (p, a), b0 in
+                       zip(named_leaves(st_g.params), before)
+                       if p.startswith(part))
+             for part in ("/vision/", "/projector/")}
+    log(f"[sft-reference] tiny bf16 SFT step (vision adapter, entropy "
+        f"branch with attention masking) GPU vs CPU: loss {l_g:.5f} vs "
+        f"{l_c:.5f}; stats rel err {e_stats} (tol 2e-2 of max(|cpu|, 1)); "
+        f"LoRA grads rel L2 all / vision / projector "
+        f"{[round(x, 5) for x in e_grad.values()]} (tol 5e-2); AdamW "
+        f"update from the same gradients rel L2 {e_step:.3e} (tol 1e-2); "
+        f"entries moved {moved}; launches {want}")
+    check(max(e_stats.values()) <= 2e-2,
+          "tiny SFT loss or stats disagree with the CPU reference")
+    check(max(e_grad.values()) <= 5e-2,
+          "tiny SFT gradients disagree with the CPU reference")
+    check(e_step <= 1e-2, "tiny SFT AdamW step disagrees with the CPU")
+    check(min(moved.values()) > 0, f"vision / projector adapter did not "
+          f"move: {moved}")
+    return {"stats_rel": e_stats, "grad_rel": e_grad, "step_rel": e_step,
+            "launches": launches}
+
+
 def _post(port, payload):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/v1/generate",
@@ -1892,6 +2047,29 @@ def expected_launches(cfg, dpo, train: bool) -> dict:
     return {k: forwards * v for k, v in per.items()}
 
 
+def expected_sft_launches(cfg, sft, vision: bool) -> dict:
+    """Launches of kernels #1-#5 in one ``sft_train_step``, derived from
+    the configuration.  Each forward runs the CLIP tower (one flash
+    forward per active block) and the decoder over the whole spliced
+    sequence (per layer one flash forward and one scatter launch for q, k
+    and v); the backward recomputes each decoder layer (remat), and with
+    the vision adapter each CLIP block too, so their forward kernels run
+    twice, and adds one dQ and one dK/dV launch per recomputed layer or
+    block and one gather launch per decoder layer.  Without the vision
+    adapter nothing in the tower needs a gradient: it runs once and is not
+    differentiated.  The entropy branch adds a second forward, which is
+    differentiated too."""
+    n_layers, n_clip = cfg.llama.num_layers, cfg.vision.num_active_layers
+    clip_bwd = n_clip if vision else 0
+    per = {"flash_fwd": n_clip + clip_bwd + 2 * n_layers,
+           "scatter_heads": 2 * n_layers,
+           "flash_bwd_dq": clip_bwd + n_layers,
+           "flash_bwd_dkv": clip_bwd + n_layers,
+           "gather_heads": n_layers}
+    forwards = 2 if sft.entropy_loss else 1
+    return {k: forwards * v for k, v in per.items()}
+
+
 def phase_train(model, card, label="train", n_steps: int = 2, b: int = 2,
                 lora_cfg=None):
     """The OPA-DPO training path: ``rollout_score`` once, then ``n_steps``
@@ -2012,6 +2190,13 @@ def _sync(dev):
         torch.cuda.synchronize()
 
 
+def _empty_cache(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def _peak_rss_gb():
     import resource
 
@@ -2038,18 +2223,21 @@ def phase_checkpoint(model, card, root):
 
     cfg, dev = model.cfg, next(model.parameters()).device
     dirs = {k: os.path.join(root, k) for k in ("llava", "clip", "opa",
-                                                "stage4")}
+                                                "stage4", "stage12",
+                                                "stage3")}
     adapter, _ = make_adapters(cfg, RECIPE_LORA,
                                torch.Generator(device=dev).manual_seed(5))
     n_lora = sum(t.numel() for _, t in named_leaves(adapter))
     model_bytes = sum(t.numel() * t.element_size()
                       for t in model.parameters())
     # base + CLIP, the f32 PEFT adapter, and stage 4's checkpoint-2 (f32
-    # PEFT adapter, bf16 full adapter and two bf16 moments)
-    need = model_bytes + n_lora * (4 + 4 + 3 * 2)
+    # PEFT adapter, bf16 full adapter and two bf16 moments), deleted before
+    # stage 3 writes checkpoint-final (about as large, with the vision
+    # tower's and projector's few percent more and a bf16 accumulator)
+    need = model_bytes + n_lora * (4 + 4 + 3 * 2) + n_lora * 2
     os.makedirs(root, exist_ok=True)
     free = shutil.disk_usage(root).free
-    log(f"[ckpt] {_gb(free):.1f} GB free at {root}; the three phases need "
+    log(f"[ckpt] {_gb(free):.1f} GB free at {root}; the five phases need "
         f"about {_gb(need):.1f} GB")
     check(free > 1.1 * need, f"only {_gb(free):.1f} GB free at {root}, "
           f"need {_gb(1.1 * need):.1f} GB for the checkpoint phases")
@@ -2187,6 +2375,39 @@ def phase_serve_cli(model, card, dirs, adapter, plain_answers):
     return res
 
 
+_STAGE_ENV = ("OUTPUT_DIR", "MODEL_DIR", "DATA_DIR", "IMAGE_DIR",
+              "POLICY_LORA_DIR", "API_KEY", "API_KEY0", "API_NUM", "RANK",
+              "WORLD_SIZE")
+
+
+def _have_pil() -> bool:
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def _pixel_class(cls, have_pil):
+    """``cls`` (a dataset of the port) as it is where PIL imports; else
+    with the image decode alone replaced by seeded pixels through the CLIP
+    normalisation, seeded from the row's ``image_bytes``."""
+    if have_pil:
+        return cls
+    import numpy as np
+
+    from opadpo_torch.data.image_processing import _normalise
+
+    class SeededPixels(cls):
+        def pixels(self, item):
+            seed = zlib.crc32(str(item["image_bytes"]).encode())
+            arr = np.random.default_rng(seed).integers(
+                0, 256, (self.image_size, self.image_size, 3))
+            return _normalise(arr.astype(np.float32))
+
+    return SeededPixels
+
+
 STAGE4_ROWS = 4
 
 
@@ -2194,7 +2415,7 @@ def _stage4_rows(have_pil):
     """Seeded stage-4 rows at the reference geometry: a query, three
     responses of 600-890 words (896 tokens after padding) and a GPT-4V
     report that splits the generated response into sentences and rewrites
-    each; an image as PNG bytes when PIL imports, else a seed."""
+    each; an image as PNG bytes when PIL imports, else a seed string."""
     import base64
     import io
 
@@ -2223,7 +2444,8 @@ def _stage4_rows(have_pil):
                "standard_response": words(int(rng.integers(600, 890))),
                "original_generate_response": " ".join(sentences),
                "AI_pseudo_response": " ".join(rewritten),
-               "AI_json_report": json.dumps(report), "seed": i}
+               "AI_json_report": json.dumps(report),
+               "image_bytes": f"seed {i}"}
         if have_pil:
             from PIL import Image
 
@@ -2248,7 +2470,6 @@ def phase_stage4(cfg, card, dirs, train_res, device="cuda"):
 
     from opadpo_torch.data.collators import DPOCollator
     from opadpo_torch.data.datasets import DPODataset
-    from opadpo_torch.data.image_processing import _normalise
     from opadpo_torch.device import resolve_device
     from opadpo_torch.engine.dpo import DpoConfig
     from opadpo_torch.models.loader import load_peft_adapter
@@ -2256,23 +2477,9 @@ def phase_stage4(cfg, card, dirs, train_res, device="cuda"):
     from opadpo_torch.pipeline import opadpo_train
     from opadpo_torch.pipeline.config import apply_overrides, load_config
 
-    try:
-        import PIL  # noqa: F401
-        have_pil = True
-    except ImportError:
-        have_pil = False
-
-    class SeededPixels(DPODataset):
-        """DPODataset with the image decode alone replaced: seeded pixels
-        through the CLIP normalisation (this machine has no PIL)."""
-
-        def pixels(self, item):
-            arr = np.random.default_rng(item["seed"]).integers(
-                0, 256, (self.image_size, self.image_size, 3))
-            return _normalise(arr.astype(np.float32))
-
+    have_pil = _have_pil()
     rows = _stage4_rows(have_pil)
-    dataset = (DPODataset if have_pil else SeededPixels)(
+    dataset = _pixel_class(DPODataset, have_pil)(
         rows, image_size=cfg.vision.image_size)
     log("[stage4] images: " + ("PNG bytes through PIL" if have_pil
                                 else "seeded pixel arrays (no PIL here)"))
@@ -2296,9 +2503,7 @@ def phase_stage4(cfg, card, dirs, train_res, device="cuda"):
         "training.rollout_per_device_batch_size=2",
         "training.step_per_device_batch_size=2", "training.save_steps=2",
         f"training.output_dir={out}", f"training.device={dev.type}"])
-    saved_env = {k: os.environ.pop(k) for k in
-                 ("OUTPUT_DIR", "MODEL_DIR", "DATA_DIR", "IMAGE_DIR",
-                  "POLICY_LORA_DIR") if k in os.environ}
+    saved_env = {k: os.environ.pop(k) for k in _STAGE_ENV if k in os.environ}
     counters = _counters()
     try:
         _reset(counters)
@@ -2350,6 +2555,312 @@ def phase_stage4(cfg, card, dirs, train_res, device="cuda"):
         f"{res['losses']}; {moved} adapter entries moved; a second call "
         f"returned in {again_s:.2f} s; card: {card}")
     log(f"[stage4] {json.dumps(res)}")
+    return res
+
+
+STAGE12_ROWS = 16
+# the stage-3 rows' length in tokens: llava_opa.yaml's query_len 128 plus
+# response_len 896, so the spliced sequence holds 1024 - 1 + 576 = 1599
+SFT_TOKENS = 1024
+
+
+def _sft_response_words(tok, query):
+    """The number of words of a response that brings an SFT row of
+    ``query`` to SFT_TOKENS tokens under ``tok`` (the template's turns
+    around it counted by the port's own preprocessing)."""
+    from opadpo_torch.data.tokenization import preprocess
+
+    def length(n):
+        source = [{"from": "human", "value": query},
+                  {"from": "gpt", "value": " ".join(["w"] * n)}]
+        return preprocess([source], tok, has_image=True)["input_ids"].shape[1]
+
+    n = 900
+    n += SFT_TOKENS - length(n)
+    check(length(n) == SFT_TOKENS, "SFT row length is not linear in words")
+    return n
+
+
+def _stage12_rows(have_pil, n_words):
+    """Seeded rollout prompts at the reference geometry: a question with
+    one image, a ground-truth answer of ``n_words`` words, and an image
+    as PNG bytes when PIL imports, else a seed string."""
+    import base64
+    import io
+
+    import numpy as np
+
+    rng = np.random.default_rng(14)
+    vocab = [f"w{i}" for i in range(5000)]
+    rows = []
+    for i in range(STAGE12_ROWS):
+        row = {"queries": f"<image>\nDescribe image {i} in detail.",
+               "standard_response": " ".join(
+                   vocab[j] for j in rng.integers(0, len(vocab), n_words)),
+               "image_id": f"smoke{i}.png", "image_bytes": f"seed {i}"}
+        if have_pil:
+            from PIL import Image
+
+            arr = rng.integers(0, 256, (300, 400, 3), np.uint8)
+            buf = io.BytesIO()
+            Image.fromarray(arr).save(buf, format="PNG")
+            row["image_bytes"] = base64.b64encode(buf.getvalue()).decode()
+        rows.append(row)
+    return rows
+
+
+class CorrectorStub:
+    """Stands in for the GPT-4V service: no network.  Every call returns
+    a sentence-level report in a JSON fence, as the correction prompt asks
+    for: the audited answer's first words copied with a score, and a
+    rewrite of ``n_words`` words split between the sentence and the
+    "Added" entry (so the corrected response fills stage 3's rows)."""
+
+    model = "smoke-stub"
+
+    def __init__(self, n_words: int):
+        self.n_words = n_words
+        self.calls = []
+
+    def call_llm_with_messages(self, messages, **kw):
+        text = messages[1]["content"][1]["text"]
+        answer = text.split("Answer to audit: ")[1].split("\n")[0]
+        self.calls.append(answer)
+        words = [f"fix{j}" for j in range(self.n_words)]
+        half = self.n_words // 2
+        report = {
+            "sentence_1": {"copied_content": " ".join(answer.split()[:20]),
+                           "score": 2, "error_type": "image_recognition_error",
+                           "object": "image",
+                           "rewritten_content": " ".join(words[:half]),
+                           "reason": "stub"},
+            "Added": {"rewritten_content": " ".join(words[half:]),
+                      "reason": "stub"}}
+        return "```json\n" + json.dumps(report) + "\n```"
+
+
+def phase_stages12(cfg, card, dirs, device="cuda"):
+    """Stages 1-2 from the checkpoint: ``configs/llava_online_generation.
+    yaml`` through the port's reader with overrides (the checkpoint and
+    the CLIP directory, batch 8, ``response_len`` 256; the rest the
+    recipe: bf16 KV, temperature 1, top-k 30, top-p 0.95), and
+    ``online_generation.run`` over 16 seeded prompt rows given in memory
+    (``QueryDataset`` / ``QueryCollator``), with ``CorrectorStub`` in place
+    of the module's ``get_api_service`` and a dummy ``API_KEY``, so the
+    threaded correction path runs: 2 shards of 8 records, each with a
+    report and a corrected response, a second run that samples nothing,
+    #1 launched once per CLIP block and decoder layer per prefill and no
+    other kernel (the bf16 cache decodes without one); then
+    ``merge_and_filter`` keeps all 16 rows.  -> (result, merged records,
+    the corrected response's word count)."""
+    from opadpo_torch.data.collators import QueryCollator
+    from opadpo_torch.data.datasets import QueryDataset
+    from opadpo_torch.device import resolve_device
+    from opadpo_torch.pipeline import dataset_ops, online_generation
+    from opadpo_torch.pipeline.config import apply_overrides, load_config
+
+    have_pil = _have_pil()
+    tok = WordTokenizer()
+    n_words = _sft_response_words(tok, "<image>\nDescribe image 0 in detail.")
+    rows = _stage12_rows(have_pil, n_words)
+    dataset = _pixel_class(QueryDataset, have_pil)(
+        rows, tok, query_len=128, image_size=cfg.vision.image_size)
+    module = {"train_dataset": dataset, "eval_dataset": None,
+              "data_collator": QueryCollator()}
+    out, dev = dirs["stage12"], resolve_device(device)
+    gcfg = apply_overrides(load_config(os.path.join(
+        ROOT, "configs", "llava_online_generation.yaml")), [
+        f"base_model={dirs['llava']}", f"image_checkpoint={dirs['clip']}",
+        "training.rollout_per_device_batch_size=8",
+        "training.response_len=256", f"training.output_dir={out}",
+        f"training.device={dev.type}"])
+    stub = CorrectorStub(n_words)
+    saved_env = {k: os.environ.pop(k) for k in _STAGE_ENV if k in os.environ}
+    saved_service = online_generation.get_api_service
+    counters = _counters()
+    try:
+        os.environ["API_KEY"] = "smoke-dummy"
+        online_generation.get_api_service = (
+            lambda rank=0, cache_path="": stub)
+        _reset(counters)
+        t0 = time.perf_counter()
+        timer = online_generation.run(gcfg, tokenizer=tok,
+                                      data_module=module)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = _read(counters)
+        rollouts = os.path.join(out, "rollouts")
+        shards = sorted(os.listdir(rollouts))
+        mtimes = [os.path.getmtime(os.path.join(rollouts, n)) for n in shards]
+        t0 = time.perf_counter()
+        again = online_generation.run(gcfg, tokenizer=tok,
+                                      data_module=module)
+        again_s = time.perf_counter() - t0
+    finally:
+        online_generation.get_api_service = saved_service
+        os.environ.pop("API_KEY", None)
+        os.environ.update(saved_env)
+    gc.collect()
+    _empty_cache(dev)
+    check(shards == ["step1_rank0.json", "step2_rank0.json"],
+          f"rollout shards {shards}")
+    records = []
+    for name in shards:
+        with open(os.path.join(rollouts, name)) as f:
+            records.extend(json.load(f))
+    check(len(records) == STAGE12_ROWS and len(stub.calls) == STAGE12_ROWS,
+          f"{len(records)} records, {len(stub.calls)} correction calls")
+    bad = [r["image_id"] for r in records
+           if not (r["API_success"] and r["AI_json_report"]
+                   and len(r["AI_pseudo_response"].split()) == n_words)]
+    check(not bad, f"records without a report or correction: {bad}")
+    check(again.history == [] and mtimes == [
+        os.path.getmtime(os.path.join(rollouts, n)) for n in shards],
+        "the second run was not a no-op")
+    n_prefill = len(timer.history)
+    want = {k: 0 for k in launches}
+    want["flash_fwd"] = n_prefill * (cfg.vision.num_active_layers
+                                     + cfg.llama.num_layers)
+    check(launches == want, f"stage 1-2 launches {launches}, expected {want}")
+    merged = dataset_ops.merge_and_filter([rollouts])
+    resp_words = [len(r["original_generate_response"].split())
+                  for r in records]
+    check(len(merged) == STAGE12_ROWS, f"merge_and_filter kept "
+          f"{len(merged)} of {STAGE12_ROWS} rows; response words "
+          f"{resp_words}")
+    sample_s = [e["seconds"] for e in timer.history]
+    res = {"run_s": wall, "sample_s": sample_s, "steps": n_prefill,
+           "rows": len(records), "response_words": resp_words,
+           "corrected_words": n_words, "second_run_s": again_s,
+           "kept_rows": len(merged), "launches": launches,
+           "images": "pil" if have_pil else "seeded", "card": card}
+    log(f"[stages12] run() {wall:.1f} s (load, 2 steps of 8 rows sampled to "
+        f"256 tokens at {[round(x, 2) for x in sample_s]} s, 16 stubbed "
+        f"corrections); response words {resp_words}; a second run returned "
+        f"in {again_s:.2f} s; merge_and_filter kept {len(merged)}; card: "
+        f"{card}")
+    log(f"[stages12] {json.dumps(res)}")
+    return res, merged, n_words
+
+
+def phase_stage3(cfg, card, dirs, merged, n_words, device="cuda"):
+    """Stage 3 from the checkpoint: ``configs/llava_opa.yaml`` through the
+    port's reader with overrides (the checkpoint and the CLIP directory,
+    r 256 / alpha 512, 1 epoch, logging every micro-step; the recipe's
+    per-device batch 4 and ``tune_vision_tower``, accumulation cut from 8
+    to 2), ``opa_train.train`` over ``merge_and_filter``'s 16 rows as the
+    OPA dataset's columns hold them, through the port's ``SFTDataset`` /
+    ``SFTCollator`` (32 examples: 8 micro-steps of 4 rows of 1024 tokens,
+    1599 spliced positions, 4 optimizer steps): a finite log line per
+    micro-step; ``checkpoint-final`` whose ``adapter_full.pt`` holds vision
+    and projector adapters whose B factors moved from zero, a PEFT
+    directory with the decoder's entries only, ``completed``; #1-#5
+    launched as ``expected_sft_launches`` says per micro-step."""
+    import numpy as np
+    import torch
+
+    from opadpo_torch.data.collators import SFTCollator
+    from opadpo_torch.data.datasets import SFTDataset
+    from opadpo_torch.device import resolve_device
+    from opadpo_torch.engine.sft import SftConfig
+    from opadpo_torch.pipeline import dataset_ops, opa_train
+    from opadpo_torch.pipeline.config import apply_overrides, load_config
+
+    have_pil = _have_pil()
+    tok = WordTokenizer()
+    cols = dataset_ops.opa_columns(merged)
+    rows = [dict(zip(cols, v)) for v in zip(*cols.values())]
+    dataset = _pixel_class(SFTDataset, have_pil)(
+        rows, tok, query_len=128, response_len=896,
+        image_size=cfg.vision.image_size)
+    collator = SFTCollator(tok)
+    probe = collator([dataset[0], dataset[1], dataset[2], dataset[3]])
+    check(probe["input_ids"].shape == (4, SFT_TOKENS),
+          f"SFT rows {probe['input_ids'].shape}, not 4 x {SFT_TOKENS}")
+    labelled = int((probe["labels"] != -100).sum())
+    check(labelled > 4 * n_words, f"only {labelled} labelled tokens")
+    module = {"train_dataset": dataset, "eval_dataset": None,
+              "data_collator": collator}
+    out, dev = dirs["stage3"], resolve_device(device)
+    ocfg = apply_overrides(load_config(os.path.join(ROOT, "configs",
+                                                   "llava_opa.yaml")), [
+        f"base_model={dirs['llava']}", f"image_checkpoint={dirs['clip']}",
+        "training.lora_r=256", "training.lora_alpha=512",
+        "training.num_train_epochs=1",
+        "training.gradient_accumulation_steps=2",
+        "training.logging_steps=1", f"training.output_dir={out}",
+        f"training.device={dev.type}"])
+    t = ocfg.training
+    check(int(t["per_device_train_batch_size"]) == 4
+          and bool(t["tune_vision_tower"]) and not bool(t["entropy_loss"]),
+          "llava_opa.yaml no longer holds the recipe's batch 4 with the "
+          "vision tower tuned and the entropy branch off")
+    saved_env = {k: os.environ.pop(k) for k in _STAGE_ENV if k in os.environ}
+    counters = _counters()
+    cuda = dev.type == "cuda"
+    base_gb = torch.cuda.memory_allocated() / 1e9 if cuda else 0.0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        _reset(counters)
+        t0 = time.perf_counter()
+        timer = opa_train.train(ocfg, tokenizer=tok, data_module=module)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = _read(counters)
+    finally:
+        os.environ.update(saved_env)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    gc.collect()
+    _empty_cache(dev)
+    micro = len(dataset) // 4
+    check(len(timer.history) == micro == 8,
+          f"{len(timer.history)} micro-steps, expected {micro}")
+    with open(os.path.join(out, "train_log.jsonl")) as f:
+        lines = [json.loads(x) for x in f]
+    check(len(lines) == micro and all(
+        np.isfinite(x["loss/total"]) and np.isfinite(x["loss/grad_norm"])
+        for x in lines), f"train_log.jsonl: {lines}")
+    final = os.path.join(out, "checkpoint-final")
+    check(os.path.exists(os.path.join(out, "completed")), "no completed")
+    full = torch.load(os.path.join(final, "adapter_full.pt"),
+                      map_location="cpu", weights_only=True)
+    moved = {part: sum(int((v != 0).sum()) for k, v in full.items()
+                       if k.startswith(part) and k.endswith("/b"))
+             for part in ("/vision/", "/projector/", "/llama/")}
+    check(min(moved.values()) > 0, f"B entries moved from zero: {moved}")
+    peft = torch.load(os.path.join(final, "adapter_model", "lora_policy",
+                                   "adapter_model.bin"), map_location="cpu",
+                      weights_only=True)
+    check(len(peft) == 2 * 7 * cfg.llama.num_layers and all(
+        k.startswith("base_model.model.model.layers.") for k in peft),
+        f"the PEFT directory holds {len(peft)} entries beyond the decoder's")
+    del full, peft
+    per = expected_sft_launches(cfg, SftConfig(), vision=True)
+    want = {k: micro * per.get(k, 0) for k in launches}
+    check(launches == want, f"stage-3 launches {launches}, expected {want}")
+    step_s = [e["seconds"] for e in timer.history]
+    med = statistics.median(step_s[1:])
+    positions = 4 * (SFT_TOKENS - 1 + cfg.num_patches)
+    res = {"train_s": wall, "micro_step_s": step_s,
+           "micro_step_s_median_after_first": med,
+           "spliced_positions_per_micro_step": positions,
+           "positions_per_s": positions / med,
+           "peak_gb": peak_gb, "allocated_before_gb": base_gb,
+           "losses": [x["loss/total"] for x in lines],
+           "grad_norms": [x["loss/grad_norm"] for x in lines],
+           "b_entries_nonzero": moved,
+           "checkpoint_gb": _gb(_dir_bytes(final)),
+           "launches_per_micro_step": per, "launches": launches,
+           "images": "pil" if have_pil else "seeded", "card": card}
+    log(f"[stage3] train() {wall:.1f} s (load, 8 micro-steps of 4 x 1599 "
+        f"spliced positions, checkpoint-final {res['checkpoint_gb']:.2f} "
+        f"GB); micro-step {[round(x, 3) for x in step_s]} s (median after "
+        f"the first {med:.3f} s, {positions / med:.0f} positions/s); peak "
+        f"{peak_gb:.2f} GB ({base_gb:.2f} GB held before train()); losses "
+        f"{[round(x, 4) for x in res['losses']]}; launches {launches}; "
+        f"card: {card}")
+    log(f"[stage3] {json.dumps(res)}")
     return res
 
 
@@ -2557,6 +3068,7 @@ def main() -> int:
     for bits in (16, 8, 4):
         phase_reference(bits)
         phase_train_reference(bits)
+    phase_sft_reference()
     phase_tiny_f32_decode()
     serve, model, plain_answers = phase_main_path(card)
     rollout = phase_rollout_decode(model, card)
@@ -2571,6 +3083,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         stage4 = phase_stage4(model.cfg, card, dirs, train)
+        shutil.rmtree(dirs["stage4"], ignore_errors=True)
+        stage12, merged, n_words = phase_stages12(model.cfg, card, dirs)
+        stage3 = phase_stage3(model.cfg, card, dirs, merged, n_words)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     gc.collect()
@@ -2604,7 +3119,7 @@ def main() -> int:
          "response": pick(flash["response"], *times)},
     ]
     for kname, key in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dkv")):
-        r, p = bwd["response"], bwd["prefix"]
+        r, p, c = bwd["response"], bwd["prefix"], bwd["clip"]
         outs = (key,) if key == "dq" else ("dk", "dv")
         kernels.append({
             "name": kname, "route": "cuda",
@@ -2613,8 +3128,8 @@ def main() -> int:
                         + ("263" if key == "dq" else "302"),
             "launches": train["launches"][kname],
             "launches_per_train_step": steps[kname],
-            "max_abs_err": max(x["err"][n] for x in (r, p) for n in outs),
-            "max_row_rel_err": max(x["row_err"][n] for x in (r, p)
+            "max_abs_err": max(x["err"][n] for x in (r, p, c) for n in outs),
+            "max_row_rel_err": max(x["row_err"][n] for x in (r, p, c)
                                    for n in outs),
             "ms": r[key + "_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r[key + "_bound_ms"],
@@ -2624,11 +3139,14 @@ def main() -> int:
             "at": "[6,896 over 1599,32,128] bf16 causal offset 703 "
                   "(response stream); plain and library compute dq, dk, dv "
                   "together",
-            "prefix": {"ms": p[key + "_ms"], "plain_ms": p["plain_ms"],
-                       "library_ms": p["library_ms"],
-                       "bound_ms": p[key + "_bound_ms"],
-                       "bound_by": p[key + "_bound_by"],
-                       "share_of_bound": p[key + "_share_of_bound"]}})
+            **{name: {"ms": x[key + "_ms"], "plain_ms": x["plain_ms"],
+                      "library_ms": x["library_ms"],
+                      "bound_ms": x[key + "_bound_ms"],
+                      "bound_by": x[key + "_bound_by"],
+                      "share_of_bound": x[key + "_share_of_bound"]}
+               for name, x in (("prefix", p), ("clip", c))},
+            "clip_at": "[4,577,16,64] bf16 bidirectional, no key mask "
+                       "(CLIP tower, stage 3)"})
     kernels += heads_kernel_entries(heads, train)
     kernels.append(
         {"name": "decode_attention_int8", "route": "cuda",
@@ -2651,8 +3169,13 @@ def main() -> int:
                                     q_train)
     for entry in kernels:
         # the checkpoint paths' own runs, each counted from 0
-        if entry["name"] in stage4["launches"]:
-            entry["launches_stage4"] = stage4["launches"][entry["name"]]
+        for label, res in (("stage4", stage4), ("stages12", stage12),
+                           ("stage3", stage3)):
+            if entry["name"] in res["launches"]:
+                entry[f"launches_{label}"] = res["launches"][entry["name"]]
+        if entry["name"] in stage3["launches_per_micro_step"]:
+            entry["launches_per_stage3_micro_step"] = \
+                stage3["launches_per_micro_step"][entry["name"]]
         key = {"flash_fwd": "launches_flash",
                "decode_attention_int8": "launches_decode"}.get(entry["name"])
         if key:
@@ -2660,7 +3183,9 @@ def main() -> int:
                                            + cli["adapter"][key])
     log(f"[ckpt] load {ckpt['load_s']:.2f} s ({ckpt['load_gb_per_s']:.2f} "
         f"GB/s), peak host RSS {ckpt['peak_host_rss_gb']} GB; stage-4 "
-        f"steps {stage4['step_s']} s")
+        f"steps {stage4['step_s']} s; stage 1-2 sampling "
+        f"{stage12['sample_s']} s; stage-3 micro-steps "
+        f"{stage3['micro_step_s']} s, peak {stage3['peak_gb']:.2f} GB")
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

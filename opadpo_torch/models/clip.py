@@ -5,7 +5,11 @@ stride-14 patch convolution is patchify + matmul (a matmul keeps f32 runs
 in full f32, where cuDNN's convolution would default to TF32); CLS and
 position embeddings, ``pre_norm``; pre-LN blocks with quick_gelu in f32
 and bidirectional attention.  Layer -2 is selected, so only the first 23 of
-24 blocks exist, and CLS is dropped at the end.  The block linears may be
+24 blocks exist, and CLS is dropped at the end.  With ``remat`` each block
+runs under ``torch.utils.checkpoint`` while grad is enabled (the JAX tower
+scans its blocks under ``jax.checkpoint``), so a backward through the
+tower (the OPA-SFT recipe's vision adapter) keeps one activation a block
+and recomputes the rest.  The block linears may be
 quantized (``ops/quant.QuantLinear``, their biases kept in the model
 dtype); the patch embedding stays in the model dtype.
 """
@@ -18,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from opadpo_torch.models.llama import maybe_remat
 from opadpo_torch.models.lora import lora_dense, tree_get
 from opadpo_torch.ops.attention import multi_head_attention
 
@@ -123,7 +128,8 @@ class ClipVisionTower(nn.Module):
                                     for _ in range(cfg.num_active_layers))
 
     def forward(self, images: torch.Tensor, lora=None,
-                lora_scaling: float = 1.0) -> torch.Tensor:
+                lora_scaling: float = 1.0, remat: bool = True
+                ) -> torch.Tensor:
         """[B, H, W, 3] normalised images -> patch features [B, P, D]."""
         cfg = self.cfg
         b = images.shape[0]
@@ -134,5 +140,6 @@ class ClipVisionTower(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)[None]
         x = layer_norm(x, self.pre_norm)
         for i, blk in enumerate(self.layers):
-            x = blk(x, tree_get(lora, "layers", i), lora_scaling)
+            x = maybe_remat(blk, remat, x, tree_get(lora, "layers", i),
+                             lora_scaling)
         return x[:, 1:, :]

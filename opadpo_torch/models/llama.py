@@ -242,7 +242,9 @@ def forward_prefill_unrolled(model: LlamaModel, input_embeds, key_mask,
                          head)[:, 0], kv_list)
 
 
-def _maybe_remat(fn, remat: bool, *args):
+def maybe_remat(fn, remat: bool, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``remat`` is
+    set and grad is enabled (the decoder's layers and the CLIP blocks)."""
     if remat and torch.is_grad_enabled():
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
@@ -270,9 +272,9 @@ def forward(model: LlamaModel, input_embeds, key_mask, positions, lora=None,
     cos, sin = model.rope_tables()
     x = input_embeds
     for i, layer in enumerate(model.layers):
-        x = _maybe_remat(_train_layer, remat, x, layer,
-                         tree_get(lora, "layers", i), key_mask, positions,
-                         cfg, lora_scaling, cos, sin)
+        x = maybe_remat(_train_layer, remat, x, layer,
+                        tree_get(lora, "layers", i), key_mask, positions,
+                        cfg, lora_scaling, cos, sin)
     x = rms_norm(x, model.final_norm, cfg.rms_norm_eps)
     if return_hidden:
         return x
@@ -313,9 +315,9 @@ def forward_shared_prefix(model: LlamaModel, prefix_embeds, prefix_mask,
     positions = (prefix_positions, resp_positions)
     xp, xr = prefix_embeds, resp_embeds
     for i, layer in enumerate(model.layers):
-        xp, xr = _maybe_remat(_shared_layer, remat, xp, xr, layer,
-                              tree_get(lora, "layers", i), masks, positions,
-                              cfg, lora_scaling, cos, sin)
+        xp, xr = maybe_remat(_shared_layer, remat, xp, xr, layer,
+                             tree_get(lora, "layers", i), masks, positions,
+                             cfg, lora_scaling, cos, sin)
     return (rms_norm(xp, model.final_norm, cfg.rms_norm_eps),
             rms_norm(xr, model.final_norm, cfg.rms_norm_eps))
 

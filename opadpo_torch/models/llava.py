@@ -10,7 +10,8 @@ splice point q,
 
 RoPE positions are ``max(cumsum(mask) - 1, 0)`` of the spliced mask.  The
 CoPO "attention" method masks patches through ``image_mask``, spliced into
-the key mask the same way.
+the key mask the same way; SFT labels are spliced too, ``IGNORE_INDEX`` on
+the patches.
 """
 
 from __future__ import annotations
@@ -21,12 +22,12 @@ from typing import Optional
 import torch
 from torch import nn
 
-from opadpo_torch.constants import IMAGE_TOKEN_INDEX
+from opadpo_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from opadpo_torch.device import resolve_device
 from opadpo_torch.models import clip as clip_model
 from opadpo_torch.models import llama as llama_model
 from opadpo_torch.models import projector as projector_model
-from opadpo_torch.models.lora import LoraConfig, tree_get
+from opadpo_torch.models.lora import LoraConfig, init_lora_entry, tree_get
 from opadpo_torch.ops import quant
 
 
@@ -143,10 +144,11 @@ def init_params_quantized(cfg: LlavaConfig, generator: torch.Generator,
 
 
 def encode_images(model: Llava, images: torch.Tensor, lora=None,
-                  lora_scaling: float = 1.0) -> torch.Tensor:
+                  lora_scaling: float = 1.0, remat: bool = True
+                  ) -> torch.Tensor:
     """[B, H, W, 3] -> projected patch features [B, P, D]."""
     feats = model.vision(images, lora=tree_get(lora, "vision"),
-                         lora_scaling=lora_scaling)
+                         lora_scaling=lora_scaling, remat=remat)
     return model.projector(feats, lora=tree_get(lora, "projector"),
                            lora_scaling=lora_scaling)
 
@@ -172,9 +174,12 @@ def _gather_indices(splice_pos: torch.Tensor, text_len: int,
 
 def splice_sequence(text_embeds: torch.Tensor, image_feats: torch.Tensor,
                     text_mask: torch.Tensor, splice_pos: torch.Tensor,
-                    image_mask: Optional[torch.Tensor] = None):
-    """-> (embeds [B, S, D], key_mask [B, S] int); ``image_mask`` [B, P]
-    marks the valid patches (all of them when None)."""
+                    image_mask: Optional[torch.Tensor] = None,
+                    text_labels: Optional[torch.Tensor] = None):
+    """-> (embeds [B, S, D], key_mask [B, S] int), and with ``text_labels``
+    [B, L] also the spliced labels [B, S] (``IGNORE_INDEX`` on the
+    patches); ``image_mask`` [B, P] marks the valid patches (all of them
+    when None)."""
     b, l, d = text_embeds.shape
     p = image_feats.shape[1]
     is_image, text_idx, image_idx = _gather_indices(splice_pos, l, p)
@@ -189,7 +194,11 @@ def splice_sequence(text_embeds: torch.Tensor, image_feats: torch.Tensor,
     else:
         imask = torch.gather(image_mask.to(torch.int64), 1, image_idx)
     key_mask = torch.where(is_image, imask, tmask)
-    return embeds, key_mask
+    if text_labels is None:
+        return embeds, key_mask
+    labels = torch.where(is_image, IGNORE_INDEX,
+                         torch.gather(text_labels, 1, text_idx))
+    return embeds, key_mask, labels
 
 
 def spliced_positions(key_mask: torch.Tensor) -> torch.Tensor:
@@ -198,30 +207,51 @@ def spliced_positions(key_mask: torch.Tensor) -> torch.Tensor:
 
 
 def init_lora(cfg: LlavaConfig, lora_cfg: LoraConfig,
-              generator: torch.Generator) -> dict:
-    """The DPO stage's adapter: the language side only (the vision tower
-    and projector adapters of the OPA-SFT recipe come with that stage)."""
-    return {"llama": llama_model.init_lora(cfg.llama, lora_cfg, generator)}
+              generator: torch.Generator,
+              include_vision: bool = False) -> dict:
+    """The adapter tree: the decoder's seven linears of every layer, and
+    with ``include_vision`` (the OPA-SFT recipe's ``tune_vision_tower``)
+    also the six linears of each active CLIP block and the projector's
+    two, with the JAX package's entry names and widths.  The patch
+    embedding has none, so no gradient reaches the images."""
+    lora = {"llama": llama_model.init_lora(cfg.llama, lora_cfg, generator)}
+    if include_vision:
+        d, i = cfg.vision.hidden_size, cfg.vision.intermediate_size
+        shapes = {"wq": (d, d), "wk": (d, d), "wv": (d, d), "wo": (d, d),
+                  "fc1": (d, i), "fc2": (i, d)}
+        lora["vision"] = {"layers": [
+            {name: init_lora_entry(a, b, lora_cfg, generator)
+             for name, (a, b) in shapes.items()}
+            for _ in range(cfg.vision.num_active_layers)]}
+        p_in, p_out = cfg.projector.in_dim, cfg.projector.out_dim
+        lora["projector"] = {
+            "fc1": init_lora_entry(p_in, p_out, lora_cfg, generator),
+            "fc2": init_lora_entry(p_out, p_out, lora_cfg, generator)}
+    return lora
 
 
 def forward(model: Llava, input_ids: torch.Tensor, text_mask: torch.Tensor,
             images: torch.Tensor, lora=None, lora_scaling: float = 1.0,
             image_key_mask: Optional[torch.Tensor] = None,
+            labels: Optional[torch.Tensor] = None,
             remat: bool = True, return_hidden: bool = False) -> dict:
     """Full-sequence forward (training / scoring) over the spliced sequence
     of length L - 1 + P -> dict(logits [B, S, V] f32 or, with
-    ``return_hidden``, hidden [B, S, D]; key_mask [B, S])."""
-    image_feats = encode_images(model, images, lora, lora_scaling)
+    ``return_hidden``, hidden [B, S, D]; key_mask [B, S]; labels [B, S],
+    the spliced ``labels`` [B, L], or None).  ``remat`` covers the CLIP
+    blocks and the decoder's layers."""
+    image_feats = encode_images(model, images, lora, lora_scaling, remat)
     text_embeds = llama_model.embed_tokens(model.llama, input_ids)
-    embeds, key_mask = splice_sequence(
+    embeds, key_mask, *spliced = splice_sequence(
         text_embeds, image_feats.to(text_embeds.dtype), text_mask,
-        splice_positions(input_ids), image_mask=image_key_mask)
+        splice_positions(input_ids), image_mask=image_key_mask,
+        text_labels=labels)
     out = llama_model.forward(
         model.llama, embeds, key_mask, spliced_positions(key_mask),
         lora=tree_get(lora, "llama"), lora_scaling=lora_scaling, remat=remat,
         return_hidden=return_hidden)
     return {"hidden" if return_hidden else "logits": out,
-            "key_mask": key_mask}
+            "key_mask": key_mask, "labels": spliced[0] if spliced else None}
 
 
 def prefill_unrolled(model: Llava, input_ids: torch.Tensor,

@@ -13,7 +13,8 @@ package writes orbax checkpoints.
 
 Discovery scans the ``checkpoint-N`` directories and the ``completed``
 marker (reference ``utils/lora_utils.py:31-47``); resume parses the step
-from the directory name and fast-forwards the data loader.
+from the directory name and fast-forwards the data loader.  The rollout
+stage resumes from its ``step{N}_rank{R}.json`` shards (``find_max_step``).
 """
 
 from __future__ import annotations
@@ -124,3 +125,17 @@ def restore_train_state(ckpt_dir: str, state: TrainState, llama_cfg,
     state.count, state.mini_step, state.step = (
         opt["count"], opt["mini_step"], opt["step"])
     return state
+
+
+def find_max_step(rollout_dir: str, rank: Optional[int] = None) -> int:
+    """The last rollout step written as a ``step{N}_rank{R}.json`` shard
+    (0 if none; reference generator.py:126-140).  With ``rank`` only that
+    rank's shards count, so a restarted rank redoes its own missing steps
+    whatever the other ranks reached."""
+    if not os.path.isdir(rollout_dir):
+        return 0
+    suffix = r"\d+" if rank is None else str(int(rank))
+    pattern = re.compile(r"^step(\d+)_rank" + suffix + r"\.json$")
+    steps = [int(m.group(1)) for m in map(pattern.match,
+                                          os.listdir(rollout_dir)) if m]
+    return max(steps, default=0)

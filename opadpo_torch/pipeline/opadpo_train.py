@@ -51,7 +51,7 @@ from opadpo_torch.pipeline.config import (
     Config, apply_overrides, load_config, save_config,
 )
 from opadpo_torch.pipeline.runtime import (
-    StepTimer, load_tokenizer, setup_model,
+    StepTimer, batch_to_device, load_tokenizer, setup_model,
 )
 from opadpo_torch.utils.metrics import MetricsLogger
 
@@ -65,11 +65,6 @@ def rollout_generator(device: torch.device, seed: int, step: int,
     state = np.random.SeedSequence((seed, step, chunk)).generate_state(
         1, np.uint64)
     return torch.Generator(device=device).manual_seed(int(state[0]))
-
-
-def _to_device(batch: dict, dev: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-            for k, v in batch.items() if isinstance(v, np.ndarray)}
 
 
 def _dpo_config(t: Config, scaling: float) -> DpoConfig:
@@ -231,7 +226,7 @@ def train(cfg: Config, tokenizer=None, data_module: Optional[dict] = None
                 chunk = {k: (v[start:start + sub_bs]
                              if isinstance(v, np.ndarray) else v)
                          for k, v in host_batch.items()}
-                batch = _to_device(chunk, dev)
+                batch = batch_to_device(chunk, dev)
                 gen = rollout_generator(dev, seed, step_idx, chunk_idx)
                 chunk_idx += 1
                 scored = dpo_engine.rollout_score(model, dpo_cfg, ref_lora,

@@ -1,6 +1,7 @@
 """Model set-up for the pipeline entry points: port of
 ``opadpo_tpu/pipeline/runtime.py`` (``llava_config_from_hf``,
-``load_tokenizer``, ``setup_model``, ``StepTimer``).
+``load_tokenizer``, ``setup_model``, ``StepTimer``) and the host-batch
+move ``batch_to_device``.
 
 One device, no mesh: multi-GPU set-up comes with ``torch.distributed``
 (ROADMAP Queue 1 item 8).  ``setup_model`` loads a checkpoint directory
@@ -124,6 +125,13 @@ def setup_model(
         quant.quantize_params(model, bits=bits, mode=mode)
     quant.set_quant_mode(model, mode)
     return cfg, model
+
+
+def batch_to_device(batch: dict, dev: torch.device) -> dict:
+    """The numpy arrays of a collated host batch as tensors on ``dev``
+    (its other entries, such as text lists, dropped)."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in batch.items() if isinstance(v, np.ndarray)}
 
 
 @dataclasses.dataclass

@@ -297,10 +297,12 @@ def _bwd_row_err(a, ref):
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("sq,skv", [(63, 63), (64, 64), (65, 65),
                                     (127, 127), (129, 129), (64, 129),
-                                    (127, 300), (703, 703), (896, 1599)])
+                                    (127, 300), (577, 577), (703, 703),
+                                    (896, 1599)])
 def test_flash_bwd_shapes_match_plain_on_gpu(d, sq, skv):
     """The TMA/wgmma dQ and dK/dV kernels at head widths 64 and 128,
-    lengths around their 64- and 128-row tiles and the DPO shapes, causal
+    lengths around their 64- and 128-row tiles, the CLIP length (577 =
+    9 x 64 + 1, the stage-3 vision backward) and the DPO shapes, causal
     (offset Skv - Sq) and bidirectional, contiguous and head-major views,
     keys with a middle block masked, left padding and a batch row masked
     everywhere (its dO nonzero): each of dq, dk, dv within 2e-2 of its
@@ -595,3 +597,62 @@ def test_quantizers_give_the_cpu_codes_on_gpu():
         c, gpu = fn(kv, 512), fn(kv.cuda(), 512)
         for key in keys:
             assert torch.equal(c[key], gpu[key].cpu()), (fn.__name__, key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", [None, "attention"])
+def test_sft_step_matches_cpu_on_gpu(method):
+    """One tiny OPA-SFT loss and its gradients in bf16 with the vision and
+    projector adapters on (B non-zero), right-padded rows, the entropy
+    branch off and with attention masking (both devices draw the patch
+    mask from a CPU generator of one seed): the GPU (kernels #1-#5, the
+    CLIP backward included) against the same weights on the CPU (plain
+    versions), loss within 2e-2 relative and the gradients within 5e-2
+    relative L2, as ``chip_smoke.phase_sft_reference`` holds them.  The
+    tiny CLIP runs one head of 64 (the backward kernels take 64 and 128)."""
+    import copy
+    import dataclasses
+
+    from opadpo_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+    from opadpo_torch.engine import sft as t_sft
+    from opadpo_torch.models import llava as t_llava
+    from opadpo_torch.models.lora import LoraConfig, make_trainable, \
+        named_leaves, tree_map
+
+    _gen()
+    tiny = t_llava.LlavaConfig.tiny()
+    cfg = dataclasses.replace(tiny, vision=dataclasses.replace(
+        tiny.vision, num_heads=1))
+    g = torch.Generator().manual_seed(5)
+    cpu_model = t_llava.init_params(cfg, g, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    lora = t_llava.init_lora(cfg, LoraConfig(rank=4, alpha=8.0), g,
+                             include_vision=True)
+    for path, leaf in named_leaves(lora):
+        if path.endswith("/b"):
+            leaf.copy_(torch.randn(leaf.shape, generator=g) * 0.05)
+    ids = torch.randint(5, cfg.llama.vocab_size, (2, 70), generator=g)
+    ids[:, 2] = IMAGE_TOKEN_INDEX
+    labels = torch.where(torch.arange(70) >= 20, ids, IGNORE_INDEX)
+    ids[0, -9:] = 0
+    labels[0, -9:] = IGNORE_INDEX
+    batch = {"input_ids": ids, "labels": labels,
+             "attention_mask": ((ids != 0) | (labels != IGNORE_INDEX)).long(),
+             "images": torch.randn(2, 28, 28, 3, generator=g)}
+    sft = t_sft.SftConfig(entropy_loss=method is not None,
+                          entropy_mask_method=method or "random",
+                          entropy_mask_ratio=0.5, entropy_loss_coef=0.5)
+    out = {}
+    for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+        params = make_trainable(tree_map(lambda x: x.to(dev), lora))
+        loss, _ = t_sft.sft_loss(
+            params, model, sft, {k: v.to(dev) for k, v in batch.items()},
+            torch.Generator().manual_seed(7))
+        grads = torch.autograd.grad(loss, [x for _, x in
+                                           named_leaves(params)])
+        out[dev] = (loss.item(), torch.cat([x.float().flatten().cpu()
+                                            for x in grads]))
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    assert abs(lg - lc) <= 2e-2 * abs(lc), (lg, lc)
+    assert (gg - gc).norm() <= 5e-2 * gc.norm(), ((gg - gc).norm(),
+                                                  gc.norm())

@@ -160,12 +160,13 @@ def test_port_imports_no_jax():
     """Every opadpo_torch module, and chip_smoke.py, imports in a process
     where ``jax`` and ``opadpo_tpu`` cannot be imported; the training
     slice's, the quantized base's, speculative decode's and the stage-4
-    slice's modules are among them.  A second process also blocks the
-    packages the GPU machine lacks (``yaml``, ``safetensors``,
-    ``transformers``, ``datasets``, ``PIL``): every module still imports,
-    and the config reader and the safetensors reader and writer work."""
+    slice's and the stage 1-3 slice's modules are among them.  A second
+    process also blocks the packages the GPU machine lacks (``yaml``,
+    ``safetensors``, ``transformers``, ``datasets``, ``PIL``,
+    ``requests``): every module still imports, and the config reader and
+    the safetensors reader and writer work."""
     blocked_missing = ("yaml", "safetensors", "transformers", "datasets",
-                       "PIL")
+                       "PIL", "requests")
     for extra in ((), blocked_missing):
         code = (
             "import sys, pkgutil, importlib, runpy, os, tempfile\n"
@@ -185,7 +186,12 @@ def test_port_imports_no_jax():
             " 'opadpo_torch.pipeline.opadpo_train', 'opadpo_torch.serve',"
             " 'opadpo_torch.data.datasets', 'opadpo_torch.data.collators',"
             " 'opadpo_torch.data.loading', 'opadpo_torch.data.tokenization',"
-            " 'opadpo_torch.data.char_tokenizer', 'opadpo_torch.utils.metrics'}"
+            " 'opadpo_torch.data.char_tokenizer', 'opadpo_torch.utils.metrics',"
+            " 'opadpo_torch.engine.sft', 'opadpo_torch.pipeline.opa_train',"
+            " 'opadpo_torch.pipeline.online_generation',"
+            " 'opadpo_torch.pipeline.gpt4v_client',"
+            " 'opadpo_torch.pipeline.prompts',"
+            " 'opadpo_torch.pipeline.dataset_ops'}"
             " <= set(names), names\n"
             "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
             "from opadpo_torch.pipeline.config import load_config\n"
