@@ -62,7 +62,12 @@ Phases, each fatal on failure:
      f32, greedy speculative decode (k 3, kv 16 and 8,
      both advances) token-exact against plain greedy on the GPU, and
      greedy int4 chunk-256 decode over 300 tokens (one fold) token-exact
-     against the CPU;
+     against the CPU; and the continuous slot pool in f32 (2 slots,
+     segments of 4, staggered admission, a budget of 7, an EOS that frees
+     a slot for a queued request) through the kernels token-exact against
+     the same pool on the CPU on the int8 pool (#6), the int4 pool (#7)
+     and with speculative segments at k 3 (#8), each decode kernel once
+     per decoder layer per segment forward;
   9. the serving path: LLaVA-1.5-7B at full width (random bf16 weights
      from a seed) behind the HTTP server, 9 concurrent requests, greedy,
      int8 KV; the launch counters must show that every prefill and decode
@@ -76,14 +81,25 @@ Phases, each fatal on failure:
      requests with the per-row advance, then one alone with the shared
      one; #8 once per layer per verify forward, each row's tokens equal to
      1 + its advances, agreement with step 9's answers reported;
-  12. the training path, on the same 7B weights: ``rollout_score`` once,
+  12. the continuous slot pool behind the serve CLI's ``--continuous``
+     worker on the same weights (16 slots, segments of 64, qlen 128, a
+     cap of 256): 32 requests in two bursts with seeded budgets of 16 to
+     256 tokens, on the int8 pool, the int4 pool and with speculative
+     segments at k 4; no error, no request over its budget, #1 once per
+     CLIP and decoder layer per admission group and #6 / #7 / #8 once per
+     decoder layer per segment forward; generated tok/s, latency p50 /
+     p99, segments, folds, admission groups, watermarks and peak memory;
+     then #1 at the admission groups' shapes (1, 2, 4 prompts of 703
+     positions) and #6, #7, #8 over a 16-slot pool at the watermarks the
+     runs visited, against their plain versions;
+  13. the training path, on the same 7B weights: ``rollout_score`` once,
      then 2 ``dpo_train_step``s at the reference recipe (per-device batch
      2, K = 3 responses of 896 tokens after a 128-token query, LoRA r 256,
      CoPO random, AncPO, AdamW lr 1e-6 with 5 warmup steps, clip 1.0);
      every loss and stat finite, the adapter moved by the last step, and
      the launch counters of kernels #1-#5 equal to the counts derived from
      the configuration;
-  13. a checkpoint on disk: the same 7B weights written in the layout
+  14. a checkpoint on disk: the same 7B weights written in the layout
      users download (original LLaVA, two ``pytorch_model-*.bin`` shards
      with their index and ``config.json``; the CLIP tower apart as
      ``model.safetensors`` through the port's writer, its 24th layer and
@@ -92,13 +108,13 @@ Phases, each fatal on failure:
      vision_dir=...)`` and ``load_peft_adapter``: every tensor bitwise
      equal, with the bytes read, the load time and GB/s and the peak host
      RSS (free disk checked first: ~24 GB for these five phases);
-  14. the serve CLI on that checkpoint: ``serve.parse_args`` and
+  15. the serve CLI on that checkpoint: ``serve.parse_args`` and
      ``build_worker``, served as ``serve.main`` serves (an ephemeral
      port): step 9's nine requests give step 9's answers string for
      string, then with ``--adapter-path`` those of an in-memory worker
      with the same adapter; #1 and #6 launched as every prefill and
      decode step needs;
-  15. stage 4 from that checkpoint: ``configs/llava_dpo.yaml`` through the
+  16. stage 4 from that checkpoint: ``configs/llava_dpo.yaml`` through the
      port's YAML reader and overrides (r 256 / alpha 512, 2 steps of batch
      2, checkpoint every 2), ``opadpo_train.train`` over 4 seeded rows of
      the port's ``DPODataset`` / ``DPOCollator`` (query 128, responses
@@ -107,7 +123,7 @@ Phases, each fatal on failure:
      ``completed``, a second call returning at once, and #1-#5 launched as
      2 rollouts and 2 steps derive; the temporary directories go in a
      ``finally``;
-  16. stages 1-2 from that checkpoint: ``configs/llava_online_generation.
+  17. stages 1-2 from that checkpoint: ``configs/llava_online_generation.
      yaml`` (batch 8, responses cut to 256 tokens, bf16 KV, top-k 30,
      top-p 0.95), ``online_generation.run`` over 16 seeded prompts given
      in memory, a stub in place of the GPT-4V service (no network) and a
@@ -115,7 +131,7 @@ Phases, each fatal on failure:
      a report and a corrected response in every record, a second run a
      no-op, #1 once per block and layer per prefill; ``merge_and_filter``
      keeps the 16 rows;
-  17. stage 3 from that checkpoint on those rows: ``configs/llava_opa.yaml``
+  18. stage 3 from that checkpoint on those rows: ``configs/llava_opa.yaml``
      (r 256 / alpha 512, the vision tower tuned, per-device batch 4,
      accumulation cut to 2, 1 epoch), ``opa_train.train`` through the
      port's ``SFTDataset`` / ``SFTCollator``: 8 micro-steps of 4 rows of
@@ -123,7 +139,13 @@ Phases, each fatal on failure:
      moved vision and projector adapters, a decoder-only PEFT directory,
      ``completed``, and #1-#5 launched as ``expected_sft_launches``
      derives; micro-step time, positions per second and peak memory;
-  18. the quantized paths: the same 7B model quantized to int8 in place
+  19. the eval suite from that checkpoint: ``eval.run_all --benchmarks
+     pope`` over three seeded POPE splits of 16 questions (PNG images;
+     PIL required) at batch 8 and at ``--continuous-slots 16``, then
+     ``eval.model_vqa_logit`` on one split, no judge stage: scores, each
+     split's time, the answers both modes share, #1 and #6 launched as
+     the batches and the pool's schedule derive;
+  20. the quantized paths: the same 7B model quantized to int8 in place
      serves the 9 requests with an int8 decode head, then trains at the
      single-chip recipe (``configs/llava_dpo_singlechip.yaml``: w8a8 with
      the int8 backward, LoRA r 64 / alpha 128) cut to per-device batch 1:
@@ -136,7 +158,9 @@ Phases, each fatal on failure:
      derived from its batches, #9 / #10's odd-shape variant never launched
      (also in the tiny references of step 8), and the 13B run launching
      both of #11's kernels;
-  19. one JSON line of the 11 kernels' numbers, the card line, and last
+  21. one JSON line of the 11 kernels' numbers (with the slot pool's and
+     the eval suite's launches and the pool-shape times of #1, #6, #7 and
+     #8), the card line, and last
      ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA GPU and the repository around it: anywhere else it exits
@@ -336,7 +360,7 @@ def row_rel_err(o, o_ref):
     return (num / ref.abs().amax(-1).clamp_min(1e-30)).max().item()
 
 
-def _flash_case(b, sq, skv, h, d, causal, g, flush):
+def _flash_case(b, sq, skv, h, d, causal, g, flush, mask_last=True):
     import torch
     import torch.nn.functional as F
 
@@ -347,9 +371,10 @@ def _flash_case(b, sq, skv, h, d, causal, g, flush):
     k, v = (torch.randn(b, skv, h, d, generator=g, device=dev,
                         dtype=torch.bfloat16) for _ in range(2))
     mask = torch.ones(b, skv, dtype=torch.int32, device=dev)
-    for i in range(b - 1):
+    for i in range(b - 1 if mask_last else b):
         mask[i, :17 * i] = 0                 # left padding, 0..102 rows
-    mask[b - 1] = 0                          # one row masked everywhere
+    if mask_last:
+        mask[b - 1] = 0                      # one row masked everywhere
     o, lse = attention.flash_fwd_cuda(q, k, v, mask, causal)
     o_ref, lse_ref = attention.mha_reference_lse(q, k, v, mask, causal)
     torch.cuda.synchronize()
@@ -2550,7 +2575,7 @@ def phase_stage4(cfg, card, dirs, train_res, device="cuda"):
            "timers": timer.summary(), "card": card}
     log(f"[stage4] train() {wall:.1f} s (load, 2 rollouts, 2 steps, "
         f"checkpoint-2 {res['checkpoint_gb']:.2f} GB); dpo step "
-        f"{[round(x, 3) for x in step_s]} s beside phase 12's "
+        f"{[round(x, 3) for x in step_s]} s beside the training phase's "
         f"{[round(x, 3) for x in train_res['step_s']]} s; losses "
         f"{res['losses']}; {moved} adapter entries moved; a second call "
         f"returned in {again_s:.2f} s; card: {card}")
@@ -2922,6 +2947,492 @@ def phase_13b_int4(card):
     return serving, training
 
 
+# -- the continuous slot pool and the eval suite ------------------------------
+
+POOL_SLOTS = 16
+POOL_SEG = 64
+POOL_QLEN = 128
+POOL_MAX_NEW = 256
+POOL_REQUESTS = 32          # two bursts of 16
+
+
+def _per_prefill(cfg) -> int:
+    """Flash forward launches of one prefill: one per CLIP and decoder
+    layer."""
+    return cfg.vision.num_active_layers + cfg.llama.num_layers
+
+
+def _stats_delta(after: dict, before: dict) -> dict:
+    """What a ContinuousEngine ran between two copies of its ``stats``."""
+    return {"segments": after["segments"] - before["segments"],
+            "folds": after["folds"] - before["folds"],
+            "forwards": after["forwards"] - before["forwards"],
+            "tokens": after["tokens"] - before["tokens"],
+            "admit_groups": after["admit_groups"][len(before["admit_groups"]):],
+            "sp_used": {su: n - before["sp_used"].get(su, 0)
+                        for su, n in after["sp_used"].items()
+                        if n > before["sp_used"].get(su, 0)}}
+
+
+def _copy_stats(stats: dict) -> dict:
+    return {**stats, "admit_groups": list(stats["admit_groups"]),
+            "sp_used": dict(stats["sp_used"])}
+
+
+def _check_pool_launches(cfg, delta, launches, decode, label,
+                         prefill_on_gpu=True):
+    """#1 once per CLIP and decoder layer per admission group (0 where the
+    prefill runs on the CPU); the ``decode`` kernel once per decoder layer
+    per segment forward; the other decode kernels never.  -> the derived
+    counts."""
+    want = {"flash_fwd": (len(delta["admit_groups"]) * _per_prefill(cfg)
+                          if prefill_on_gpu else 0)}
+    for key in DECODE_KERNELS:
+        want[key] = (cfg.llama.num_layers * delta["forwards"]
+                     if key == decode else 0)
+    for key, n in want.items():
+        check(launches[key] == n, f"{label}: {key} launches {launches[key]}"
+              f" do not match the {n} the schedule derives ({delta})")
+    return want
+
+
+def phase_continuous_reference():
+    """The slot pool on the tiny LLaVA in f32, greedy, through the kernels
+    against the same pool on the CPU (the plain versions): the int8 pool
+    (#6), the packed int4 pool (#7) and speculative segments at k 3 (#8),
+    the last also against the int8 pool on the GPU.  Two slots, segments
+    of 4 tokens, a cap of 10: one request decodes a segment alone, then
+    four more arrive (one at a budget of 7, three queued), and an EOS id
+    taken from the third request's greedy output ends it early and frees
+    its slot for the fifth, still queued then.  The flash kernel takes bf16 only, so the
+    engine's admission prefill runs on the CPU (its ``prefill`` hook) and
+    the pool on the GPU; #1 is then launched never, and #6, #7 and #8 once
+    per decoder layer per segment forward."""
+    import numpy as np
+    import torch
+
+    from opadpo_torch.constants import IMAGE_TOKEN_INDEX
+    from opadpo_torch.engine.continuous import ContinuousEngine
+    from opadpo_torch.engine.sampling import SamplingConfig
+    from opadpo_torch.models import llava
+
+    cpu_model, gpu_model, _ = _tiny_f32(9)
+    cfg = cpu_model.cfg
+    g = torch.Generator(device="cpu").manual_seed(15)
+    reqs = []
+    for _ in range(5):
+        ids = torch.randint(5, cfg.llama.vocab_size, (10,), generator=g)
+        ids[2] = IMAGE_TOKEN_INDEX
+        reqs.append((ids.numpy(), torch.ones(10, dtype=torch.int64).numpy(),
+                     torch.randn(28, 28, 3, generator=g).numpy()))
+    budgets = [None, 7, None, None, None]
+
+    def cpu_prefill(kv_bits):
+        def prefill(ids, mask, images):
+            return _to(llava.prefill_unrolled(
+                cpu_model, ids.cpu(), mask.cpu(), images.cpu(),
+                quantize_kv=True, kv_bits=kv_bits), "cuda")
+        return prefill
+
+    def run(model, kv_bits, spec_k, eos, prefill=None):
+        eng = ContinuousEngine(
+            model, SamplingConfig(greedy=True, max_new_tokens=10,
+                                  eos_token_id=eos),
+            max_batch=2, qlen=10, seg_len=4, kv_bits=kv_bits, spec_k=spec_k,
+            collect_spec_stats=bool(spec_k), prefill=prefill)
+        rids = [eng.add_request(*reqs[0])]
+        done = dict(eng.step())
+        rids += [eng.add_request(*r, max_new=b)
+                 for r, b in zip(reqs[1:], budgets[1:])]
+        queued_at_eos = None         # queue length when request 2 ended
+        while eng.has_work():
+            done.update(eng.step())
+            if queued_at_eos is None and rids[2] in done:
+                queued_at_eos = eng.queue_length
+        return [done[r] for r in rids], eng, queued_at_eos
+
+    probe = run(cpu_model, 8, 0, -1)[0]
+    eos = int(probe[2][2])
+    counters = _counters()
+    res, gpu_tokens = {}, {}
+    for label, kv_bits, spec_k, kernel in (
+            ("int8", 8, 0, "decode_attention_int8"),
+            ("int4", 4, 0, "decode_attention_int4"),
+            ("spec k3", 8, 3, "decode_attention_multi")):
+        want = run(cpu_model, kv_bits, spec_k, eos)[0]
+        _reset(counters)
+        got, eng, queued = run(gpu_model, kv_bits, spec_k, eos,
+                               prefill=cpu_prefill(kv_bits))
+        torch.cuda.synchronize()
+        launches = _read(counters)
+        for i, (a, b) in enumerate(zip(got, want)):
+            check(np.array_equal(a, b), f"pool {label}: request {i} on the "
+                  f"GPU {a.tolist()} differs from the CPU's {b.tolist()}")
+        check(len(got[1]) <= 7, f"pool {label}: budget 7 exceeded")
+        check(len(got[2]) < 10 and got[2][-1] == eos,
+              f"pool {label}: the EOS id {eos} did not end request 2 early")
+        check(queued == 1 and eng.stats["admit_groups"][-1] == 1 and
+              sum(eng.stats["admit_groups"]) == 5,
+              f"pool {label}: request 2's EOS did not free its slot for the "
+              f"queued request 4 (queue {queued}, admissions "
+              f"{eng.stats['admit_groups']})")
+        derived = _check_pool_launches(cfg, eng.stats, launches, kernel,
+                                       f"pool {label}", prefill_on_gpu=False)
+        gpu_tokens[label] = got
+        res[label] = {"tokens": [len(x) for x in got],
+                      "segments": eng.stats["segments"],
+                      "forwards": eng.stats["forwards"],
+                      "admit_groups": eng.stats["admit_groups"],
+                      "launches": {k: launches[k] for k in derived},
+                      **({"spec": dict(eng.spec_stats)} if spec_k else {})}
+    for a, b in zip(gpu_tokens["spec k3"], gpu_tokens["int8"]):
+        check(np.array_equal(a, b), "pool spec k3 greedy differs from the "
+              "int8 pool on the GPU")
+    log(f"[continuous-ref] tiny f32 pool token-exact, EOS id {eos}: "
+        f"{json.dumps(res)}")
+    return res
+
+
+def _continuous_requests():
+    """The 32 requests: prompts of 8 to 40 words, budgets drawn from a
+    seed between 16 and 256 tokens."""
+    import random
+
+    rng = random.Random(15)
+    reqs = []
+    for i in range(POOL_REQUESTS):
+        words = " ".join(f"detail{j}" for j in range(rng.randint(0, 32)))
+        reqs.append({"prompt": f"Describe object {i} in the image. {words}",
+                     "max_new_tokens": rng.randint(16, POOL_MAX_NEW)})
+    return reqs
+
+
+def _serve_continuous(worker, reqs, label):
+    """``reqs`` over HTTP to a ContinuousWorker, after one warm-up request:
+    the first half at once, the second half as soon as the first answer
+    comes back.  -> (responses, per-request seconds, the engine's stats
+    over these requests, the kernel counters, wall s, peak GB)."""
+    import torch
+    from http.server import ThreadingHTTPServer
+
+    from opadpo_torch.serve import make_handler
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(worker))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    counters = _counters()
+    n = len(reqs)
+    results, secs = [None] * n, [None] * n
+    first = threading.Event()
+    try:
+        resp = _post(port, {"prompt": "warm up", "max_new_tokens": 2})
+        check("error" not in resp, f"{label}: warm-up failed: {resp}")
+        torch.cuda.synchronize()
+        before = _copy_stats(worker.engine.stats)
+        spec_before = dict(worker.engine.spec_stats)
+        torch.cuda.reset_peak_memory_stats()
+        _reset(counters)
+
+        def go(i):
+            t0 = time.perf_counter()
+            results[i] = _post(port, reqs[i])
+            secs[i] = time.perf_counter() - t0
+            first.set()
+
+        t_start = time.perf_counter()
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(n)]
+        for th in threads[:n // 2]:
+            th.start()
+        first.wait(timeout=600)
+        for th in threads[n // 2:]:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        wall = time.perf_counter() - t_start
+        torch.cuda.synchronize()
+        launches = _read(counters)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        delta = _stats_delta(worker.engine.stats, before)
+        delta["spec"] = {k: v - spec_before[k]
+                         for k, v in worker.engine.spec_stats.items()}
+    finally:
+        server.shutdown()
+        server.server_close()
+        worker.close()
+    check(not any(th.is_alive() for th in threads), f"{label}: a request "
+          "hung")
+    check(worker.rebuilds == 0, f"{label}: the engine was rebuilt")
+    for i, r in enumerate(results):
+        check(r is not None and "text" in r and "error" not in r,
+              f"{label}: request {i} failed: {r}")
+        check(1 <= r["new_tokens"] <= reqs[i]["max_new_tokens"],
+              f"{label}: request {i} gave {r['new_tokens']} tokens for a "
+              f"budget of {reqs[i]['max_new_tokens']}")
+    check(delta["tokens"] == sum(r["new_tokens"] for r in results),
+          f"{label}: the engine kept {delta['tokens']} tokens")
+    return results, secs, delta, launches, wall, peak
+
+
+def _pct(xs, p):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(p / 100 * (len(xs) - 1))))]
+
+
+def phase_continuous(model, card):
+    """The serve CLI's ``--continuous`` worker (``serve.parse_args`` and
+    ``make_worker`` over the in-memory 7B, greedy): 16 slots, segments of
+    64, qlen 128, a cap of 256, behind the HTTP server, 32 requests in two
+    bursts with budgets from a seed in [16, 256], three times: the int8
+    pool (#1, #6), the packed int4 pool (#7) and speculative segments at
+    k 4 (#8).  Each run: no error response, no request over its budget,
+    #1 once per CLIP and decoder layer per admission group and the decode
+    kernel once per decoder layer per segment forward; generated tokens/s,
+    per-request latency p50 / p99, segments, folds, admission groups,
+    watermarks and peak memory."""
+    import collections
+
+    import torch
+
+    from opadpo_torch import serve
+
+    cfg = model.cfg
+    reqs = _continuous_requests()
+    base = ["--model-path", "(in memory)", "--continuous", "--max-batch",
+            str(POOL_SLOTS), "--seg-len", str(POOL_SEG), "--query-len",
+            str(POOL_QLEN), "--max-new-tokens", str(POOL_MAX_NEW)]
+    res, texts = {}, {}
+    for label, extra, kernel in (
+            ("int8", ["--kv-bits", "8"], "decode_attention_int8"),
+            ("int4", ["--kv-bits", "4"], "decode_attention_int4"),
+            ("spec k4", ["--kv-bits", "8", "--spec-k", "4"],
+             "decode_attention_multi")):
+        args = serve.parse_args(base + extra)
+        worker = serve.make_worker(args, model, cfg, WordTokenizer())
+        results, secs, delta, launches, wall, peak = _serve_continuous(
+            worker, reqs, f"continuous {label}")
+        derived = _check_pool_launches(cfg, delta, launches, kernel,
+                                       f"continuous {label}")
+        tokens = sum(r["new_tokens"] for r in results)
+        texts[label] = [r["text"] for r in results]
+        res[label] = {
+            "generated_tok_per_s": tokens / wall, "tokens": tokens,
+            "wall_s": wall, "latency_p50_s": _pct(secs, 50),
+            "latency_p99_s": _pct(secs, 99), "segments": delta["segments"],
+            "folds": delta["folds"], "forwards": delta["forwards"],
+            "admit_groups": dict(collections.Counter(delta["admit_groups"])),
+            "sp_used": delta["sp_used"], "peak_gb": peak,
+            "launches": {k: launches[k] for k in derived}, "card": card,
+            **({"spec": delta["spec"]} if args.spec_k else {})}
+        del worker
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[continuous] {label}: {tokens} tokens in {wall:.2f} s = "
+            f"{res[label]['generated_tok_per_s']:.1f} generated tok/s, "
+            f"latency p50 {res[label]['latency_p50_s']:.2f} s p99 "
+            f"{res[label]['latency_p99_s']:.2f} s, {delta['segments']} "
+            f"segments, {delta['folds']} folds, admission groups "
+            f"{res[label]['admit_groups']}, watermarks {delta['sp_used']}, "
+            f"peak {peak:.2f} GB; launches {res[label]['launches']}; card: "
+            f"{card}")
+    res["agreement"] = {
+        label: sum(a == b for a, b in zip(texts["int8"], texts[label]))
+        for label in ("int4", "spec k4")}
+    log(f"[continuous] answers equal to the int8 pool's (of "
+        f"{POOL_REQUESTS}): {res['agreement']}")
+    log(f"[continuous] {json.dumps(res)}")
+    return res
+
+
+def phase_pool_kernels(g, res):
+    """#1 at the admission prefill's groups ([k, 703, 32, 128], k 1, 2, 4)
+    and #6, #7, #8 (G 5) over a pool of 16 slots at the watermarks the
+    continuous runs visited, each against its plain version."""
+    import torch
+
+    from opadpo_torch.ops import decode_attention as da
+
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    out = {"flash": [_flash_case(k, 703, 703, 32, 128, True, g, flush,
+                                 mask_last=False) for k in (1, 2, 4)]}
+    b, h, hd = POOL_SLOTS, 32, 128
+    sm = hd ** -0.5
+    s_total = -(-(POOL_QLEN - 1 + 576 + POOL_MAX_NEW) // 256) * 256
+    q = torch.randn(b, h, 5, hd, generator=g, device="cuda").to(
+        torch.bfloat16)
+    q1 = q[:, :, 0].contiguous()
+    ks, vs = (torch.rand(b, h, s_total, generator=g, device="cuda") * 0.02
+              for _ in range(2))
+    bias = torch.zeros(b, s_total, device="cuda")
+    for i in range(b):
+        bias[i, 703 + 16 * i:] = NEG_INF      # rows at their own fill
+    pk, pv = (torch.randint(-127, 128, (b, h, s_total, hd), generator=g,
+                            device="cuda", dtype=torch.int8)
+              for _ in range(2))
+    marks = {k: sorted(int(su) for su in res[k]["sp_used"])
+             for k in ("int8", "int4", "spec k4")}
+    out["int8"] = [_decode_case(da.decode_attention_cuda,
+                                da.decode_attention_prompt_plain,
+                                (q1, pk, ks, pv, vs, bias, sm), su, 1, False,
+                                flush, "decode_attention_int8")
+                   for su in marks["int8"]]
+    out["multi"] = [_decode_case(da.decode_attention_multi_cuda,
+                                 da.decode_attention_prompt_multi_plain,
+                                 (q, pk, ks, pv, vs, bias, sm), su, 5, False,
+                                 flush, "decode_attention_multi")
+                    for su in marks["spec k4"]]
+    pk4, pv4 = pk[:, :, :s_total // 2].contiguous(), \
+        pv[:, :, :s_total // 2].contiguous()
+    out["int4"] = [_decode_case(da.decode_attention4_cuda,
+                                da.decode_attention_prompt4_plain,
+                                (q1, pk4, ks, pv4, vs, bias, sm), su, 1, True,
+                                flush, "decode_attention_int4")
+                   for su in marks["int4"]]
+    for group in ("int8", "int4", "multi"):
+        for c in out[group]:
+            c["ranks"], c["per"] = da.decode_split(
+                c["s_used"], b * h, group == "int4", c["G"])
+            log(f"[pool] #{KERNEL_NUMBER[group]} B {b} G {c['G']} s_used "
+                f"{c['s_used']}: {c['ms']:.4f} ms (plain {c['plain_ms']:.4f})"
+                f" against {c['bound_ms']:.4f} ms of bound, {c['ranks']} "
+                f"ranks of {c['per']}")
+    for c in out["flash"]:
+        log(f"[pool] #1 admission group {c['shape'][0]}: {c['ms']:.4f} ms "
+            f"(plain {c['plain_ms']:.4f}, SDPA {c['library_ms']:.4f}) "
+            f"against {c['bound_ms']:.4f} ms of bound")
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+POPE_SPLITS = ("random", "popular", "adversarial")
+POPE_QUESTIONS = 16
+
+
+def _pope_data(root):
+    """Three seeded POPE splits of 16 questions with their PNG images."""
+    import random
+
+    import numpy as np
+    from PIL import Image
+
+    rng = random.Random(21)
+    imgs = os.path.join(root, "images")
+    os.makedirs(os.path.join(root, "pope"), exist_ok=True)
+    os.makedirs(imgs, exist_ok=True)
+    objects = ("dog", "cat", "car", "person", "chair", "bottle", "bus")
+    for k, split in enumerate(POPE_SPLITS):
+        with open(os.path.join(root, "pope", f"coco_pope_{split}.jsonl"),
+                  "w") as f:
+            for i in range(POPE_QUESTIONS):
+                name = f"COCO_val2014_{k:02d}{i:04d}.png"
+                px = np.random.default_rng(100 * k + i).integers(
+                    0, 256, (rng.randint(240, 480), rng.randint(240, 640), 3),
+                    dtype=np.uint8)
+                Image.fromarray(px).save(os.path.join(imgs, name))
+                f.write(json.dumps({
+                    "question_id": i, "image": name,
+                    "text": f"Is there a {rng.choice(objects)} in the "
+                            "image?",
+                    "label": rng.choice(("yes", "no"))}) + "\n")
+    return imgs
+
+
+def phase_eval(cfg, card, dirs, root):
+    """The eval suite from the 7B checkpoint on disk:
+    ``eval.run_all --benchmarks pope`` over three seeded POPE splits of 16
+    questions (PNG images through PIL), at batch 8 (bf16 cache: #1 per
+    prefill, no decode kernel) and again at ``--continuous-slots 16`` (#1
+    per admission group, #6 per decoder layer per segment forward), then
+    ``model_vqa_logit`` on one split (#1 per prefill); no judge stage.
+    Scores, each split's time, and how many answers the two modes share."""
+    import torch
+
+    from opadpo_torch.eval import model_vqa_logit, run_all
+
+    check(_have_pil(), "the eval phase needs PIL (the port's load_image)")
+    data = os.path.join(root, "eval")
+    imgs = _pope_data(data)
+    common = ["--model-path", dirs["llava"], "--vision-path", dirs["clip"],
+              "--data-root", data, "--image-root", imgs, "--benchmarks",
+              "pope", "--batch-size", "8"]
+    counters = _counters()
+    res = {"card": card}
+    per = _per_prefill(cfg)
+    for mode, extra in (("batch", []),
+                        ("continuous", ["--continuous-slots", "16"])):
+        _reset(counters)
+        t0 = time.perf_counter()
+        results, runs = run_all.main(
+            common + ["--output-dir", os.path.join(data, mode)] + extra,
+            tokenizer=WordTokenizer())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = _read(counters)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if mode == "batch":
+            n_pf = sum(len(r["batches"]) for r in runs.values())
+            check(n_pf == 3 * 2, f"eval batch: {n_pf} prefills")
+            want = {"flash_fwd": n_pf * per,
+                    **{k: 0 for k in DECODE_KERNELS}}
+        else:
+            delta = {"admit_groups": [g for r in runs.values()
+                                      for g in r["engine"]["admit_groups"]],
+                     "forwards": sum(r["engine"]["forwards"]
+                                     for r in runs.values())}
+            want = _check_pool_launches(cfg, delta, launches,
+                                        "decode_attention_int8",
+                                        "eval continuous")
+        for k, n in want.items():
+            check(launches[k] == n, f"eval {mode}: {k} launches "
+                  f"{launches[k]}, derived {n}")
+        for split in POPE_SPLITS:
+            r = results[f"pope_{split}"]
+            check(r["num_examples"] == POPE_QUESTIONS, f"pope {split}: {r}")
+        res[mode] = {"scores": {s: {k: results[f"pope_{s}"][k]
+                                    for k in ("accuracy", "f1", "yes_ratio")}
+                                for s in POPE_SPLITS},
+                     "split_s": {s: runs[f"pope_{s}"]["seconds"]
+                                 for s in POPE_SPLITS},
+                     "total_s": secs,
+                     "launches": {k: launches[k] for k in want}}
+        log(f"[eval] run_all pope {mode}: {json.dumps(res[mode])}")
+    agree = 0
+    for split in POPE_SPLITS:
+        a, b = ([json.loads(line)["text"] for line in open(os.path.join(
+            data, mode, f"pope_{split}.jsonl"))]
+            for mode in ("batch", "continuous"))
+        check(len(a) == len(b) == POPE_QUESTIONS, f"pope {split} answers")
+        agree += sum(x == y for x, y in zip(a, b))
+    res["agreement"] = agree
+    _reset(counters)
+    t0 = time.perf_counter()
+    logit_file = os.path.join(data, "logit_random.jsonl")
+    model_vqa_logit.main(
+        ["--model-path", dirs["llava"], "--vision-path", dirs["clip"],
+         "--question-file", os.path.join(data, "pope",
+                                         "coco_pope_random.jsonl"),
+         "--image-folder", imgs, "--answers-file", logit_file,
+         "--batch-size", "8"], tokenizer=WordTokenizer())
+    torch.cuda.synchronize()
+    launches = _read(counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(launches["flash_fwd"] == 2 * per and not any(
+        launches[k] for k in DECODE_KERNELS),
+        f"logit readout launches {launches}")
+    lines = [json.loads(line) for line in open(logit_file)]
+    check(len(lines) == POPE_QUESTIONS and all(
+        math.isfinite(x["p_yes"]) and math.isfinite(x["p_no"])
+        and x["text"] in ("Yes", "No") for x in lines), "logit answers")
+    res["logit"] = {"seconds": time.perf_counter() - t0,
+                    "yes": sum(x["text"] == "Yes" for x in lines),
+                    "launches_flash": launches["flash_fwd"]}
+    log(f"[eval] {POPE_QUESTIONS * 3} POPE answers, {agree} equal in both "
+        f"modes; logit readout {json.dumps(res['logit'])}; card: {card}")
+    return res
+
+
 def quant_kernel_entries(qk, q_serve, q_train):
     """The kernels line's entries of #9-#11: launches over the quantized
     paths' runs (path A's int4 head among the serving runs), and by
@@ -3070,10 +3581,13 @@ def main() -> int:
         phase_train_reference(bits)
     phase_sft_reference()
     phase_tiny_f32_decode()
+    cont_ref = phase_continuous_reference()
     serve, model, plain_answers = phase_main_path(card)
     rollout = phase_rollout_decode(model, card)
     spec = phase_spec_serve(model, card, plain_answers)
     torch.cuda.empty_cache()
+    cont = phase_continuous(model, card)
+    pool = phase_pool_kernels(g, cont)
     train = phase_train(model, card)
     root = os.path.join(ROOT, "build", f"smoke_checkpoints_{os.getpid()}")
     try:
@@ -3086,6 +3600,9 @@ def main() -> int:
         shutil.rmtree(dirs["stage4"], ignore_errors=True)
         stage12, merged, n_words = phase_stages12(model.cfg, card, dirs)
         stage3 = phase_stage3(model.cfg, card, dirs, merged, n_words)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ev = phase_eval(model.cfg, card, dirs, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     gc.collect()
@@ -3181,6 +3698,46 @@ def main() -> int:
         if key:
             entry["launches_serve_cli"] = (cli["base"][key]
                                            + cli["adapter"][key])
+    pool_keys = ("s_used", "G", "err_out", "ms", "plain_ms", "bound_ms",
+                 "bound_by", "ranks", "per")
+    for entry in kernels:
+        # the slot pool's runs (tiny reference, 7B serving, eval), each
+        # counted from 0, and the kernel's times at the pool's shapes
+        kname = entry["name"]
+        if kname == "flash_fwd":
+            entry["launches_continuous"] = {
+                k: cont[k]["launches"][kname] for k in ("int8", "int4",
+                                                       "spec k4")}
+            entry["launches_eval"] = {
+                "batch": ev["batch"]["launches"][kname],
+                "continuous": ev["continuous"]["launches"][kname],
+                "logit": ev["logit"]["launches_flash"]}
+            entry["pool"] = [
+                {"admit_group": c["shape"][0],
+                 **{k: c[k] for k in ("ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by", "err_o")}}
+                for c in pool["flash"]]
+        group, run = {"decode_attention_int8": ("int8", "int8"),
+                      "decode_attention_int4": ("int4", "int4"),
+                      "decode_attention_multi": ("multi", "spec k4")
+                      }.get(kname, (None, None))
+        if group:
+            entry["launches_continuous"] = cont[run]["launches"][kname]
+            entry["launches_continuous_reference"] = \
+                cont_ref[{"int8": "int8", "int4": "int4",
+                          "multi": "spec k3"}[group]]["launches"][kname]
+            if kname == "decode_attention_int8":
+                entry["launches_eval_continuous"] = \
+                    ev["continuous"]["launches"][kname]
+            entry["pool"] = [{k: c[k] for k in pool_keys}
+                             for c in pool[group]]
+            entry["pool_at"] = (f"[{POOL_SLOTS},32,s_total,128] slot pool, "
+                                "the watermarks its run visited")
+    summary = {k: {m: cont[k][m] for m in ("generated_tok_per_s",
+                                          "latency_p50_s", "latency_p99_s",
+                                          "peak_gb")}
+               for k in ("int8", "int4", "spec k4")}
+    log(f"[continuous] {json.dumps(summary)}")
     log(f"[ckpt] load {ckpt['load_s']:.2f} s ({ckpt['load_gb_per_s']:.2f} "
         f"GB/s), peak host RSS {ckpt['peak_host_rss_gb']} GB; stage-4 "
         f"steps {stage4['step_s']} s; stage 1-2 sampling "

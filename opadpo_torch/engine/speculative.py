@@ -23,9 +23,18 @@ emitting up to k + 1 tokens.
 
 The loops run on the host, in Python: each group reads the accepted
 counts (a synchronise), as the plain decode loop reads ``done`` each step.
-Draws come from an explicit ``torch.Generator``.  The continuous engine's
-segment mode (``done_init``/``max_new``/``return_state``) and the oracle
-draft are not ported.
+Draws come from an explicit ``torch.Generator``.
+
+Drafts: "ngram" (2-gram lookup in the row's own output), "pad" (the worst
+case) or "oracle" (``oracle_tokens[b, t:t + k]`` at generated-token offset
+t: the controlled-acceptance A/B; wrong drafts cost acceptance only).
+
+SEGMENT mode (``done_init``/``max_new``/``return_state``, per-row advance
+only) serves the continuous engine (``engine/continuous.py``): it decodes up
+to ``max_new`` tokens a row, then one flush forward (the carry token, pad
+drafts) computes the last emitted token's KV and the next token's logits,
+and a last compaction settles every pending raw row, so the state holds
+one suffix row per emitted token, as ``decode_loop_unrolled`` leaves it.
 """
 
 from __future__ import annotations
@@ -40,14 +49,14 @@ from opadpo_torch.engine.sampling import NEG_INF, SamplingConfig, \
 from opadpo_torch.models import llama as llama_model
 from opadpo_torch.models import llava as llava_model
 
-DRAFTS = ("ngram", "pad")
+DRAFTS = ("ngram", "pad", "oracle")
 ADVANCES = ("shared", "per_row")
 
 
 @dataclasses.dataclass(frozen=True)
 class SpecConfig:
     k: int = 4                    # drafts per group (verify width k + 1)
-    draft: str = "ngram"          # "ngram" | "pad"
+    draft: str = "ngram"          # "ngram" | "pad" | "oracle"
     advance: str = "shared"       # "shared" | "per_row"
     compact_every: int = 32       # per_row: groups between compactions
 
@@ -126,9 +135,13 @@ def _ngram_drafts(out_buf: torch.Tensor, e, last_tok: torch.Tensor, k: int,
     return torch.where((best >= 0)[:, None], cand, pad_id)
 
 
-def _drafts(spec: SpecConfig, out, e, last_tok, pad_id):
+def _drafts(spec: SpecConfig, out, e, last_tok, pad_id, oracle=None):
     if spec.draft == "ngram":
         return _ngram_drafts(out, e, last_tok, spec.k, pad_id)
+    if spec.draft == "oracle":
+        e = torch.as_tensor(e, device=out.device).expand(out.shape[0])
+        cols = e[:, None] + torch.arange(spec.k, device=out.device)
+        return torch.gather(oracle, 1, cols)
     return torch.full((out.shape[0], spec.k), pad_id, dtype=out.dtype,
                       device=out.device)
 
@@ -152,34 +165,56 @@ def decode_loop_spec(model, prompt_kv_list: list, prompt_mask: torch.Tensor,
                      generator: Optional[torch.Generator],
                      sampling: SamplingConfig, spec: SpecConfig, lora=None,
                      lora_scaling: float = 1.0, head=None,
-                     sp_used: Optional[int] = None, done_init=None,
+                     sp_used: Optional[int] = None,
+                     oracle_tokens: Optional[torch.Tensor] = None,
+                     done_init: Optional[torch.Tensor] = None,
                      max_new: Optional[int] = None,
                      return_state: bool = False):
     """Speculative decode over a bf16 or int8 prompt cache -> (tokens
-    [B, max_new_tokens], pad after each row's end; stats: ``groups`` (verify
-    forwards), ``accepted_drafts``, ``row_tokens`` [B] (tokens written per
-    row, the first one included), ``advances`` [groups][B] (each group's
-    advance per row))."""
-    if done_init is not None or max_new is not None or return_state:
-        raise ValueError("segment mode (done_init/max_new/return_state) "
-                         "serves the continuous engine, which is not ported")
+    [B, max_new], pad after each row's end; stats: ``groups`` (verify
+    forwards, the flush not counted), ``accepted_drafts``, ``row_tokens``
+    [B] (tokens written per row, the first one included), ``advances``
+    [groups][B] (each group's advance per row)), and with ``return_state``
+    also the state the continuous engine folds: {"suffix" (settled row t =
+    generated token t's KV), "positions", "last_logits", "done",
+    "emitted"}.
+
+    ``oracle_tokens`` [B, >= max_new + k]: the "oracle" draft's source;
+    ``done_init`` [B]: rows that emit pads only; ``max_new`` (default
+    ``sampling.max_new_tokens``) tokens a row."""
     if spec.draft not in DRAFTS:
         raise ValueError(f"spec draft {spec.draft!r}: one of {DRAFTS}")
     if spec.advance not in ADVANCES:
         raise ValueError(f"spec advance {spec.advance!r}: one of "
                          f"{ADVANCES}")
-    loop = _loop_per_row if spec.advance == "per_row" else _loop_shared
-    return loop(model, prompt_kv_list, prompt_mask, positions, last_logits,
-                generator, sampling, spec, lora, lora_scaling, head,
-                sp_used)
+    if spec.draft == "oracle" and oracle_tokens is None:
+        raise ValueError("spec draft 'oracle' needs oracle_tokens")
+    segment = (done_init is not None or max_new is not None
+               or return_state)
+    if segment and spec.advance != "per_row":
+        raise ValueError("segment mode (done_init/max_new/return_state) "
+                         "needs advance='per_row'")
+    if spec.advance == "shared":
+        return _loop_shared(model, prompt_kv_list, prompt_mask, positions,
+                            last_logits, generator, sampling, spec, lora,
+                            lora_scaling, head, sp_used, oracle_tokens)
+    return _loop_per_row(model, prompt_kv_list, prompt_mask, positions,
+                         last_logits, generator, sampling, spec, lora,
+                         lora_scaling, head, sp_used, oracle_tokens,
+                         done_init, max_new, return_state)
 
 
-def _first_token(last_logits, generator, sampling, total, g):
+def _first_token(last_logits, generator, sampling, total, g,
+                 done_init=None):
     t1 = sample_tokens(last_logits, sampling, generator)
+    done = t1 == sampling.eos_token_id
+    if done_init is not None:
+        t1 = torch.where(done_init, sampling.pad_token_id, t1)
+        done = done | done_init
     out = torch.full((t1.shape[0], total + g), sampling.pad_token_id,
                      dtype=torch.int64, device=t1.device)
     out[:, 0] = t1
-    return out, t1 == sampling.eos_token_id
+    return out, done
 
 
 def _emit(drafts, corrections, lead, n, done, k, pad_id):
@@ -195,7 +230,7 @@ def _emit(drafts, corrections, lead, n, done, k, pad_id):
 
 
 def _loop_shared(model, kv, pm, positions, last_logits, generator, sampling,
-                 spec, lora, lora_scaling, head, sp_used):
+                 spec, lora, lora_scaling, head, sp_used, oracle):
     cfg = model.cfg.llama
     b, dev = pm.shape[0], pm.device
     k, g = spec.k, spec.k + 1
@@ -207,7 +242,7 @@ def _loop_shared(model, kv, pm, positions, last_logits, generator, sampling,
     e, advances = 1, []
     while e < total and not bool(done.all()):
         last_tok = out[:, e - 1]
-        drafts = _drafts(spec, out, e, last_tok, pad)
+        drafts = _drafts(spec, out, e, last_tok, pad, oracle)
         toks = torch.where(done[:, None], pad,
                            torch.cat([last_tok[:, None], drafts], dim=1))
         logits, suffix = llava_model.decode_step_multi(
@@ -233,27 +268,29 @@ def _loop_shared(model, kv, pm, positions, last_logits, generator, sampling,
 
 
 def _loop_per_row(model, kv, pm, positions, last_logits, generator,
-                  sampling, spec, lora, lora_scaling, head, sp_used):
+                  sampling, spec, lora, lora_scaling, head, sp_used, oracle,
+                  done_init, max_new, return_state):
     cfg = model.cfg.llama
     b, dev = pm.shape[0], pm.device
     k, g = spec.k, spec.k + 1
-    total, eos, pad = (sampling.max_new_tokens, sampling.eos_token_id,
-                       sampling.pad_token_id)
+    total = max_new or sampling.max_new_tokens
+    eos, pad = sampling.eos_token_id, sampling.pad_token_id
     c_groups = spec.compact_every
     raw = llama_model.init_suffix_cache(cfg, b, c_groups * g, dev)
-    # settled row t = generated token t's KV; the last token's KV is never
-    # read, so ``total`` rows suffice
+    # settled row t = generated token t's KV; the last token's KV is only
+    # written by the segment's flush, at row <= total - 1
     settled = llama_model.init_suffix_cache(cfg, b, total, dev)
     rawtgt = torch.full((b, c_groups * g), -1, dtype=torch.int64, device=dev)
     w = torch.zeros(b, dtype=torch.int64, device=dev)
-    out, done = _first_token(last_logits, generator, sampling, total, g)
+    out, done = _first_token(last_logits, generator, sampling, total, g,
+                             done_init)
     e = torch.ones(b, dtype=torch.int64, device=dev)
     advances = []
     while bool((~done & (e < total)).any()):
         gi = len(advances)
         slot = (gi % c_groups) * g
         last_tok = torch.gather(out, 1, (e - 1)[:, None])[:, 0]
-        drafts = _drafts(spec, out, e, last_tok, pad)
+        drafts = _drafts(spec, out, e, last_tok, pad, oracle)
         toks = torch.where(done[:, None], pad,
                            torch.cat([last_tok[:, None], drafts], dim=1))
         logits, raw = llava_model.decode_step_multi_pr(
@@ -280,9 +317,31 @@ def _loop_per_row(model, kv, pm, positions, last_logits, generator,
             rawtgt.fill_(-1)
             w = e - 1
     valid = torch.arange(total + g, device=dev)[None, :] < e[:, None]
-    out = torch.where(valid, out, pad)[:, :total]
-    return out, {"groups": len(advances),
-                 "accepted_drafts": sum(max(x - 1, 0) for a in advances
-                                        for x in a),
-                 "row_tokens": e.clamp(max=total).tolist(),
-            "advances": advances}
+    out_final = torch.where(valid, out, pad)[:, :total]
+    stats = {"groups": len(advances),
+             "accepted_drafts": sum(max(x - 1, 0) for a in advances
+                                    for x in a),
+             "row_tokens": e.clamp(max=total).tolist(),
+             "advances": advances}
+    if not return_state:
+        return out_final, stats
+    # FLUSH: the in-loop verify never feeds a row's last emitted token, so
+    # one carry-only forward (pad drafts, their raw rows never marked)
+    # computes its KV, which the engine folds, and the logits of the next
+    # token; a last compaction settles every pending raw row
+    last_tok = torch.gather(out, 1, (e - 1)[:, None])[:, 0]
+    toks = torch.cat([last_tok[:, None],
+                      torch.full((b, k), pad, dtype=out.dtype, device=dev)],
+                     dim=1)
+    slot = (len(advances) % c_groups) * g
+    logits, raw = llava_model.decode_step_multi_pr(
+        model, toks, kv, pm, raw, settled, slot, rawtgt >= 0, w, positions,
+        lora=lora, lora_scaling=lora_scaling, sp_used=sp_used, head=head)
+    rawtgt[:, slot:slot + g] = -1
+    rawtgt[:, slot] = e - 1
+    settled = compact_suffix_pr(raw, settled, rawtgt)
+    # positions tracks the carry token (the last emitted one)
+    return out_final, stats, {
+        "suffix": settled, "positions": positions + 1,
+        "last_logits": logits[:, 0].float(), "done": done,
+        "emitted": e.clamp(max=total)}

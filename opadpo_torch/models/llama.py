@@ -361,6 +361,25 @@ def quantize_prompt_kv(kv: torch.Tensor,
     return {"q": q, "scale": scale}
 
 
+def _int4_codes(kv: torch.Tensor):
+    """[B, Sp, H, hd] -> (int32 codes in [-8, 7], f32 scales [B, Sp, H]):
+    symmetric per-(b, s, h), scale max(amax, 1e-8)/7, round-half-even."""
+    kv32 = kv.float()
+    scale = exact_div(torch.clamp(kv32.abs().amax(dim=-1), min=1e-8), 7.0)
+    q = torch.clamp(torch.round(kv32 / scale[..., None]), -8, 7).to(
+        torch.int32)
+    return q, scale
+
+
+def quantize_prompt_kv_int4_values(kv: torch.Tensor) -> dict:
+    """The int4 codes unpacked: [B, Sp, H, hd] -> {"qv": int32 [B, H, Sp,
+    hd] in [-8, 7], "scale": f32 [B, H, Sp]}, head-major and unpadded, the
+    values ``quantize_prompt_kv_int4`` packs (the continuous engine's
+    per-row fold writes them at arbitrary offsets)."""
+    q, scale = _int4_codes(kv)
+    return {"qv": q.permute(0, 2, 1, 3), "scale": scale.permute(0, 2, 1)}
+
+
 def quantize_prompt_kv_int4(kv: torch.Tensor,
                             total_len: Optional[int] = None) -> dict:
     """int4 variant: [B, Sp, H, hd] -> {"q4": int8 [B, H, Sp_pad/2, hd],
@@ -369,10 +388,7 @@ def quantize_prompt_kv_int4(kv: torch.Tensor,
     GROUP-LOCAL HALF-SPLIT as the JAX package packs it: byte ``g*128 + r``
     holds position ``g*256 + r`` in its low nibble and ``g*256 + 128 + r``
     in its high nibble.  Scales and the mask keep the int8 layout."""
-    kv32 = kv.float()
-    scale = exact_div(torch.clamp(kv32.abs().amax(dim=-1), min=1e-8), 7.0)
-    q = torch.clamp(torch.round(kv32 / scale[..., None]), -8, 7).to(
-        torch.int32)
+    q, scale = _int4_codes(kv)
     q, scale = _head_major(q, scale, total_len, KV_ALIGN4)
     b, h, sp, hd = q.shape
     qg = q.view(b, h, sp // 256, 256, hd)

@@ -15,7 +15,11 @@ With no ``API_KEY0`` / ``API_KEY`` in the environment the responses pass
 through uncorrected (the dry run).  Several processes split the rows
 ``RANK::WORLD_SIZE`` (``data/loading.ShardedDataset``).  Each step's draws
 come from a generator seeded from (seed, step, rank), so a resumed run
-samples what an uninterrupted one would.
+samples what an uninterrupted one would.  With
+``training.continuous_slots`` N > 0 the rows go through the slot-pool
+engine (``engine/continuous.py``: N slots, int8 pool, or int4 at
+``kv_bits`` 4, segments of ``continuous_seg_len``), whose draws come from
+one generator seeded at seed + 1000 + rank.
 
     python -m opadpo_torch.pipeline.online_generation \\
         --config configs/llava_online_generation.yaml [key.path=value ...]
@@ -37,6 +41,7 @@ import re
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from opadpo_torch.constants import LLAMA_NL_QMARK_TOKEN, LLAMA_QMARK_TOKEN
@@ -45,7 +50,9 @@ from opadpo_torch.data.datasets import make_rollout_data_module
 from opadpo_torch.data.loading import DataLoader, ShardedDataset
 from opadpo_torch.device import resolve_device
 from opadpo_torch.engine.sampler import Sampler, truncate_after_tokens
-from opadpo_torch.engine.serving_config import make_serving_sampling
+from opadpo_torch.engine.serving_config import (
+    make_continuous_engine, make_serving_sampling,
+)
 from opadpo_torch.models.loader import adapter_scaling, load_peft_adapter
 from opadpo_torch.pipeline import checkpoints as ckpt_lib
 from opadpo_torch.pipeline.config import (
@@ -119,16 +126,28 @@ def correct_one(api: APIService, question: str, response: str,
         return _uncorrected(response)
 
 
+def _generate_continuous(engine, batch, response_len: int,
+                         pad_id: int) -> np.ndarray:
+    """A loader batch's rows through the slot-pool engine -> tokens [n,
+    response_len], pad after each row's end, in row order."""
+    n = len(batch["queries"])
+    rids = [engine.add_request(np.asarray(batch["queries"][i]),
+                               np.asarray(batch["query_attn_masks"][i]),
+                               np.asarray(batch["images"][i]))
+            for i in range(n)]
+    order = {rid: i for i, rid in enumerate(rids)}
+    tokens = np.full((n, response_len), pad_id, np.int64)
+    while engine.has_work():
+        for rid, toks in engine.step():
+            tokens[order[rid], :len(toks)] = toks[:response_len]
+    return tokens
+
+
 def run(cfg: Config, tokenizer=None,
         data_module: Optional[dict] = None) -> StepTimer:
     """Run stages 1-2 as ``cfg`` says -> the step timer (one ``sample``
     entry per step sampled; none when every step's shard exists)."""
     t = cfg.training if "training" in cfg else Config()
-    slots = int(t.get("continuous_slots", 0))
-    if slots:
-        raise ValueError(
-            f"training.continuous_slots={slots}: the slot-pool engine is not "
-            "ported yet (ROADMAP Queue 1 item 6, continuous engine)")
     if int(cfg.get_path("mesh.model", 1)) > 1:
         raise ValueError(
             "mesh.model > 1: tensor parallelism over several GPUs is not "
@@ -213,6 +232,20 @@ def run(cfg: Config, tokenizer=None,
                       kv_bits=int(t.get("kv_bits", 16)),
                       head_bits=int(t.get("head_bits", 16)),
                       chunk=int(t.get("decode_chunk", 0)))
+    # continuous_slots N > 0: generation through the slot-pool engine, so a
+    # row that ends early frees its slot for the next query (one engine per
+    # rank; its draws from seed + 1000 + rank)
+    engine = None
+    slots = int(t.get("continuous_slots", 0))
+    if slots:
+        engine = make_continuous_engine(
+            model, sampling, lora=lora, lora_scaling=lora_scaling,
+            slots=slots, qlen=query_len,
+            seg_len=int(t.get("continuous_seg_len", 64)),
+            kv_bits=4 if int(t.get("kv_bits", 16)) == 4 else 8,
+            head_bits=int(t.get("head_bits", 16)),
+            generator=torch.Generator(device=dev).manual_seed(
+                seed + 1000 + rank))
     timer = StepTimer()
 
     def flush(step_idx: int, futures, records) -> None:
@@ -235,16 +268,21 @@ def run(cfg: Config, tokenizer=None,
             if step_idx <= start_step:
                 continue
             t0 = time.time()
-            db = batch_to_device({k: batch[k] for k in
-                                  ("queries", "query_attn_masks", "images")},
-                                 dev)
-            with torch.inference_mode():
-                tokens = sampler.generate(
-                    model, db["queries"], db["query_attn_masks"],
-                    db["images"], rollout_generator(dev, seed, step_idx, rank),
-                    lora=lora)
+            if engine is not None:
+                tokens = _generate_continuous(engine, batch, response_len,
+                                              tokenizer.pad_token_id)
+            else:
+                db = batch_to_device({k: batch[k] for k in
+                                      ("queries", "query_attn_masks",
+                                       "images")}, dev)
+                with torch.inference_mode():
+                    tokens = sampler.generate(
+                        model, db["queries"], db["query_attn_masks"],
+                        db["images"],
+                        rollout_generator(dev, seed, step_idx, rank),
+                        lora=lora).cpu().numpy()
             tokens = truncate_after_tokens(
-                tokens.cpu().numpy(), tokenizer.eos_token_id,
+                tokens, tokenizer.eos_token_id,
                 tokenizer.pad_token_id,
                 additional_tokens=(LLAMA_QMARK_TOKEN, LLAMA_NL_QMARK_TOKEN))
             texts = tokenizer.batch_decode(tokens, skip_special_tokens=True)

@@ -1,13 +1,15 @@
 """The port's server CLI (``opadpo_torch.serve``): its flags against the
-JAX server's, the flags the port refuses (argparse errors naming their
-ROADMAP item), and ``build_worker`` on a tiny checkpoint directory giving
-the JAX server's greedy answers, f32 on both sides, at kv 16 and 8, with
-and without a PEFT adapter: the text exactly equal."""
+JAX server's, the flags and combinations the port refuses (argparse
+errors naming them), and ``build_worker`` on a tiny checkpoint directory
+giving the JAX server's greedy answers, f32 on both sides, at kv 16 and 8,
+with and without a PEFT adapter, and with ``--continuous`` the JAX
+``ContinuousWorker``'s: the text exactly equal."""
 
 import base64
 import functools
 import io
 import json
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,7 @@ from PIL import Image
 
 from opadpo_tpu.models import loader as jax_loader
 from opadpo_tpu.pipeline import runtime as jax_runtime
+from opadpo_tpu.serve import ContinuousWorker as JaxContinuousWorker
 from opadpo_tpu.serve import InferenceWorker as JaxWorker
 from opadpo_torch import bridge, serve
 from opadpo_torch.models import loader
@@ -60,20 +63,82 @@ def test_parse_args_takes_the_batch_servers_flags(argv):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--continuous"], "Queue 1 item 6"),
-    (["--seg-len", "32"], "Queue 1 item 6"),
-    (["--query-len", "128"], "Queue 1 item 6"),
-    (["--admit-group", "2"], "Queue 1 item 6"),
+    (["--continuous"], None),
+    (["--continuous", "--seg-len", "2"], None),
+    (["--continuous", "--query-len", "64"], None),
+    (["--continuous", "--admit-group", "2"], None),
     (["--visual-tokens", "64"], "not ported"),
     (["--spec-k", "4", "--temperature", "0.7"], "--top-k > 0"),
+    (["--continuous", "--spec-k", "2", "--kv-bits", "4"], "int8 pool"),
+    (["--continuous", "--spec-k", "2", "--temperature", "0.7"],
+     "--top-k > 0"),
+    (["--spec-draft", "oracle"], "invalid choice: 'oracle'"),
 ], ids=["continuous", "seg-len", "query-len", "admit-group",
-        "visual-tokens", "spec-sampling-top-k-0"])
-def test_parse_args_refuses_what_the_port_cannot_honour(capsys, argv,
-                                                         needle):
-    with pytest.raises(SystemExit) as e:
-        serve.parse_args(["--model-path", "/m"] + argv)
-    assert e.value.code == 2
-    assert needle in capsys.readouterr().err
+        "visual-tokens", "spec-sampling-top-k-0", "continuous-spec-kv4",
+        "continuous-spec-sampling-top-k-0", "oracle-without-spec-k"])
+def test_parse_args_refuses_what_the_port_cannot_honour(
+        capsys, monkeypatch, checkpoint, argv, needle):
+    """A mode the port does not have, or an impossible combination
+    (``--continuous --spec-k`` over the int4 pool, speculative sampling
+    without top-k, and the oracle draft, a benchmark's, which is no server
+    draft at all), is an argparse error naming it.
+    The continuous flags, refused before the slot pool was ported, now
+    build the ``ContinuousWorker`` from the checkpoint: its greedy answers
+    (f32, int8 pool, 5 tokens, one request at a budget of 3) equal the JAX
+    ``ContinuousWorker``'s at the same flags."""
+    if needle is not None:
+        with pytest.raises(SystemExit) as e:
+            serve.parse_args(["--model-path", "/m"] + argv)
+        assert e.value.code == 2
+        assert needle in capsys.readouterr().err
+        return
+    model_dir, _ = checkpoint
+    _patch_f32(monkeypatch)
+    args = serve.parse_args(["--model-path", model_dir, "--device", "cpu",
+                             "--max-batch", "2", "--max-new-tokens", "5"]
+                            + argv)
+    worker = serve.build_worker(args, tokenizer=FakeTokenizer())
+    assert isinstance(worker, serve.ContinuousWorker)
+    eng = worker.engine
+    assert (eng.seg_len, eng.qlen, eng.max_admit_group, eng.kv_bits) == (
+        args.seg_len, args.query_len, args.admit_group, 8)
+    cfg, params, _ = jax_runtime.setup_model(model_dir)
+    jworker = JaxContinuousWorker(
+        params, cfg, FakeTokenizer(), max_batch=2, max_new_tokens=5,
+        seg_len=args.seg_len, query_len=args.query_len,
+        max_admit_group=args.admit_group, kv_bits=16)
+    reqs = [{"prompt": "describe the picture", "image_b64": _png_b64(3)},
+            {"prompt": "how many?", "max_new_tokens": 3},
+            {"prompt": "what colour is it?"}]
+    try:
+        got, want = [None] * 3, [None] * 3
+
+        def go(i):
+            got[i] = worker.submit(reqs[i])
+            want[i] = jworker.submit(reqs[i])
+
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(3)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        for a, b in zip(got, want):
+            assert a is not None and "error" not in a, a
+            assert a["text"] == b["text"], (a, b)
+        assert got[1]["new_tokens"] <= 3
+        assert len(worker.latencies) == 3 and worker.rebuilds == 0
+    finally:
+        worker.close()
+
+
+def _patch_f32(monkeypatch):
+    """Both packages' config readers to the tiny f32 model, JAX's loader
+    to f32."""
+    monkeypatch.setattr(runtime, "llava_config_from_hf", lambda _: TCFG32)
+    monkeypatch.setattr(jax_runtime, "llava_config_from_hf",
+                        lambda _: JCFG32)
+    monkeypatch.setattr(jax_loader, "load_llava_checkpoint", functools.partial(
+        jax_loader.load_llava_checkpoint, dtype=jnp.float32))
 
 
 @pytest.fixture(scope="module")
@@ -101,11 +166,7 @@ def test_build_worker_matches_jax_server(monkeypatch, checkpoint, kv_bits,
     same directory (its config reader patched to the tiny f32 model, its
     loader to f32), greedy: the same answers, with and without an image."""
     model_dir, peft_dir = checkpoint
-    monkeypatch.setattr(runtime, "llava_config_from_hf", lambda _: TCFG32)
-    monkeypatch.setattr(jax_runtime, "llava_config_from_hf",
-                        lambda _: JCFG32)
-    monkeypatch.setattr(jax_loader, "load_llava_checkpoint", functools.partial(
-        jax_loader.load_llava_checkpoint, dtype=jnp.float32))
+    _patch_f32(monkeypatch)
     argv = ["--model-path", model_dir, "--device", "cpu", "--max-batch", "2",
             "--max-new-tokens", "5", "--kv-bits", str(kv_bits)]
     if adapter:

@@ -194,37 +194,91 @@ def test_verify_steps_match_jax(kv8):
 
 @pytest.mark.parametrize("advance,kv8,draft,compact", [
     ("shared", False, "ngram", 32), ("per_row", True, "ngram", 2),
-    ("per_row", False, "pad", 3)])
+    ("per_row", False, "pad", 3), ("shared", True, "oracle", 32),
+    ("per_row", True, "oracle", 2)])
 def test_decode_loop_spec_matches_jax(advance, kv8, draft, compact):
     """The loops themselves, greedy, against JAX's ``decode_loop_spec``:
     the same tokens, groups and accepted drafts; per-row across
-    compaction boundaries (every 2 or 3 groups)."""
+    compaction boundaries (every 2 or 3 groups), and per-row in segment
+    mode (a row done from the start, 5 tokens, the state returned: tokens,
+    positions, the next logits and the settled suffix); the shared advance
+    refuses segment mode.  The oracle draft reads each row's plain greedy
+    tokens, one of them wrong."""
     up, ref_pf, pf = _prefill(kv8)
     n_new = 14
     spec = dict(k=3, draft=draft, advance=advance, compact_every=compact)
+    oracle = {}
+    if draft == "oracle":
+        from opadpo_torch.engine.sampler import decode_loop_unrolled
+        with torch.inference_mode():
+            plain, _ = decode_loop_unrolled(
+                MODEL, pf["kv_list"], pf["key_mask"], pf["next_position"],
+                pf["last_logits"], None, SamplingConfig(
+                    greedy=True, max_new_tokens=n_new, eos_token_id=-1))
+        ora = np.concatenate([plain.numpy(), np.zeros((2, 3), np.int64)], 1)
+        ora[0, 5] = (ora[0, 5] + 1) % JCFG32.llama.vocab_size
+        oracle = {"jax": dict(oracle_tokens=jnp.asarray(ora, jnp.int32)),
+                  "port": dict(oracle_tokens=t(ora))}
     ref, ref_st = jax_spec.decode_loop_spec(
         up, JCFG32, list(ref_pf["kv_list"]), ref_pf["key_mask"],
         ref_pf["next_position"], ref_pf["last_logits"],
         jax.random.PRNGKey(0), JaxSampling(greedy=True,
                                            max_new_tokens=n_new,
                                            eos_token_id=-1),
-        jax_spec.SpecConfig(**spec))
+        jax_spec.SpecConfig(**spec), **oracle.get("jax", {}))
     with torch.inference_mode():
         out, st = t_spec.decode_loop_spec(
             MODEL, pf["kv_list"], pf["key_mask"], pf["next_position"],
             pf["last_logits"], None, SamplingConfig(
                 greedy=True, max_new_tokens=n_new, eos_token_id=-1),
-            t_spec.SpecConfig(**spec))
+            t_spec.SpecConfig(**spec), **oracle.get("port", {}))
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
     assert st["groups"] == int(ref_st["groups"])
     assert st["accepted_drafts"] == int(ref_st["accepted_drafts"])
+    if draft == "oracle":
+        np.testing.assert_array_equal(out.numpy(), plain.numpy())
+        assert st["accepted_drafts"] >= st["groups"] > 0
     assert [min(n_new, 1 + sum(a[i] for a in st["advances"]))
             for i in range(2)] == st["row_tokens"]
-    with pytest.raises(ValueError, match="segment mode"):
-        t_spec.decode_loop_spec(
+    if advance == "shared":
+        with pytest.raises(ValueError, match="segment mode"):
+            t_spec.decode_loop_spec(
+                MODEL, pf["kv_list"], pf["key_mask"], pf["next_position"],
+                pf["last_logits"], None, SamplingConfig(greedy=True),
+                t_spec.SpecConfig(**spec), max_new=4,
+                **oracle.get("port", {}))
+        return
+    # segment mode (the continuous engine's): row 1 starts done, 5 tokens
+    # a row, and the state the engine folds, against JAX's segment mode
+    done0 = np.asarray([False, True])
+    ref, ref_st, ref_stats = jax_spec.decode_loop_spec(
+        up, JCFG32, list(ref_pf["kv_list"]), ref_pf["key_mask"],
+        ref_pf["next_position"], ref_pf["last_logits"],
+        jax.random.PRNGKey(0), JaxSampling(greedy=True, eos_token_id=-1),
+        jax_spec.SpecConfig(**spec), done_init=jnp.asarray(done0),
+        max_new=5, return_state=True, **oracle.get("jax", {}))
+    with torch.inference_mode():
+        out, st, state = t_spec.decode_loop_spec(
             MODEL, pf["kv_list"], pf["key_mask"], pf["next_position"],
-            pf["last_logits"], None, SamplingConfig(greedy=True),
-            t_spec.SpecConfig(**spec), max_new=4)
+            pf["last_logits"], None, SamplingConfig(greedy=True,
+                                                    eos_token_id=-1),
+            t_spec.SpecConfig(**spec), done_init=t(done0), max_new=5,
+            return_state=True, **oracle.get("port", {}))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    assert st["groups"] == int(ref_stats["groups"])
+    np.testing.assert_array_equal(state["emitted"].numpy(),
+                                  np.asarray(ref_st["emitted"]))
+    np.testing.assert_array_equal(state["positions"].numpy(),
+                                  np.asarray(ref_st["positions"]))
+    np.testing.assert_array_equal(state["done"].numpy(),
+                                  np.asarray(ref_st["done"]))
+    ref_ll = np.asarray(ref_st["last_logits"])
+    np.testing.assert_allclose(state["last_logits"][0].numpy(), ref_ll[0],
+                               rtol=0, atol=1e-4 * np.abs(ref_ll).max())
+    for pair, ref_pair in zip(state["suffix"], ref_st["suffix"]):
+        for a, r in zip(pair, ref_pair):       # the live row's 5 tokens
+            np.testing.assert_allclose(a[0, :5].numpy(),
+                                       np.asarray(r)[0, :5], atol=1e-4)
 
 
 @pytest.mark.parametrize("kv_bits,advance", [

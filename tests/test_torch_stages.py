@@ -12,7 +12,9 @@
   transport (``requests``) patched: no test reaches the network.
 - Stages 1-2 against the JAX ``run`` with ``top_k`` 1 (both packages take
   the argmax whatever their generators) and a stubbed GPT-4V service: the
-  same shard records; a rerun is a no-op; two ranks write disjoint shards.
+  same shard records, also through the slot-pool engine
+  (``continuous_slots``); a rerun is a no-op; two ranks write disjoint
+  shards.
 - ``merge_and_filter``, ``build_opadpo_datasets``, the subsets and the
   config patch give the JAX package's rows and files.
 - The four stages chained on the port alone (rollout, datasets, OPA-SFT,
@@ -442,11 +444,24 @@ def test_stages12_two_ranks_write_disjoint_shards(tmp_path, monkeypatch,
     assert ckpt_lib.find_max_step(str(tmp_path / "none")) == 0
 
 
-def test_stages12_refuse_the_continuous_engine(tmp_path, inputs):
-    cfg = _cfg(config, str(tmp_path), inputs["llava"], inputs["prompts"],
-               continuous_slots=16)
-    with pytest.raises(ValueError, match="Queue 1 item 6"):
-        online_generation.run(cfg)
+def test_stages12_refuse_the_continuous_engine(tmp_path, monkeypatch,
+                                              inputs):
+    """``training.continuous_slots``, refused before the slot pool was
+    ported, now routes the rollout through it: 2 slots, segments of 3
+    tokens, the int8 pool, ``top_k`` 1, the dry run; the shards equal the
+    JAX ``run``'s at the same settings record for record."""
+    _f32(monkeypatch)
+    slots = dict(ROLLOUT, continuous_slots=2, continuous_seg_len=3)
+    port_out, jax_out = str(tmp_path / "port"), str(tmp_path / "jax")
+    timer = online_generation.run(_cfg(config, port_out, inputs["llava"],
+                                       inputs["prompts"], **slots))
+    jax_gen.run(_cfg(jax_config, jax_out, inputs["llava"],
+                     inputs["prompts"], **slots))
+    assert [e["name"] for e in timer.history] == ["sample"] * 3
+    got, want = _shards(port_out), _shards(jax_out)
+    assert len(got) == 3 and got == want
+    assert any(r["original_generate_response"] for shard in got.values()
+               for r in shard)
 
 
 # ---------------------------------------------------------------------------
