@@ -609,9 +609,9 @@ HEADS_WAS_MS = {"prefix": 0.0153, "response": 0.0354}
 GATHER_WAS_MS = {"prefix": 0.0153, "response": 0.0360}
 
 
-def _heads_case(b, s, g, flush, kv_len=None):
+def _heads_case(b, s, g, flush, kv_len=None, h=32):
     """scatter (RoPE) and gather (inverse RoPE, strided [B, S, H, hd]
-    gradient, as the backward kernels write it) at 32 heads of 128, the
+    gradient, as the backward kernels write it) at ``h`` heads of 128, the
     scatter of a stream's q, k and v in one launch (q and k with RoPE, v
     without) and the gather of its dQ, dK and dV in one launch (dQ and dK
     rotated back, dV not; the layouts of ``tools/time_heads.heads_grads``),
@@ -625,7 +625,7 @@ def _heads_case(b, s, g, flush, kv_len=None):
     from opadpo_torch.tools.time_heads import heads_grads
 
     dev = "cuda"
-    h, hd = 32, 128
+    hd = 128
     cos, sin = rope_frequencies(hd, 4096, device=dev)
     mask = (torch.arange(s, device=dev)[None]
             >= (torch.arange(b, device=dev) * 21)[:, None]).long()
@@ -674,7 +674,7 @@ def _heads_case(b, s, g, flush, kv_len=None):
                   for o, r in zip(outs, refs))
         top = max(r.float().abs().max().item() for r in refs)
         check(err <= 1e-2 * top, f"{name}_heads error {err} > 1e-2 x {top}")
-        # one read and one write of each [b, s, 4096] bf16 tensor (no GQA:
+        # one read and one write of each [b, s, h x 128] bf16 tensor (no GQA:
         # a gather reads what it writes), the positions, and one cos and
         # one sin half-row per position
         nbytes = tensors * 2 * b * s * h * hd * 2 + b * s * 8 \
@@ -1999,9 +1999,9 @@ def expected_quant_serving(model, stats, head_bits) -> dict:
     from opadpo_torch.ops.quant import _STREAMING_MAX_M as max_m
 
     clip, dec, _ = _quant_layers(model)
-    lm = model.cfg.llama
-    head = [types.SimpleNamespace(bits=head_bits, out_features=lm.vocab_size,
-                                  in_features=lm.hidden_size)]
+    v, d = model.llama.lm_head.weight.shape     # this rank's vocabulary
+    head = [types.SimpleNamespace(bits=head_bits, out_features=v,
+                                  in_features=d)]
     counts = dict.fromkeys(QUANT_KEYS, 0)
     for s in stats:
         b, steps = s["batch_rows"], s["decode_steps"]
@@ -2295,8 +2295,8 @@ def phase_checkpoint(model, card, root):
 
     _sync(dev)
     t0 = time.perf_counter()
-    cfg2, loaded = setup_model(dirs["llava"], vision_dir=dirs["clip"],
-                               device=dev)
+    cfg2, loaded, _ = setup_model(dirs["llava"], vision_dir=dirs["clip"],
+                                  device=dev)
     _sync(dev)
     load_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2482,6 +2482,47 @@ def _stage4_rows(have_pil):
     return rows
 
 
+def _stage4_module(cfg):
+    """(the in-memory data module of the smoke's stage-4 rows, its
+    tokenizer, whether PIL made the images): the port's ``DPODataset`` and
+    ``DPOCollator`` at query 128 / response 896."""
+    from opadpo_torch.data.collators import DPOCollator
+    from opadpo_torch.data.datasets import DPODataset
+
+    have_pil = _have_pil()
+    dataset = _pixel_class(DPODataset, have_pil)(
+        _stage4_rows(have_pil), image_size=cfg.vision.image_size)
+    tok = WordTokenizer()
+    collator = DPOCollator(tok, query_len=128, response_len=896)
+    probe = collator([dataset[0], dataset[1]])
+    check(probe["queries"].shape == (2, 128)
+          and probe["AI_pseudo_response"].shape == (2, 896),
+          f"collated shapes {probe['queries'].shape}")
+    check(all(int((q == -200).sum()) == 1 for q in probe["queries"]),
+          "each query must hold one image token")
+    return ({"train_dataset": dataset, "eval_dataset": None,
+             "data_collator": collator}, tok, have_pil)
+
+
+def _stage4_config(dirs, out, dev_type, per_dev=2, extra=()):
+    """``configs/llava_dpo.yaml`` through the port's reader with the
+    smoke's overrides: the checkpoint, the CLIP directory and the OPA
+    adapter, r 256 / alpha 512, 2 steps of a global batch of 2
+    (``per_dev`` rows a data rank), a checkpoint every 2."""
+    from opadpo_torch.pipeline.config import apply_overrides, load_config
+
+    return apply_overrides(load_config(os.path.join(ROOT, "configs",
+                                                    "llava_dpo.yaml")), [
+        f"base_model={dirs['llava']}", f"image_checkpoint={dirs['clip']}",
+        f"policy_lora_dir={dirs['opa']}", "training.lora_r=256",
+        "training.lora_alpha=512", "training.max_step=2",
+        "training.rollout_batch_size=2", "training.step_batch_size=2",
+        f"training.rollout_per_device_batch_size={per_dev}",
+        f"training.step_per_device_batch_size={per_dev}",
+        "training.save_steps=2", f"training.output_dir={out}",
+        f"training.device={dev_type}", *extra])
+
+
 def phase_stage4(cfg, card, dirs, train_res, device="cuda"):
     """Stage 4 from the checkpoint: ``configs/llava_dpo.yaml`` through the
     port's reader with overrides (the checkpoint, the CLIP directory and
@@ -2493,41 +2534,17 @@ def phase_stage4(cfg, card, dirs, train_res, device="cuda"):
     steps derive."""
     import numpy as np
 
-    from opadpo_torch.data.collators import DPOCollator
-    from opadpo_torch.data.datasets import DPODataset
     from opadpo_torch.device import resolve_device
     from opadpo_torch.engine.dpo import DpoConfig
     from opadpo_torch.models.loader import load_peft_adapter
     from opadpo_torch.models.lora import named_leaves
     from opadpo_torch.pipeline import opadpo_train
-    from opadpo_torch.pipeline.config import apply_overrides, load_config
 
-    have_pil = _have_pil()
-    rows = _stage4_rows(have_pil)
-    dataset = _pixel_class(DPODataset, have_pil)(
-        rows, image_size=cfg.vision.image_size)
+    module, tok, have_pil = _stage4_module(cfg)
     log("[stage4] images: " + ("PNG bytes through PIL" if have_pil
                                 else "seeded pixel arrays (no PIL here)"))
-    tok = WordTokenizer()
-    collator = DPOCollator(tok, query_len=128, response_len=896)
-    probe = collator([dataset[0], dataset[1]])
-    check(probe["queries"].shape == (2, 128)
-          and probe["AI_pseudo_response"].shape == (2, 896),
-          f"collated shapes {probe['queries'].shape}")
-    check(all(int((q == -200).sum()) == 1 for q in probe["queries"]),
-          "each query must hold one image token")
-    module = {"train_dataset": dataset, "eval_dataset": None,
-              "data_collator": collator}
     out, dev = dirs["stage4"], resolve_device(device)
-    tcfg = apply_overrides(load_config(os.path.join(ROOT, "configs",
-                                                   "llava_dpo.yaml")), [
-        f"base_model={dirs['llava']}", f"image_checkpoint={dirs['clip']}",
-        f"policy_lora_dir={dirs['opa']}", "training.lora_r=256",
-        "training.lora_alpha=512", "training.max_step=2",
-        "training.rollout_batch_size=2", "training.step_batch_size=2",
-        "training.rollout_per_device_batch_size=2",
-        "training.step_per_device_batch_size=2", "training.save_steps=2",
-        f"training.output_dir={out}", f"training.device={dev.type}"])
+    tcfg = _stage4_config(dirs, out, dev.type)
     saved_env = {k: os.environ.pop(k) for k in _STAGE_ENV if k in os.environ}
     counters = _counters()
     try:
@@ -2947,6 +2964,871 @@ def phase_13b_int4(card):
     return serving, training
 
 
+# -- multi-GPU: parallel/ under torch.distributed ----------------------------
+
+# the 13B tensor-parallel rollout: rows and new tokens (greedy, int4 KV and
+# head), and its prompts (the serving phase's shape: qlen 128, black images)
+TP_ROWS = 8
+TP_NEW = 64
+TP_PROMPTS = tuple(f"Describe object {i} in the image in detail, with its "
+                   f"colour, shape and place." for i in range(TP_ROWS))
+# the bf16 tolerance the one-rank NCCL run is held to against phase_stage4
+# (bitwise is expected: a one-rank all_reduce is a copy)
+BF16_REL = 2.0 ** -7
+# the 13B TP-2 run against one process, each limit set from readings on an
+# H100 80GB HBM3 at 700 W (PERF.md, phase_multi_gpu; the reading in brackets):
+# - the prefill logits against a control that does not depend on the TP
+#   run: one process whose wo and w_down products are each split into the
+#   two halves of K, rounded to bf16 and added in f32, as TP 2's partial
+#   sums are, by plain PyTorch (``_split_row_products``): max |TP -
+#   control| at most TP_CONTROL_ABS [1.4e-6], and max |TP - one| at most
+#   TP_LOGIT_FACTOR times max |control - one| [both 0.3315];
+# - the second step's loss movement (loss2 - loss1: the first step's loss
+#   is the reference's, whatever the numerics) within TP_MOVE_REL of one
+#   process's [0.031];
+# - the first step's gradient norm (summed over the model group, each
+#   replicated leaf once) within TP_GNORM_REL of one process's [0.0016];
+# - the checkpoint-2 adapters' lora_B factors (zero before training, so
+#   all of them is what the two steps moved) within TP_ADAPTER_REL of one
+#   process's in relative Frobenius norm [0.285: Adam's first update is
+#   +-lr an element, its sign flips where |g| is under the rounding; an
+#   adapter that never moved gives 1].
+TP_CONTROL_ABS = 1e-3
+TP_LOGIT_FACTOR = 2.0
+TP_MOVE_REL = 0.1
+TP_GNORM_REL = 0.02
+TP_ADAPTER_REL = 0.5
+# the most device memory a rank may take reading the 7B checkpoint at TP 2,
+# as a share of the checkpoint files' bytes: a rank holds half the decoder's
+# linears and head (about 0.48 of the files), the embedding, the vision
+# tower and one whole weight in flight
+CKPT_TP_PEAK_SHARE = 0.7
+# a rank's time limit (the two 13B ranks sharing one card over gloo)
+RANK_TIMEOUT_S = 420
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _run_ranks(job: dict, world: int, local_ranks, label: str) -> list:
+    """``job`` on ``world`` rank processes (``chip_smoke.py --rank-job``),
+    each with the launcher's variables (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK`` from ``local_ranks``, ``MASTER_ADDR``, ``MASTER_PORT``)
+    -> each rank's result.  A rank that fails or outlasts
+    ``RANK_TIMEOUT_S`` fails the smoke; every process is stopped."""
+    path = os.path.join(ROOT, "build", f"rank_job_{os.getpid()}_{label}")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "job.json"), "w") as f:
+        json.dump(job, f)
+    port = _free_port()
+    procs, logs = [], []
+    for r in range(world):
+        env = {k: v for k, v in os.environ.items() if k not in _STAGE_ENV}
+        env.update(RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(local_ranks[r]), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), PYTHONPATH=ROOT)
+        logs.append(open(os.path.join(path, f"rank{r}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--rank-job", path], env=env, stdout=logs[-1],
+            stderr=subprocess.STDOUT, cwd=ROOT))
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, RANK_TIMEOUT_S
+                               - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        with open(os.path.join(path, f"rank{r}.log")) as f:
+            text = f.read()
+        for line in text.splitlines():
+            if line.startswith("["):
+                log(f"[multi_gpu {label} rank {r}] {line}")
+        check(p.returncode == 0, f"multi_gpu {label}: rank {r} exited "
+              f"{p.returncode}:\n{text[-3000:]}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(path, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
+def _peft(path):
+    import torch
+
+    return torch.load(os.path.join(path, "adapter_model", "lora_policy",
+                                   "adapter_model.bin"), weights_only=True)
+
+
+def _adapter_diff(a: dict, b: dict):
+    """(largest |a - b| over the adapter, largest |b|, bitwise equal)."""
+    check(set(a) == set(b), "adapter keys differ")
+    diff = max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+    top = max(float(b[k].float().abs().max()) for k in b)
+    return diff, top, all(bool((a[k] == b[k]).all()) for k in a)
+
+
+def _record_logits(store: list):
+    """Patch ``llava.prefill_unrolled`` and ``llava.decode_step_unrolled``
+    so that the logits each token is sampled from are appended to
+    ``store`` (on the host, f32): entry i gives token i.  Returns the
+    restore function."""
+    from opadpo_torch.models import llava
+
+    pre, step = llava.prefill_unrolled, llava.decode_step_unrolled
+
+    def prefill(*a, **kw):
+        out = pre(*a, **kw)
+        store.append(out["last_logits"].float().cpu())
+        return out
+
+    def decode(*a, **kw):
+        logits, suffix = step(*a, **kw)
+        store.append(logits.float().cpu())
+        return logits, suffix
+
+    llava.prefill_unrolled, llava.decode_step_unrolled = prefill, decode
+
+    def restore():
+        llava.prefill_unrolled, llava.decode_step_unrolled = pre, step
+    return restore
+
+
+def _prefill_logits(model):
+    """The logits the first token of ``_tp_rollout``'s rows is drawn from
+    (the prefill alone), on the host in f32."""
+    import torch
+
+    from opadpo_torch.engine.sampler import Sampler
+    from opadpo_torch.engine.serving_config import make_serving_sampling
+
+    dev = next(model.parameters()).device
+    sampling = make_serving_sampling(greedy=True, max_new_tokens=1,
+                                     eos_token_id=2, pad_token_id=0)
+    ids, mask, images = _server_batch(model.cfg, list(TP_PROMPTS), TP_ROWS,
+                                      dev)
+    store = []
+    restore = _record_logits(store)
+    try:
+        with torch.inference_mode():
+            Sampler(sampling, kv_bits=4, head_bits=4).generate(
+                model, ids, mask, images)
+    finally:
+        restore()
+    return store[0]
+
+
+def _dequantize_decoder(model) -> None:
+    """Each quantized decoder linear of ``model`` replaced, in place and
+    one at a time, by an ``nn.Linear`` in the model's dtype holding its
+    dequantized weight (the plain ``dequantize_weight4``; products then go
+    through ``torch.matmul``)."""
+    import torch
+
+    from opadpo_torch.ops.quant import (
+        QuantLinear, dequantize_weight, dequantize_weight4,
+    )
+
+    dtype = model.llama.embed.dtype
+    with torch.no_grad():
+        for layer in model.llama.layers:
+            for name, lin in list(layer.named_children()):
+                if not isinstance(lin, QuantLinear):
+                    continue
+                w = (dequantize_weight4 if lin.bits == 4
+                     else dequantize_weight)(lin.q, lin.scale, dtype)
+                dense = torch.nn.Linear(lin.in_features, lin.out_features,
+                                        bias=False, device="meta")
+                dense.weight = torch.nn.Parameter(w, requires_grad=False)
+                setattr(layer, name, dense)
+
+
+def _split_row_products(model) -> None:
+    """Each decoder layer's ``wo`` and ``w_down`` product (``nn.Linear``
+    weights) computed, in this one process by plain PyTorch, as two model
+    ranks compute it: each half of K on its own, rounded to the model
+    dtype, the two added in f32 and rounded again (no adapter)."""
+    import types
+
+    import torch.nn.functional as F
+
+    def dense(layer, x, name, ll, scaling):
+        if name not in ("wo", "w_down"):
+            return type(layer).dense(layer, x, name, ll, scaling)
+        w, k = getattr(layer, name).weight, x.shape[-1] // 2
+        lo = F.linear(x[..., :k].contiguous(), w[:, :k].contiguous())
+        hi = F.linear(x[..., k:].contiguous(), w[:, k:].contiguous())
+        return (lo.float() + hi.float()).to(x.dtype)
+
+    for layer in model.llama.layers:
+        layer.dense = types.MethodType(dense, layer)
+
+
+def _lora_b_rel(got: dict, want: dict) -> float:
+    """||got - want|| / ||want|| over the adapters' ``lora_B`` factors
+    (zero before training, so ``want`` is what training moved)."""
+    keys = [k for k in want if "lora_B" in k]
+    check(keys and set(got) == set(want), "adapter keys differ")
+    num = sum(float(((got[k].float() - want[k].float()) ** 2).sum())
+              for k in keys)
+    den = sum(float((want[k].float() ** 2).sum()) for k in keys)
+    return (num / den) ** 0.5
+
+
+def _tp_rollout(model, record=None):
+    """Greedy rollout of ``TP_ROWS`` server-shaped rows x ``TP_NEW`` tokens
+    over the int4 KV cache and the int4 head (#1 in the prefill, #7 every
+    decode step, #11 in every decoder linear and the head), the launches
+    checked against the Sampler's own schedule; the logits recorded into
+    ``record`` when given."""
+    import torch
+
+    from opadpo_torch.engine.sampler import Sampler
+    from opadpo_torch.engine.serving_config import make_serving_sampling
+    from opadpo_torch.parallel import comm
+
+    dev = next(model.parameters()).device
+    sampling = make_serving_sampling(greedy=True, max_new_tokens=TP_NEW,
+                                     eos_token_id=2, pad_token_id=0)
+    ids, mask, images = _server_batch(model.cfg, list(TP_PROMPTS), TP_ROWS,
+                                      dev)
+    sampler = Sampler(sampling, kv_bits=4, head_bits=4)
+    counters = _counters()
+    restore = _record_logits(record) if record is not None else None
+    try:
+        _reset(counters)
+        comm.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            tokens = sampler.generate(model, ids, mask, images)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read(counters)
+    finally:
+        if restore is not None:
+            restore()
+    stats = list(sampler.stats)
+    _check_attention_launches(model.cfg, stats, launches,
+                              "decode_attention_int4")
+    want = expected_quant_serving(model, stats, 4)
+    got = {k: launches[k] for k in want}
+    check(got == want, f"13B int4 rollout #11 launches {got}, expected "
+          f"{want}")
+    new = int((tokens != 0).sum())
+    return {"tokens": tokens.cpu().tolist(), "wall_s": wall,
+            "generated_tok_per_s": new / wall,
+            "decode_steps": stats[-1]["decode_steps"],
+            "launches": {k: v for k, v in launches.items() if v},
+            "collectives": comm.counts()}
+
+
+def _model_13b_dir(root) -> str:
+    """A directory holding only LLaVA-1.5-13B's ``config.json`` (the port
+    draws random weights at it with ``model.skip_loading_weights``)."""
+    path = os.path.join(root, "llava13b_config")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"hidden_size": 5120, "intermediate_size": 13824,
+                   "num_hidden_layers": 40, "num_attention_heads": 40,
+                   "num_key_value_heads": 40, "vocab_size": 32000,
+                   "max_position_embeddings": 4096, "rms_norm_eps": 1e-5,
+                   "mm_vision_select_layer": -2}, f)
+    return path
+
+
+def _stage4_13b_config(model_dir, out, model: int):
+    """Stage 4 on the 13B drawn into int4 from seed 0, its adapter fresh
+    (r 64 / alpha 128, ``llava_dpo_13b_singlechip.yaml``'s), 2 steps of
+    one row (``step_per_device_batch_size`` 1), ``mesh.model`` ``model``;
+    no warmup and lr 1e-4, so that the first update moves the adapter off
+    the reference (whose loss the first step's is, whatever the
+    numerics) and the second step's loss tells the two runs apart."""
+    from opadpo_torch.pipeline.config import apply_overrides, load_config
+
+    return apply_overrides(load_config(os.path.join(ROOT, "configs",
+                                                    "llava_dpo.yaml")), [
+        f"base_model={model_dir}", "image_checkpoint=null",
+        "policy_lora_dir=null", "model.skip_loading_weights=true",
+        "training.bits=4", "training.lora_r=64", "training.lora_alpha=128",
+        "training.max_step=2", "training.rollout_batch_size=1",
+        "training.step_batch_size=1",
+        "training.rollout_per_device_batch_size=1",
+        "training.step_per_device_batch_size=1", "training.save_steps=2",
+        "training.warmup_steps=0", "training.learning_rate=1e-4",
+        "training.seed=0", f"training.output_dir={out}",
+        "training.device=cuda", f"mesh.model={model}"])
+
+
+def _stage4_13b(model_dir, out, model, exp):
+    """Two stage-4 steps through ``opadpo_train.train`` (each rank's #1-#5
+    against ``expected_launches``: every rank runs every layer on its own
+    heads; #11 against ``exp``, worked out on the rank's shard) -> losses
+    (rank 0), wall time, peak memory, collectives."""
+    import torch
+
+    from opadpo_torch.engine.dpo import DpoConfig
+    from opadpo_torch.parallel import comm
+    from opadpo_torch.pipeline import opadpo_train
+
+    cfg13 = _llava_13b_cfg()
+    module, tok, _ = _stage4_module(cfg13)
+    tcfg = _stage4_13b_config(model_dir, out, model)
+    counters = _counters()
+    _reset(counters)
+    comm.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    timer = opadpo_train.train(tcfg, tokenizer=tok, data_module=module)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read(counters)
+    dpo = DpoConfig()
+    per = {k: expected_launches(cfg13, dpo, False)[k]
+           + expected_launches(cfg13, dpo, True)[k]
+           for k in expected_launches(cfg13, dpo, True)}
+    want = {k: 2 * per[k] for k in per}
+    got = {k: launches[k] for k in per}
+    check(got == want, f"13B stage-4 launches {got}, expected {want}")
+    want_q = {k: 2 * v for k, v in exp.items()}
+    got_q = {k: launches[k] for k in exp}
+    check(got_q == want_q, f"13B stage-4 #11 launches {got_q}, expected "
+          f"{want_q}")
+    res = {"wall_s": wall, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": {k: v for k, v in launches.items() if v},
+           "collectives": comm.counts(), "timers": timer.summary()}
+    log_path = os.path.join(out, "train_log.jsonl")
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            lines = [json.loads(x) for x in f]
+        res["losses"] = [x["loss/total"] for x in lines]
+        res["grad_norms"] = [x["loss/grad_norm"] for x in lines]
+        res["step_s"] = [x["objective/train_seconds"] for x in lines]
+    return res
+
+
+def _llava_13b_cfg():
+    from opadpo_torch.models.llava import LlavaConfig
+
+    return LlavaConfig.llava_13b()
+
+
+def _expected_q4_train(model):
+    """#11's launches in one 13B rollout_score plus one dpo_train_step at
+    batch 1 on ``model`` (a rank's shard: its own linears' shapes)."""
+    from opadpo_torch.engine.dpo import DpoConfig
+
+    dpo = DpoConfig()
+    a = expected_quant_train(model, dpo, 1, False)
+    b = expected_quant_train(model, dpo, 1, True)
+    return {k: a[k] + b[k] for k in a if a[k] + b[k]}
+
+
+def _job_tp13b(job, rank):
+    """A rank of the 13B tensor-parallel phase: the rollout on its shard
+    (``setup_model`` over a ``1 x 2`` mesh), then two stage-4 steps."""
+    import torch
+
+    from opadpo_torch.parallel.mesh import MeshConfig, make_mesh
+    from opadpo_torch.pipeline import runtime
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, model, mesh = runtime.setup_model(
+        job["model_dir"], skip_loading_weights=True, bits=4, seed=0,
+        mesh=make_mesh(MeshConfig(model=2), "cuda"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(mesh.model == 2 and mesh.model_rank == rank,
+          f"rank {rank}: mesh {mesh.data}x{mesh.model}")
+    record = [] if rank == 0 else None
+    roll = _tp_rollout(model, record)
+    roll["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if record is not None:
+        torch.save(torch.stack(record), job["logits"])
+    exp = _expected_q4_train(model)
+    shapes = sorted({(m.out_features, m.in_features)
+                     for m in _quant_layers(model)[1]})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = _stage4_13b(job["model_dir"], job["out"], 2, exp)
+    log(f"[tp13b] rank {rank}: setup {load_s:.1f} s; rollout "
+        f"{roll['wall_s']:.2f} s; stage 4 {train['wall_s']:.1f} s, peak "
+        f"{train['peak_gb']:.2f} GB; decoder shard shapes {shapes}")
+    return {"load_s": load_s, "rollout": roll, "train": train,
+            "shard_shapes": shapes, "device": torch.cuda.current_device()}
+
+
+def _job_stage4(job, rank):
+    """A rank of the 7B stage 4 from the smoke's checkpoint (``mesh.model``
+    1): ``opadpo_train.train`` over the smoke's rows, ``per_dev`` rows a
+    data rank."""
+    import torch
+
+    from opadpo_torch.models.llava import LlavaConfig
+    from opadpo_torch.parallel import comm
+    from opadpo_torch.pipeline import opadpo_train
+
+    module, tok, _ = _stage4_module(LlavaConfig.llava_7b())
+    tcfg = _stage4_config(job["dirs"], job["out"], "cuda", job["per_dev"])
+    counters = _counters()
+    _reset(counters)
+    comm.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    timer = opadpo_train.train(tcfg, tokenizer=tok, data_module=module)
+    torch.cuda.synchronize()
+    res = {"wall_s": time.perf_counter() - t0,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": _read(counters), "collectives": comm.counts(),
+           "timers": timer.summary(),
+           "device": torch.cuda.current_device(),
+           "backend": torch.distributed.get_backend()}
+    if rank == 0:
+        with open(os.path.join(job["out"], "train_log.jsonl")) as f:
+            lines = [json.loads(x) for x in f]
+        res["losses"] = [x["loss/total"] for x in lines]
+        res["step_s"] = [x["objective/train_seconds"] for x in lines]
+    return res
+
+
+def _job_ckpt_tp(job, rank):
+    """A rank of the 7B checkpoint read at tensor parallelism 2:
+    ``setup_model`` of the smoke's checkpoint directory over a ``1 x 2``
+    mesh (each decoder weight read from the mapped files, moved and cut
+    before the next), every decoder tensor then held bitwise against its
+    slice of the file, and the peak device memory against the files'
+    bytes."""
+    import torch
+
+    from opadpo_torch.models import loader
+    from opadpo_torch.parallel import sharding
+    from opadpo_torch.parallel.mesh import MeshConfig, make_mesh
+    from opadpo_torch.pipeline import runtime
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, model, mesh = runtime.setup_model(
+        job["llava"], vision_dir=job["clip"],
+        mesh=make_mesh(MeshConfig(model=2), "cuda"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    lm = model.llama
+    rule = {id(lm.lm_head.weight): "lm_head"}
+    for layer in lm.layers:
+        for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+            rule[id(getattr(layer, name).weight)] = name
+    state = loader.load_state_dict(job["llava"])
+    file_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    checked, differ = 0, []
+    for name, slot in loader._llama_names(lm, "model."):
+        want = state[name].to(slot.device).to(slot.dtype)
+        if id(slot) in rule:
+            want = sharding.shard_weight(
+                want, sharding.split_of(rule[id(slot)]), mesh.model_rank,
+                mesh.model)
+        checked += 1
+        if not torch.equal(slot, want):
+            differ.append(name)
+    log(f"[ckpt_tp] rank {rank}: setup_model {load_s:.1f} s, peak "
+        f"{peak / 1e9:.2f} GB against {file_bytes / 1e9:.2f} GB of files; "
+        f"{checked} decoder tensors checked, {len(differ)} differ")
+    return {"load_s": load_s, "peak_gb": peak / 1e9,
+            "file_gb": file_bytes / 1e9, "checked": checked,
+            "differ": differ[:8], "n_differ": len(differ)}
+
+
+def rank_job(path: str) -> int:
+    """One rank of a multi-GPU phase (``python chip_smoke.py --rank-job
+    DIR``): ``DIR/job.json`` says which; the result goes to
+    ``DIR/rank{R}.json``.  With ``gloo`` in the job the rank first joins a
+    gloo group, which the port's entry points then use (two ranks sharing
+    one card)."""
+    import torch
+    import torch.distributed as dist
+
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(path, "job.json")) as f:
+        job = json.load(f)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if job.get("gloo"):
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}",
+            rank=rank, world_size=world)
+    job["path"] = path
+    try:
+        res = {"tp13b": _job_tp13b, "stage4": _job_stage4,
+               "ckpt_tp": _job_ckpt_tp}[job["kind"]](job, rank)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(os.path.join(path, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _first_departures(tp_tokens, one_tokens, tp_logits, one_logits):
+    """Each row's first departure of the TP rollout from the one-process
+    one, judged as ``spec_departure`` judges one: a near-tie (rounding)
+    where one process's top-2 logit gap there is smaller than the largest
+    |logits(TP) - logits(one)| over the vocabulary."""
+    out = []
+    for row, (a, b) in enumerate(zip(tp_tokens, one_tokens)):
+        pos = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if pos is None:
+            continue
+        if pos >= len(one_logits) or pos >= len(tp_logits):
+            out.append({"row": row, "position": pos, "judged": False})
+            continue
+        lp, lt = one_logits[pos][row], tp_logits[pos][row]
+        top2 = lp.topk(2).values
+        gap = float(top2[0] - top2[1])
+        diff = float((lt - lp).abs().max())
+        out.append({"row": row, "position": pos, "tokens_one_tp": [b[pos],
+                                                                  a[pos]],
+                    "top2_gap": gap, "max_abs_logit_diff": diff,
+                    "near_tie": gap < diff})
+    return out
+
+
+def _tp_kernel_cases(g, flush):
+    """#1-#5, #7 and #11 against their plain versions at the 13B TP-2
+    shard shapes (20 of the 40 heads; the split linears): the prefill's
+    flash forward, the stage-4 backward's streams, the heads layout of a
+    response stream, the int4 decode step over the prompt cache and every
+    int4 product a rank runs in decode (M 8) and prefill (M 703), its head
+    half included."""
+    import torch
+
+    from opadpo_torch.ops import decode_attention as da
+
+    h = 20
+    res = {"flash": _flash_case(8, 703, 703, h, 128, True, g, flush),
+           "bwd_prefix": _bwd_case(1, 703, 703, h, 128, g, flush),
+           "bwd_response": _bwd_case(3, 896, 1599, h, 128, g, flush),
+           "heads": _heads_case(3, 896, g, flush, kv_len=1599, h=h)}
+    b, hd, sp = 8, 128, 768
+    q1 = torch.randn(b, h, hd, generator=g, device="cuda").to(torch.bfloat16)
+    pk4, pv4 = (torch.randint(-128, 128, (b, h, sp // 2, hd), generator=g,
+                              device="cuda", dtype=torch.int8)
+                for _ in range(2))
+    ks, vs = (torch.rand(b, h, sp, generator=g, device="cuda") * 0.02
+              for _ in range(2))
+    bias = torch.zeros(b, sp, device="cuda")
+    bias[:, 703:] = NEG_INF
+    ks[:, :, 703:] = 0.0
+    vs[:, :, 703:] = 0.0
+    res["decode_int4"] = _decode_case(
+        da.decode_attention4_cuda, da.decode_attention_prompt4_plain,
+        (q1, pk4, ks, pv4, vs, bias, hd ** -0.5), sp, 1, True, flush,
+        "decode_attention_int4")
+    res["q4"] = [_quant_case("q4", m, k, n, g, flush)
+                 for m in (8, 703) for k, n in Q4_DECODER_TP2]
+    res["q4"].append(_quant_case("q4", 8, 5120, 16000, g, flush,
+                                 out_f32=True))
+    return res
+
+
+# the 13B decoder's int4 products on one of two model ranks, (K, N): q, k,
+# v and the MLP's gate and up split on N, o and down split on K
+Q4_DECODER_TP2 = ((5120, 2560), (5120, 6912), (2560, 5120), (6912, 5120))
+
+
+def tp2_kernel_entries(kernels, multi) -> None:
+    """Each kernel that the 13B TP-2 path runs gets, under ``tp2``, its
+    check and times at the shard shapes (``_tp_kernel_cases``) and rank
+    0's launches on that path (rollout and two stage-4 steps)."""
+    kc, tp = multi["kernels"], multi["tp13b"]
+    roll, train = tp["launches_rollout_rank0"], tp["launches_train_rank0"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    fl, br, bp = kc["flash"], kc["bwd_response"], kc["bwd_prefix"]
+
+    def bwd(key, outs):
+        return {"at": "[3,896 over 1599,20,128] bf16 causal (response "
+                      "stream), prefix [1,703,20,128]",
+                "ms": br[key + "_ms"], "plain_ms": br["plain_ms"],
+                "library_ms": br["library_ms"],
+                "bound_ms": br[key + "_bound_ms"],
+                "bound_by": br[key + "_bound_by"],
+                "max_abs_err": max(x["err"][n] for x in (br, bp)
+                                   for n in outs),
+                "prefix": {"ms": bp[key + "_ms"],
+                           "bound_ms": bp[key + "_bound_ms"]}}
+
+    def heads(name):
+        h = kc["heads"][name]
+        return {"at": "[3,896,20x128] q, k, v in one launch",
+                **{k: h[k] for k in keys}, "library_ms": None,
+                "max_abs_err": h["err"]}
+
+    dc = kc["decode_int4"]
+    q4 = kc["q4"]
+    by_name = {
+        "flash_fwd": {"at": "[8,703,20,128] bf16 causal (13B TP-2 prefill)",
+                      **{k: fl[k] for k in keys + ("library_ms",)},
+                      "max_abs_err": fl["err_o"]},
+        "flash_bwd_dq": bwd("dq", ("dq",)),
+        "flash_bwd_dkv": bwd("dkv", ("dk", "dv")),
+        "scatter_heads": heads("scatter_qkv"),
+        "gather_heads": heads("gather_qkv"),
+        "decode_attention_int4": {
+            "at": "[8,20,768,128] int4, s_used 768 (13B TP-2 decode step)",
+            **{k: dc[k] for k in keys}, "library_ms": None,
+            "max_abs_err": dc["err_out"]},
+        "quant_matmul4": {
+            "at": "M 8 (the first listed) and 703 at (K, N) "
+                  f"{list(Q4_DECODER_TP2)}, and the head half M 8 x 5120 "
+                  "-> 16000 f32",
+            **{k: q4[0][k] for k in keys + ("library_ms",)},
+            "max_abs_err": max(c["err"] for c in q4),
+            "cases": [{k: c[k] for k in ("m", "k", "n", "variant", "err",
+                                         "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}
+                      for c in q4]}}
+    for entry in kernels:
+        name = entry["name"]
+        if name in by_name:
+            entry["tp2"] = {**by_name[name],
+                            "launches_rollout_rank0": roll.get(name, 0),
+                            "launches_train_rank0": train.get(name, 0)}
+
+
+def phase_multi_gpu(card, dirs, root, stage4, g):
+    """The port's ``parallel/`` on the card(s): (a) stage 4 under a
+    world-size-1 NCCL group (``RANK=0 WORLD_SIZE=1 LOCAL_RANK=0``, a
+    subprocess) against ``phase_stage4``'s run of the same rows and
+    checkpoint; (b) LLaVA-1.5-13B int4 at tensor parallelism 2, full
+    width: a one-process rollout and two stage-4 steps first, freed, then
+    the same on two ranks (NCCL with a card each where two are visible,
+    else two processes sharing the one card over a gloo group the smoke
+    starts), tokens equal on both ranks, greedy agreement with one process
+    and every first departure a near-tie, the prefill logits against one
+    process within a factor of a control's (one process rounding the
+    row-parallel products as two ranks do), the second step's loss
+    movement, the first step's gradient norm and the checkpoint-2 adapter
+    against one process's, launches at the shard shapes and peak memory
+    per rank; (c) with two or more cards, data parallelism 2 of the 7B
+    stage 4; (d) the 7B checkpoint
+    read from disk at TP 2 through ``setup_model``, every decoder tensor
+    against its slice of the file; and #1-#5, #7 and #11 against their
+    plain versions at the TP-2 shard shapes."""
+    import torch
+
+    from opadpo_torch.pipeline import runtime
+
+    n_gpu = torch.cuda.device_count()
+    res = {"gpus": n_gpu, "card": card}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) one rank over NCCL
+    out = os.path.join(root, "stage4_nccl1")
+    (a,) = _run_ranks({"kind": "stage4", "dirs": dirs, "out": out,
+                       "per_dev": 2}, 1, [0], "nccl1")
+    diff, top, bitwise = _adapter_diff(
+        _peft(os.path.join(out, "checkpoint-2")),
+        _peft(os.path.join(dirs["stage4"], "checkpoint-2")))
+    rel = [abs(x - y) / max(abs(y), 1e-9)
+           for x, y in zip(a["losses"], stage4["losses"])]
+    check(a["backend"] == "nccl", f"world-size-1 backend {a['backend']}")
+    check(len(rel) == 2 and max(rel) <= BF16_REL and diff <= BF16_REL * top,
+          f"world-size-1 NCCL stage 4: losses {a['losses']} against "
+          f"{stage4['losses']}, adapter |diff| {diff} of {top}")
+    check(a["launches"] == {k: stage4["launches"].get(k, 0)
+                            for k in a["launches"]},
+          f"world-size-1 launches {a['launches']} against "
+          f"{stage4['launches']}")
+    check(a["collectives"].get("all_reduce", {}).get("calls", 0) > 0,
+          f"world-size-1: no collective ran {a['collectives']}")
+    res["nccl1"] = {"losses": a["losses"], "losses_stage4": stage4["losses"],
+                    "adapter_max_abs_diff": diff, "bitwise": bitwise,
+                    "collectives": a["collectives"], "wall_s": a["wall_s"],
+                    "step_s": a["step_s"], "peak_gb": a["peak_gb"]}
+    log(f"[multi_gpu] (a) world size 1 over NCCL: losses {a['losses']} "
+        f"(stage 4's {stage4['losses']}), adapter max |diff| {diff:.3g}, "
+        f"bitwise {bitwise}; collectives {a['collectives']}; card: {card}")
+    shutil.rmtree(out, ignore_errors=True)
+
+    # (b) 13B int4, TP 2: one process first, then two ranks
+    model_dir = _model_13b_dir(root)
+    one_logits = []
+    torch.cuda.reset_peak_memory_stats()
+    _, model, _ = runtime.setup_model(model_dir, skip_loading_weights=True,
+                                      bits=4, seed=0, device="cuda")
+    one_roll = _tp_rollout(model, one_logits)
+    one_exp = _expected_q4_train(model)
+    # the control: TP 2's rounding of the row-parallel products, here
+    _dequantize_decoder(model)
+    check(bool(torch.equal(_prefill_logits(model), one_logits[0])),
+          "13B: the dequantized decoder's prefill logits differ from the "
+          "int4 model's (its prefill rows take dequantize + matmul)")
+    _split_row_products(model)
+    ctrl_logits = _prefill_logits(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_out = os.path.join(root, "tp13b_one")
+    one_train = _stage4_13b(model_dir, one_out, 1, one_exp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    shared = n_gpu < 2
+    tp_out = os.path.join(root, "tp13b_tp2")
+    logits_path = os.path.join(root, "tp13b_logits.pt")
+    job = {"kind": "tp13b", "model_dir": model_dir, "out": tp_out,
+           "gloo": shared, "logits": logits_path}
+    ranks = _run_ranks(job, 2, [0, 0] if shared else [0, 1], "tp13b")
+    tp_logits = torch.load(logits_path)
+    os.remove(logits_path)
+    r0, r1 = ranks
+    tp_tokens, one_tokens = r0["rollout"]["tokens"], one_roll["tokens"]
+    equal_rows = sum(a == b for a, b in zip(tp_tokens, one_tokens))
+    deps = _first_departures(tp_tokens, one_tokens, tp_logits, one_logits)
+    near = sum(1 for d in deps if d.get("near_tie"))
+    # the prefill logits against one process, beside the control's
+    one0 = one_logits[0]
+    logit_err = float((tp_logits[0] - one0).abs().max())
+    ctrl_err = float((ctrl_logits - one0).abs().max())
+    logit_rel = float((tp_logits[0] - one0).norm() / one0.norm())
+    ctrl_rel = float((ctrl_logits - one0).norm() / one0.norm())
+    sim_err = float((tp_logits[0] - ctrl_logits).abs().max())
+    losses_tp, losses_one = r0["train"]["losses"], one_train["losses"]
+    move_tp = losses_tp[1] - losses_tp[0]
+    move_one = losses_one[1] - losses_one[0]
+    move_rel = abs(move_tp - move_one) / max(abs(move_one), 1e-12)
+    gn_tp, gn_one = r0["train"]["grad_norms"], one_train["grad_norms"]
+    gnorm_rel = abs(gn_tp[0] - gn_one[0]) / max(abs(gn_one[0]), 1e-12)
+    adapter_rel = _lora_b_rel(_peft(os.path.join(tp_out, "checkpoint-2")),
+                              _peft(os.path.join(one_out, "checkpoint-2")))
+    res["tp13b"] = {
+        "ranks_share_one_card": shared,
+        "backend": "gloo (two processes on one card)" if shared else "nccl",
+        "rows_equal_to_one_process": equal_rows, "of": TP_ROWS,
+        "first_departures": deps, "near_ties": near,
+        "prefill_logits_max_abs_diff": logit_err,
+        "prefill_logits_rel_diff": logit_rel,
+        "control_prefill_logits_max_abs_diff": ctrl_err,
+        "control_prefill_logits_rel_diff": ctrl_rel,
+        "prefill_logits_max_abs_diff_to_control": sim_err,
+        "losses": losses_tp, "losses_one_process": losses_one,
+        "loss_move_rel_err": move_rel,
+        "grad_norms": gn_tp, "grad_norms_one_process": gn_one,
+        "grad_norm_rel_err": gnorm_rel,
+        "adapter_lora_b_rel_diff": adapter_rel,
+        "rollout_s": [r["rollout"]["wall_s"] for r in ranks],
+        "rollout_s_one_process": one_roll["wall_s"],
+        "generated_tok_per_s": r0["rollout"]["generated_tok_per_s"],
+        "generated_tok_per_s_one_process": one_roll["generated_tok_per_s"],
+        "step_s": r0["train"].get("step_s"),
+        "step_s_one_process": one_train.get("step_s"),
+        "peak_gb_per_rank": [max(r["rollout"]["peak_gb"],
+                                 r["train"]["peak_gb"]) for r in ranks],
+        "peak_gb_one_process": one_train["peak_gb"],
+        "launches_rollout_rank0": r0["rollout"]["launches"],
+        "launches_train_rank0": r0["train"]["launches"],
+        "collectives_rollout_rank0": r0["rollout"]["collectives"],
+        "collectives_train_rank0": r0["train"]["collectives"],
+        "shard_shapes": r0["shard_shapes"]}
+    log(f"[multi_gpu] (b) 13B int4 TP 2 on "
+        f"{'one shared card over gloo' if shared else 'two cards, NCCL'}: "
+        f"{equal_rows} of {TP_ROWS} rows equal to one process's greedy; "
+        f"first departures {len(deps)}, of which {near} near-ties; prefill "
+        f"logits max |TP - one| {logit_err:.4g} (relative {logit_rel:.4g}) "
+        f"against the split-K control's {ctrl_err:.4g} (relative "
+        f"{ctrl_rel:.4g}), max |TP - control| {sim_err:.4g}; losses "
+        f"{losses_tp} against {losses_one} (loss "
+        f"movement relative error {move_rel:.4g}); grad norms {gn_tp} "
+        f"against {gn_one} (step 1 relative error {gnorm_rel:.4g}); "
+        f"checkpoint-2 lora_B relative difference {adapter_rel:.4g}; "
+        f"rollout {res['tp13b']['rollout_s']} s against "
+        f"{one_roll['wall_s']:.2f} s; peak {res['tp13b']['peak_gb_per_rank']}"
+        f" GB a rank; card: {card}")
+    check(r0["rollout"]["tokens"] == r1["rollout"]["tokens"],
+          "13B TP 2: the model ranks sampled different tokens")
+    check(near == len(deps), f"13B TP 2: {len(deps) - near} of {len(deps)} "
+          f"first departures from one process are not near-ties: {deps}")
+    check(sim_err <= TP_CONTROL_ABS
+          and logit_err <= TP_LOGIT_FACTOR * ctrl_err,
+          f"13B TP 2 prefill logits: max |TP - control| {sim_err} (limit "
+          f"{TP_CONTROL_ABS}), max |TP - one| {logit_err} against "
+          f"{TP_LOGIT_FACTOR} x the control's {ctrl_err}")
+    check(len(losses_tp) == 2 and losses_tp[0] == losses_one[0]
+          and move_rel <= TP_MOVE_REL,
+          f"13B TP 2 losses {losses_tp} against one process {losses_one}: "
+          f"movement relative error {move_rel} (limit {TP_MOVE_REL})")
+    check(gnorm_rel <= TP_GNORM_REL,
+          f"13B TP 2 step-1 grad norm {gn_tp[0]} against {gn_one[0]}")
+    check(adapter_rel <= TP_ADAPTER_REL,
+          f"13B TP 2 checkpoint-2 lora_B relative difference {adapter_rel} "
+          f"(limit {TP_ADAPTER_REL})")
+    shutil.rmtree(one_out, ignore_errors=True)
+    shutil.rmtree(tp_out, ignore_errors=True)
+
+    # (c) DP 2 of the 7B stage 4, a card each
+    if n_gpu >= 2:
+        out = os.path.join(root, "stage4_dp2")
+        c = _run_ranks({"kind": "stage4", "dirs": dirs, "out": out,
+                        "per_dev": 1}, 2, [0, 1], "dp2")
+        rel = [abs(x - y) / max(abs(y), 1e-9)
+               for x, y in zip(c[0]["losses"], stage4["losses"])]
+        check(max(rel) <= BF16_REL, f"DP 2 losses {c[0]['losses']} against "
+              f"{stage4['losses']}")
+        res["dp2"] = {"losses": c[0]["losses"], "loss_rel_err": rel,
+                      "step_s": c[0]["step_s"],
+                      "peak_gb": [x["peak_gb"] for x in c]}
+        log(f"[multi_gpu] (c) 7B stage 4 at DP 2 over NCCL: "
+            f"{json.dumps(res['dp2'])}; card: {card}")
+        shutil.rmtree(out, ignore_errors=True)
+    else:
+        log(f"[multi_gpu] (c) DP 2 of the 7B stage 4 skipped: {n_gpu} card "
+            "visible")
+
+    # (d) the 7B checkpoint read from disk at TP 2
+    d = _run_ranks({"kind": "ckpt_tp", "llava": dirs["llava"],
+                    "clip": dirs["clip"], "gloo": shared}, 2,
+                   [0, 0] if shared else [0, 1], "ckpt_tp")
+    for r, x in enumerate(d):
+        check(x["checked"] > 0 and x["n_differ"] == 0,
+              f"7B checkpoint at TP 2, rank {r}: {x['n_differ']} of "
+              f"{x['checked']} decoder tensors differ from the file's "
+              f"slices: {x['differ']}")
+        check(x["peak_gb"] < CKPT_TP_PEAK_SHARE * x["file_gb"],
+              f"7B checkpoint at TP 2, rank {r}: peak {x['peak_gb']} GB "
+              f"against {x['file_gb']} GB of files")
+    res["ckpt_tp"] = {k: [x[k] for x in d]
+                      for k in ("load_s", "peak_gb", "file_gb", "checked")}
+    log(f"[multi_gpu] (d) 7B checkpoint read at TP 2 through setup_model: "
+        f"{json.dumps(res['ckpt_tp'])}; every decoder tensor equal to its "
+        f"slice of the file; card: {card}")
+
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    res["kernels"] = _tp_kernel_cases(g, flush)
+    del flush
+    torch.cuda.empty_cache()
+    log(f"[multi_gpu] {json.dumps({k: v for k, v in res.items() if k != 'kernels'})}")
+    return res
+
+
 # -- the continuous slot pool and the eval suite ------------------------------
 
 POOL_SLOTS = 16
@@ -3239,8 +4121,41 @@ def phase_continuous(model, card):
         for label in ("int4", "spec k4")}
     log(f"[continuous] answers equal to the int8 pool's (of "
         f"{POOL_REQUESTS}): {res['agreement']}")
+    res["queue3"] = _judge_spec_departures(model, reqs, texts)
+    q3 = res["queue3"]
+    log(f"[continuous] Queue 3 check: {q3['near_ties']} near-ties out of "
+        f"{q3['departures_judged']} departures ({q3['requests_departing']} "
+        f"spec k4 answers differ from the int8 pool's; each such request "
+        f"re-decoded plain and speculative by spec_departure)")
     log(f"[continuous] {json.dumps(res)}")
     return res
+
+
+def _judge_spec_departures(model, reqs, texts):
+    """Queue 3's check on the pool's spec-against-int8 comparison: the
+    requests whose spec k 4 answer differs from the int8 pool's, re-decoded
+    in server batches of up to 16 (their prompts, the largest of their
+    budgets) by ``spec_departure``, each first departure judged there: a
+    near-tie where plain greedy's top-2 logit gap is smaller than the
+    largest |logits(#8) - logits(#6)| at it."""
+    departing = [i for i, (a, b) in enumerate(zip(texts["int8"],
+                                                  texts["spec k4"]))
+                 if a != b]
+    judged = []
+    for start in range(0, len(departing), POOL_SLOTS):
+        group = departing[start:start + POOL_SLOTS]
+        d = spec_departure(model, [reqs[j]["prompt"] for j in group],
+                           rows=POOL_SLOTS,
+                           max_new=max(reqs[j]["max_new_tokens"]
+                                       for j in group))
+        for dep in d["departures"]:
+            judged.append({**dep, "request": group[dep["row"]],
+                           "near_tie": dep["plain_top2_gap"]
+                           < dep["max_abs_logit_diff"]})
+    return {"requests_departing": len(departing),
+            "departures_judged": len(judged),
+            "near_ties": sum(d["near_tie"] for d in judged),
+            "departures": judged}
 
 
 def phase_pool_kernels(g, res):
@@ -3597,6 +4512,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         stage4 = phase_stage4(model.cfg, card, dirs, train)
+        multi = phase_multi_gpu(card, dirs, root, stage4, g)
         shutil.rmtree(dirs["stage4"], ignore_errors=True)
         stage12, merged, n_words = phase_stages12(model.cfg, card, dirs)
         stage3 = phase_stage3(model.cfg, card, dirs, merged, n_words)
@@ -3698,6 +4614,7 @@ def main() -> int:
         if key:
             entry["launches_serve_cli"] = (cli["base"][key]
                                            + cli["adapter"][key])
+    tp2_kernel_entries(kernels, multi)
     pool_keys = ("s_used", "G", "err_out", "ms", "plain_ms", "bound_ms",
                  "bound_by", "ranks", "per")
     for entry in kernels:
@@ -3753,7 +4670,10 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        if len(sys.argv) == 3 and sys.argv[1] == "--rank-job":
+            rc = rank_job(sys.argv[2])
+        else:
+            rc = main()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         rc = 1

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from opadpo_torch.engine import speculative
-from opadpo_torch.engine.sampler import decode_loop_unrolled
+from opadpo_torch.engine.sampler import TP_PENDING, decode_loop_unrolled
 from opadpo_torch.engine.sampling import SamplingConfig
 from opadpo_torch.models import llama as llama_model
 from opadpo_torch.models import llava as llava_model
@@ -171,6 +171,8 @@ class ContinuousEngine:
                  collect_spec_stats: bool = False, head_bits: int = 16,
                  prefill: Optional[Callable] = None):
         cfg = model.cfg
+        if model.llama.tp is not None:
+            raise ValueError(f"the continuous slot pool {TP_PENDING}")
         if kv_bits not in (8, 4):
             raise ValueError(f"kv_bits={kv_bits}: the slot pool is int8 (8) "
                              "or packed int4 (4)")

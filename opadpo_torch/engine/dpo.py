@@ -20,6 +20,13 @@ image) prefix (``shared_prefix``), as in the JAX package.
 
 A batch is a dict of tensors on the model's device with the JAX package's
 keys; the rollout adds its outputs under the JAX package's keys too.
+
+Over a data group (``model.mesh``) each rank holds its rows of the global
+batch, all ranks the same number: the loss is a mean over rows, so the
+mean of the ranks' gradients (taken by the optimizer) is the global
+batch's, and every stat is taken over the global batch (a masked mean as
+the sum over all ranks' tokens over their count, a row mean as the mean
+of the ranks' means), with one ``all_reduce``.
 """
 
 from __future__ import annotations
@@ -30,13 +37,14 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from opadpo_torch.engine.train_state import AdamW, TrainState, global_norm
+from opadpo_torch.engine.train_state import AdamW, TrainState
 from opadpo_torch.models import llama as llama_model
 from opadpo_torch.models import llava as llava_model
 from opadpo_torch.models.llava import Llava
 from opadpo_torch.models.lora import named_leaves, tree_get
 from opadpo_torch.ops import image_ops
 from opadpo_torch.ops.logprobs import chunked_logprobs
+from opadpo_torch.parallel import comm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,7 +104,7 @@ def _readout(model: Llava, dpo: DpoConfig, hidden, labels, lora,
         hidden, model.llama.lm_head.weight, labels, dpo.pad_token_id,
         temperature=dpo.temperature, with_entropy=with_entropy,
         head_lora=tree_get(llama_lora, "lm_head"),
-        lora_scaling=dpo.lora_scaling)
+        lora_scaling=dpo.lora_scaling, tp=model.llama.tp)
 
 
 def _score_stacked(model, dpo, queries, query_mask, images, responses,
@@ -247,17 +255,22 @@ def rollout_score(model: Llava, dpo: DpoConfig, ref_lora, batch: dict,
 # Policy loss and train step
 # ---------------------------------------------------------------------------
 
-def _masked_mean(x, mask):
+def _masked_sum(x, mask):
+    """(sum of x over mask, the mask's count): a masked mean's parts."""
     m = mask.float()
-    return (x * m).sum() / torch.clamp(m.sum(), min=1e-9)
+    return (x * m).sum(), m.sum()
+
+
+def _mean(x):
+    return x.mean(), torch.ones((), dtype=x.dtype, device=x.device)
 
 
 def _masked_min_rowwise(x, mask):
-    return (x * mask + (1 - mask) * 1e9).amin(dim=1).mean()
+    return _mean((x * mask + (1 - mask) * 1e9).amin(dim=1))
 
 
 def _masked_max_rowwise(x, mask):
-    return (x * mask + (1 - mask) * -1e9).amax(dim=1).mean()
+    return _mean((x * mask + (1 - mask) * -1e9).amax(dim=1))
 
 
 def dpo_loss_and_stats(lora, model: Llava, dpo: DpoConfig,
@@ -333,30 +346,25 @@ def dpo_loss_and_stats(lora, model: Llava, dpo: DpoConfig,
     std_m, orig_m, ai_m = ((x != 0.0).float()
                            for x in (std_lp, orig_lp, ai_lp))
 
-    def gap(cr, cm, rr, rm):
-        return _masked_mean(cr, cm) - _masked_mean(rr, rm)
-
-    stats = {
-        "loss/stand_gen": losses1.mean(),
-        "loss/AI_gen": losses2.mean(),
-        "loss/stand_mask": losses3.mean(),
-        "loss/AI_mask": losses4.mean(),
-        "loss/AncPO": anc_loss,
-        "policy/stand_gen_chosen_mean": _masked_mean(cr1, m1c),
-        "policy/stand_gen_reject_mean": _masked_mean(rr1, m1r),
-        "policy/stand_gen_gap_mean": gap(cr1, m1c, rr1, m1r),
-        "policy/AI_gen_chosen_mean": _masked_mean(cr2, m2c),
-        "policy/AI_gen_reject_mean": _masked_mean(rr2, m1r),
-        "policy/AI_gen_gap_mean": gap(cr2, m2c, rr2, m1r),
-        "policy/stand_mask_chosen_mean": _masked_mean(cr3, m1c),
-        "policy/stand_mask_reject_mean": _masked_mean(rr3, m1c),
-        "policy/AI_mask_chosen_mean": _masked_mean(cr4, m2c),
-        "policy/AI_mask_reject_mean": _masked_mean(rr4, m2c),
-        "logprobs/standard_logprobs": _masked_mean(std_lp, std_m),
-        "logprobs/original_logprobs": _masked_mean(orig_lp, orig_m),
-        "logprobs/AI_logprobs": _masked_mean(ai_lp, ai_m),
-        "logprobs/standard_mask_logprobs": _masked_mean(mask_std_lp, std_m),
-        "logprobs/AI_mask_logprobs": _masked_mean(mask_ai_lp, ai_m),
+    parts = {
+        "loss/stand_gen": _mean(losses1),
+        "loss/AI_gen": _mean(losses2),
+        "loss/stand_mask": _mean(losses3),
+        "loss/AI_mask": _mean(losses4),
+        "loss/AncPO": _mean(anc_loss),
+        "policy/stand_gen_chosen_mean": _masked_sum(cr1, m1c),
+        "policy/stand_gen_reject_mean": _masked_sum(rr1, m1r),
+        "policy/AI_gen_chosen_mean": _masked_sum(cr2, m2c),
+        "policy/AI_gen_reject_mean": _masked_sum(rr2, m1r),
+        "policy/stand_mask_chosen_mean": _masked_sum(cr3, m1c),
+        "policy/stand_mask_reject_mean": _masked_sum(rr3, m1c),
+        "policy/AI_mask_chosen_mean": _masked_sum(cr4, m2c),
+        "policy/AI_mask_reject_mean": _masked_sum(rr4, m2c),
+        "logprobs/standard_logprobs": _masked_sum(std_lp, std_m),
+        "logprobs/original_logprobs": _masked_sum(orig_lp, orig_m),
+        "logprobs/AI_logprobs": _masked_sum(ai_lp, ai_m),
+        "logprobs/standard_mask_logprobs": _masked_sum(mask_std_lp, std_m),
+        "logprobs/AI_mask_logprobs": _masked_sum(mask_ai_lp, ai_m),
         "logprobs/standard_logprobs_min": _masked_min_rowwise(std_lp, std_m),
         "logprobs/original_logprobs_min": _masked_min_rowwise(orig_lp,
                                                               orig_m),
@@ -366,7 +374,13 @@ def dpo_loss_and_stats(lora, model: Llava, dpo: DpoConfig,
                                                               orig_m),
         "logprobs/AI_logprobs_max": _masked_max_rowwise(ai_lp, ai_m),
     }
-    return loss, {k: v.detach() for k, v in stats.items()}
+    stats = comm.global_stats(parts, getattr(model, "mesh", None))
+    for name, (c, r) in (("stand_gen", ("stand_gen_chosen",
+                                        "stand_gen_reject")),
+                         ("AI_gen", ("AI_gen_chosen", "AI_gen_reject"))):
+        stats[f"policy/{name}_gap_mean"] = (stats[f"policy/{c}_mean"]
+                                            - stats[f"policy/{r}_mean"])
+    return loss, stats
 
 
 def loss_and_grads(state: TrainState, model: Llava, dpo: DpoConfig,
@@ -384,6 +398,8 @@ def dpo_train_step(state: TrainState, model: Llava, batch: dict,
     """One gradient step over the policy adapter, updated in place ->
     (state, stats with "loss/total" and "loss/grad_norm")."""
     loss, stats, grads = loss_and_grads(state, model, dpo, batch)
-    stats["loss/total"] = loss
-    stats["loss/grad_norm"] = global_norm(grads)
-    return optimizer.apply_gradients(state, grads), stats
+    stats["loss/total"] = comm.global_stats({"l": _mean(loss)},
+                                       getattr(model, "mesh", None))["l"]
+    state = optimizer.apply_gradients(state, grads)
+    stats["loss/grad_norm"] = optimizer.last_grad_norm
+    return state, stats

@@ -12,6 +12,12 @@ one forward (``engine/speculative.py``).  With ``head_bits`` 8 or 4 the
 prefill and decode passes read an int8 / int4 copy of the lm_head, made
 once per model.  Decoding stops when every row has emitted EOS, as the JAX
 ``while_loop`` does.
+
+Under tensor parallelism each rank's caches hold its own heads and the
+logits come back gathered over the vocabulary; every rank samples from
+them and takes model rank 0's tokens (a ``broadcast``), so the ranks'
+caches never fork.  Speculative decode is not ported to tensor
+parallelism yet (ROADMAP Queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -29,6 +35,10 @@ from opadpo_torch.engine.sampling import SamplingConfig, sample_tokens
 from opadpo_torch.models import llama as llama_model
 from opadpo_torch.models import llava as llava_model
 from opadpo_torch.ops.decode_attention import MAX_G
+from opadpo_torch.parallel import comm
+
+TP_PENDING = ("under tensor parallelism (mesh.model > 1) is not ported yet "
+              "(ROADMAP Queue 1 item 8b)")
 
 
 def decode_loop_unrolled(model, prompt_kv_list: list,
@@ -56,7 +66,8 @@ def decode_loop_unrolled(model, prompt_kv_list: list,
     b = prompt_mask.shape[0]
     n_new = max_new or sampling.max_new_tokens
     dev = prompt_mask.device
-    suffix = llama_model.init_suffix_cache(model.cfg.llama, b, n_new, dev)
+    suffix = llama_model.init_suffix_cache(model.llama.cfg, b, n_new, dev)
+    tp = model.llama.tp
     out = torch.full((b, n_new), sampling.pad_token_id, dtype=torch.int64,
                      device=dev)
     done = (torch.zeros(b, dtype=torch.bool, device=dev) if done_init is None
@@ -64,6 +75,7 @@ def decode_loop_unrolled(model, prompt_kv_list: list,
     n_fwd = 0
     for step in range(n_new):
         tok = sample_tokens(last_logits, sampling, generator)
+        tok = comm.broadcast_(tok, tp)
         tok = torch.where(done, sampling.pad_token_id, tok)
         out[:, step] = tok
         done = done | (tok == sampling.eos_token_id)
@@ -176,6 +188,8 @@ class Sampler:
                head=None) -> Tuple[torch.Tensor, dict]:
         """Decode after ``prefill`` -> (tokens [B, max_new_tokens], what it
         did: decode_steps, folds, sp_used and the speculative counts)."""
+        if self.spec is not None and model.llama.tp is not None:
+            raise ValueError(f"speculative decode {TP_PENDING}")
         info = {"decode_steps": 0, "folds": 0, "sp_used": []}
         args = (model, pf["kv_list"], pf["key_mask"], pf["next_position"],
                 pf["last_logits"], generator, self.sampling)

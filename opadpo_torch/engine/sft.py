@@ -13,8 +13,14 @@ through ``ops/image_ops``; their stream differs from ``jax.random``'s.
 
 ``sft_train_step`` differentiates the loss with respect to the adapter
 (vision tower and projector parts included when present) and applies the
-AdamW of ``engine/train_state``.  ZeRO-1 has no counterpart on one GPU:
-the optimizer state is local.
+AdamW of ``engine/train_state`` (ZeRO-1 over a data group).
+
+Over a data group (``model.mesh``) each rank holds its rows of the global
+batch.  The cross-entropy is a token mean over all ranks' rows: each rank
+divides its sum by the global count over the group's size (the count
+``all_reduce``d, detached), so the mean of the ranks' losses and
+gradients is the global batch's even when ranks hold different token
+counts; the logged stats are those means.
 """
 
 from __future__ import annotations
@@ -26,12 +32,13 @@ import torch
 import torch.nn.functional as F
 
 from opadpo_torch.constants import IGNORE_INDEX
-from opadpo_torch.engine.train_state import AdamW, TrainState, global_norm
+from opadpo_torch.engine.train_state import AdamW, TrainState
 from opadpo_torch.models import llava as llava_model
 from opadpo_torch.models.llava import Llava
 from opadpo_torch.models.lora import named_leaves, tree_get
 from opadpo_torch.ops import image_ops
 from opadpo_torch.ops.logprobs import chunked_logprobs
+from opadpo_torch.parallel import comm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,12 +62,16 @@ def _readout(model: Llava, sft: SftConfig, lora, hidden, sp_labels,
         hidden, model.llama.lm_head.weight, shifted, IGNORE_INDEX,
         with_entropy=with_entropy,
         head_lora=tree_get(lora, "llama", "lm_head"),
-        lora_scaling=sft.lora_scaling)
+        lora_scaling=sft.lora_scaling, tp=model.llama.tp)
     return lp[:, :-1], ent, shifted[:, :-1]
 
 
-def _masked_ce(lp, valid):
-    return -(lp * valid).sum() / torch.clamp(valid.sum(), min=1e-9)
+def _masked_ce(lp, valid, mesh=None):
+    count = valid.sum()
+    if mesh is not None and mesh.data > 1:
+        count = comm.all_reduce_(count.detach().clone(),
+                                 mesh.data_group) / mesh.data
+    return -(lp * valid).sum() / torch.clamp(count, min=1e-9)
 
 
 def sft_loss(lora, model: Llava, sft: SftConfig,
@@ -75,6 +86,7 @@ def sft_loss(lora, model: Llava, sft: SftConfig,
     ids, labels = batch["input_ids"], batch["labels"]
     mask, images = batch["attention_mask"], batch["images"]
     scaling = sft.lora_scaling
+    mesh = getattr(model, "mesh", None)
     out = llava_model.forward(model, ids, mask, images, lora=lora,
                               lora_scaling=scaling, labels=labels,
                               return_hidden=True)
@@ -82,7 +94,7 @@ def sft_loss(lora, model: Llava, sft: SftConfig,
     lp, entropies, shift_labels = _readout(model, sft, lora, out["hidden"],
                                            sp_labels, sft.entropy_loss)
     valid = (shift_labels != IGNORE_INDEX).float()
-    ce_loss = _masked_ce(lp, valid)
+    ce_loss = _masked_ce(lp, valid, mesh)
     stats = {"loss/base_sft": ce_loss}
     loss = ce_loss
 
@@ -108,11 +120,12 @@ def sft_loss(lora, model: Llava, sft: SftConfig,
         ent_loss = (-((new_entropies - entropies) * emask).sum(-1)
                     / torch.clamp(emask.sum(-1), min=1e-9)).mean()
         loss = loss + ent_loss * sft.entropy_loss_coef
-        stats["loss/mask_sft"] = _masked_ce(mlp, valid)
+        stats["loss/mask_sft"] = _masked_ce(mlp, valid, mesh)
         stats["loss/entropy"] = ent_loss
 
     stats["loss/total"] = loss
-    return loss, {k: v.detach() for k, v in stats.items()}
+    return loss, comm.global_stats(
+        {k: (v, torch.ones_like(v)) for k, v in stats.items()}, mesh)
 
 
 def sft_train_step(state: TrainState, model: Llava, batch: dict,
@@ -123,5 +136,6 @@ def sft_train_step(state: TrainState, model: Llava, batch: dict,
     leaves = [t for _, t in named_leaves(state.params)]
     loss, stats = sft_loss(state.params, model, sft, batch, generator)
     grads = list(torch.autograd.grad(loss, leaves))
-    stats["loss/grad_norm"] = global_norm(grads)
-    return optimizer.apply_gradients(state, grads), stats
+    state = optimizer.apply_gradients(state, grads)
+    stats["loss/grad_norm"] = optimizer.last_grad_norm
+    return state, stats

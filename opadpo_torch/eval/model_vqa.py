@@ -233,9 +233,9 @@ def load_for_eval(args: argparse.Namespace):
     from opadpo_torch.models.loader import adapter_scaling, load_peft_adapter
     from opadpo_torch.pipeline.runtime import setup_model
 
-    cfg, model = setup_model(args.model_path,
-                             vision_dir=getattr(args, "vision_path", None),
-                             device=args.device)
+    cfg, model, _ = setup_model(args.model_path,
+                                vision_dir=getattr(args, "vision_path", None),
+                                device=args.device)
     lora, scaling = None, 1.0
     if args.adapter_path:
         lora = load_peft_adapter(args.adapter_path, cfg.llama,

@@ -21,7 +21,19 @@
   settled suffix regions.
 
 Projections run in the model dtype and widen to f32 for the LoRA sum; the
-decode head returns f32 logits.  RoPE positions come from
+decode head returns f32 logits.
+
+Under tensor parallelism (``parallel/sharding.shard_module``: ``tp`` set
+on the model and its layers, ``cfg`` made local) each rank runs its heads
+and its slice of the MLP and of the vocabulary, Megatron-style: the input
+of the column-parallel ``wq``/``wk``/``wv`` and ``w_gate``/``w_up`` enters
+the model region once per block (``comm.copy_to_model``), the row-parallel
+``wo`` and ``w_down`` return partial sums that one ``all_reduce`` adds
+(their LoRA delta added before it, in f32), and the logits of the split
+lm_head are gathered over the vocabulary.  A replicated LoRA factor whose
+gradient each rank holds only part of (every ``a``, and ``b`` of a
+row-parallel weight) enters the region too, so every gradient leaves the
+backward whole.  RoPE positions come from
 ``cumsum(mask) - 1`` so left-padded batches work.  The seven block linears
 may be frozen int8 / int4 ``QuantLinear``s (``ops/quant.py``), and the
 prefill and decode passes may take an int8 / int4 decode head made by
@@ -52,6 +64,8 @@ from opadpo_torch.ops.decode_attention import (
 )
 from opadpo_torch.ops.quant import QuantLinear, exact_div
 from opadpo_torch.ops.rope import apply_rope, rope_frequencies
+from opadpo_torch.parallel.comm import copy_to_model, gather, reduce_from_model
+from opadpo_torch.parallel.sharding import ROW, split_of
 
 NEG_INF = -1e30
 
@@ -101,12 +115,39 @@ class LlamaLayer(nn.Module):
         self.w_gate = nn.Linear(d, i, bias=False, dtype=dt)
         self.w_up = nn.Linear(d, i, bias=False, dtype=dt)
         self.w_down = nn.Linear(i, d, bias=False, dtype=dt)
+        self.tp = None            # the model group under tensor parallelism
+
+    def enter(self, x):
+        """The input of a column-parallel block entering the model
+        region (the identity without tensor parallelism)."""
+        return copy_to_model(x, self.tp)
 
     def dense(self, x, name, ll, scaling):
         """One of the seven linears (``nn.Linear`` or ``QuantLinear``)
-        with its adapter entry from ``ll``."""
-        return lora_dense(x, getattr(self, name), tree_get(ll, name),
-                          scaling)
+        with its adapter entry from ``ll``; under tensor parallelism a
+        column-parallel one takes ``x`` already in the region
+        (``enter``) and a row-parallel one returns the sum over the model
+        group."""
+        entry = tree_get(ll, name)
+        if self.tp is None:
+            return lora_dense(x, getattr(self, name), entry, scaling)
+        return _dense_tp(x, getattr(self, name), entry, scaling,
+                         split_of(name), self.tp)
+
+
+def _dense_tp(x, weight, entry, scaling, split, tp):
+    if split != ROW:
+        if entry is not None:
+            entry = {"a": copy_to_model(entry["a"], tp), "b": entry["b"]}
+        return lora_dense(x, weight, entry, scaling)
+    if entry is not None:
+        k = x.shape[-1]
+        entry = {"a": copy_to_model(entry["a"], tp).narrow(1, tp.rank * k, k),
+                 "b": copy_to_model(entry["b"], tp)}
+    y = lora_dense(x, weight)
+    delta = lora_delta(x, entry, scaling)
+    y = y.float() if delta is None else y.float() + delta
+    return reduce_from_model(y, tp).to(x.dtype)
 
 
 class LlamaModel(nn.Module):
@@ -119,6 +160,7 @@ class LlamaModel(nn.Module):
                                     for _ in range(cfg.num_layers))
         self.final_norm = nn.Parameter(torch.empty(d, dtype=torch.float32))
         self.lm_head = nn.Linear(d, cfg.vocab_size, bias=False, dtype=dt)
+        self.tp = None            # the model group under tensor parallelism
         self._rope = None
 
     def rope_tables(self):
@@ -160,14 +202,37 @@ def embed_tokens(model: LlamaModel, input_ids: torch.Tensor):
 
 
 def _qkv_proj(x, layer: LlamaLayer, ll, scaling):
+    x = layer.enter(x)
     return tuple(layer.dense(x, n, ll, scaling) for n in ("wq", "wk", "wv"))
 
 
 def _mlp_block(x, layer: LlamaLayer, ll, scaling):
+    x = layer.enter(x)
     gate = layer.dense(x, "w_gate", ll, scaling)
     up = layer.dense(x, "w_up", ll, scaling)
     h = F.silu(gate.float()).to(x.dtype) * up
     return layer.dense(h, "w_down", ll, scaling)
+
+
+def _head_logits(model: LlamaModel, x, lora, scaling, head=None):
+    """f32 logits of the final-norm hidden states ``x`` through the lm_head
+    (or the quantized decode ``head``) and its adapter entry, gathered
+    over the vocabulary under tensor parallelism."""
+    tp = model.tp
+    entry = tree_get(lora, "lm_head")
+    if tp is not None:
+        x = copy_to_model(x, tp)
+        if entry is not None:
+            entry = {"a": copy_to_model(entry["a"], tp), "b": entry["b"]}
+    if head is None:
+        logits = F.linear(x.float(), model.lm_head.weight.float())
+    else:
+        logits = head.matmul_f32(x.reshape(-1, x.shape[-1])).reshape(
+            *x.shape[:-1], -1)
+    delta = lora_delta(x, entry, scaling)
+    if delta is not None:
+        logits = logits + delta
+    return gather(logits, tp, dim=-1)
 
 
 @torch.no_grad()
@@ -194,15 +259,7 @@ def _decode_head(x, model: LlamaModel, lora, scaling, head=None):
     a quantized decode head, through the int8 / int4 kernel with f32
     output."""
     x = rms_norm(x, model.final_norm, model.cfg.rms_norm_eps)
-    if head is None:
-        logits = F.linear(x.float(), model.lm_head.weight.float())
-    else:
-        logits = head.matmul_f32(x.reshape(-1, x.shape[-1])).reshape(
-            *x.shape[:-1], -1)
-    delta = lora_delta(x, tree_get(lora, "lm_head"), scaling)
-    if delta is not None:
-        logits = logits + delta
-    return logits
+    return _head_logits(model, x, lora, scaling, head)
 
 
 def _repeat_kv(t, cfg: LlamaConfig):
@@ -278,9 +335,7 @@ def forward(model: LlamaModel, input_embeds, key_mask, positions, lora=None,
     x = rms_norm(x, model.final_norm, cfg.rms_norm_eps)
     if return_hidden:
         return x
-    logits = F.linear(x.float(), model.lm_head.weight.float())
-    delta = lora_delta(x, tree_get(lora, "lm_head"), lora_scaling)
-    return logits if delta is None else logits + delta
+    return _head_logits(model, x, lora, lora_scaling)
 
 
 def _shared_layer(xp, xr, layer: LlamaLayer, ll, masks, positions, cfg,

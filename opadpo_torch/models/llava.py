@@ -29,6 +29,7 @@ from opadpo_torch.models import llama as llama_model
 from opadpo_torch.models import projector as projector_model
 from opadpo_torch.models.lora import LoraConfig, init_lora_entry, tree_get
 from opadpo_torch.ops import quant
+from opadpo_torch.parallel import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,11 +117,16 @@ def init_params(cfg: LlavaConfig, generator: torch.Generator,
 @torch.no_grad()
 def init_params_quantized(cfg: LlavaConfig, generator: torch.Generator,
                           bits: int = 8, device="cuda",
-                          mode: quant.QuantMode = quant.QuantMode()) -> Llava:
+                          mode: quant.QuantMode = quant.QuantMode(),
+                          tp: Optional[tuple] = None) -> Llava:
     """``quant.quantize_params(init_params(cfg, generator, device), bits)``
     without the whole bf16 model ever existing: the parameters are drawn
     in ``init_params``' order, one at a time, and each quantizable weight
-    is quantized as soon as it is drawn, so the codes are the same."""
+    is quantized as soon as it is drawn, so the codes are the same
+    (``bits`` 16: no weight is quantized).  ``tp`` ``(rank, n)``: each
+    decoder weight and the lm_head are cut to model rank ``rank``'s shard
+    of ``n`` as soon as they are drawn (and quantized), so no rank ever
+    holds the whole decoder (``parallel/sharding.py``)."""
     dev = resolve_device(device)
     with torch.device("meta"):
         model = Llava(cfg)
@@ -131,11 +137,20 @@ def init_params_quantized(cfg: LlavaConfig, generator: torch.Generator,
         owner = model.get_submodule(owner_name)
         t = torch.empty(p.shape, dtype=p.dtype, device=dev)
         _init_(name, t, generator)
-        if id(owner) in targets and attr == "weight":
+        split = None
+        if tp is not None and name.startswith("llama.") and attr == "weight":
+            split = sharding.split_of(owner_name.rpartition(".")[2])
+        if id(owner) in targets and attr == "weight" and bits != 16:
             parent_name, _, child = owner_name.rpartition(".")
             qlin = quant.QuantLinear.from_weight(t, bits, mode=mode)
+            if split is not None:
+                qlin = sharding.shard_quant(qlin, split, *tp)
             targets.add(id(qlin))
             setattr(model.get_submodule(parent_name), child, qlin)
+        elif split is not None:
+            t = sharding.shard_weight(t, split, *tp)
+            setattr(owner, attr, torch.nn.Parameter(t, requires_grad=False))
+            owner.out_features, owner.in_features = t.shape
         elif isinstance(owner, quant.QuantLinear):
             owner.bias = t                # the bias follows its weight
         else:

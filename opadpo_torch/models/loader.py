@@ -112,10 +112,11 @@ def _clip_names(vision, prefix: str):
 
 def llama_params_from_state(llama, state: Dict[str, torch.Tensor],
                             prefix: str = "model.",
-                            head: str = "lm_head.weight") -> None:
-    """Fill a ``LlamaModel`` from HF ``LlamaForCausalLM`` names."""
+                            head: str = "lm_head.weight", put=_put) -> None:
+    """Fill a ``LlamaModel`` from HF ``LlamaForCausalLM`` names (``put``:
+    how a tensor goes into its slot)."""
     for name, slot in _llama_names(llama, prefix, head):
-        _put(slot, state[name])
+        put(slot, state[name])
 
 
 def clip_params_from_state(vision, state: Dict[str, torch.Tensor],
@@ -138,7 +139,8 @@ def projector_params_from_state(projector, state: Dict[str, torch.Tensor],
 
 
 def llava_params_from_hf_state(model: Llava,
-                               state: Dict[str, torch.Tensor]) -> None:
+                               state: Dict[str, torch.Tensor],
+                               put=_put) -> None:
     """Fill a ``Llava`` from HF ``LlavaForConditionalGeneration`` names,
     either llava-hf layout: transformers >= 4.52 (``model.language_model.*``,
     ``model.vision_tower.*``, ``model.multi_modal_projector.*``, a top-level
@@ -156,7 +158,7 @@ def llava_params_from_hf_state(model: Llava,
             return k
         state = {remap(k): v for k, v in state.items()}
     llama_params_from_state(model.llama, state,
-                            prefix="model.language_model.")
+                            prefix="model.language_model.", put=put)
     projector_params_from_state(model.projector, state,
                                 prefix="model.multi_modal_projector.",
                                 names=("linear_1", "linear_2"))
@@ -192,20 +194,58 @@ def resize_token_embeddings_with_mean(model: Llava, new_vocab: int) -> Llava:
     return model
 
 
+def _model_deferring_linears(cfg: LlavaConfig, dev: torch.device):
+    """An empty model on ``dev`` whose decoder block linears and lm_head
+    stay on the meta device, and ``{id(weight): (owner, name)}`` of
+    those."""
+    with torch.device("meta"):
+        model = Llava(cfg)
+    model.requires_grad_(False)
+    lm = model.llama
+    deferred = {id(lm.lm_head.weight): (lm, "lm_head")}
+    for layer in lm.layers:
+        for name in _LLAMA_LINEARS:
+            deferred[id(getattr(layer, name).weight)] = (layer, name)
+    skip = {id(getattr(owner, name)) for owner, name in deferred.values()}
+    for mod in model.modules():
+        if id(mod) not in skip:
+            mod.to_empty(device=dev, recurse=False)
+    return model, deferred
+
+
 def load_llava_checkpoint(model_dir: str, cfg: LlavaConfig,
                           vision_dir: Optional[str] = None,
-                          device="cuda") -> Llava:
+                          device="cuda", linear=None) -> Llava:
     """A ``Llava`` on ``device`` from a checkpoint directory: a llava-hf
     one, or an original-LLaVA one whose vision tower is in the directory
     (``model.vision_tower.vision_tower.vision_model.*``) or in the CLIP
-    directory ``vision_dir`` (the ``image_checkpoint`` config group)."""
-    model = empty_model(cfg, resolve_device(device))
+    directory ``vision_dir`` (the ``image_checkpoint`` config group).
+
+    ``linear(owner, name, weight)``: the decoder's block linears and its
+    lm_head are not made on the device; each weight is handed over as it
+    is read (on the host, in its file dtype, memory-mapped) to ``linear``,
+    which puts a module of its own at ``owner.<name>`` (the meta-device
+    module there gives the dtype), one at a time (a rank's quantized
+    shard)."""
+    dev = resolve_device(device)
+    if linear is None:
+        model, put = empty_model(cfg, dev), _put
+    else:
+        model, deferred = _model_deferring_linears(cfg, dev)
+
+        def put(dst, src):
+            if id(dst) not in deferred:
+                return _put(dst, src)
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"shape {tuple(src.shape)} for a "
+                                 f"{tuple(dst.shape)} slot")
+            linear(*deferred[id(dst)], src)
     state = load_state_dict(model_dir)
     if any(k.startswith(("model.language_model.", "language_model.model."))
            for k in state):
-        llava_params_from_hf_state(model, state)
+        llava_params_from_hf_state(model, state, put)
         return model
-    llama_params_from_state(model.llama, state)
+    llama_params_from_state(model.llama, state, put=put)
     if not any(k.startswith("model.mm_projector.") for k in state):
         raise KeyError("mm_projector weights not found in checkpoint")
     projector_params_from_state(model.projector, state)

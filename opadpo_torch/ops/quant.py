@@ -697,10 +697,6 @@ def set_quant_mode(model: nn.Module, mode: QuantMode) -> None:
             module.mode = mode
 
 
-def is_quantized(model: nn.Module) -> bool:
-    return any(isinstance(m, QuantLinear) for m in model.modules())
-
-
 def quantized_bytes(model: nn.Module) -> int:
     """Bytes of every parameter and buffer of ``model``."""
     return sum(t.numel() * t.element_size()

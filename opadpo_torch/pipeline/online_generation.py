@@ -24,8 +24,17 @@ one generator seeded at seed + 1000 + rank.
     python -m opadpo_torch.pipeline.online_generation \\
         --config configs/llava_online_generation.yaml [key.path=value ...]
 
-One GPU (``training.device``, default cuda; ``cpu`` runs the plain
-versions).  ``run`` also takes the tokenizer and the data module as
+With ``mesh.model`` 1 the ranks need no process group: each process
+takes its rows by ``RANK`` / ``WORLD_SIZE`` alone.  With ``mesh.model``
+2 (the 13B config) the ranks run under ``torchrun`` as a ``data x model``
+mesh (``parallel/mesh.py``): the rows are split over the data ranks only,
+the ranks of a model group sample their rows together (tensor-parallel
+decode, ``engine/sampler.py``) and only its model rank 0 calls GPT-4V and
+writes ``step{N}_rank{R}.json``, R its data rank.  The continuous engine
+is not ported to tensor parallelism yet (ROADMAP Queue 1 item 8b).
+
+One GPU a rank (``training.device``, default cuda; ``cpu`` runs the
+plain versions).  ``run`` also takes the tokenizer and the data module as
 arguments, for machines without ``transformers`` or ``datasets``.
 """
 
@@ -48,12 +57,15 @@ from opadpo_torch.constants import LLAMA_NL_QMARK_TOKEN, LLAMA_QMARK_TOKEN
 from opadpo_torch.data.char_tokenizer import CharTokenizer
 from opadpo_torch.data.datasets import make_rollout_data_module
 from opadpo_torch.data.loading import DataLoader, ShardedDataset
-from opadpo_torch.device import resolve_device
-from opadpo_torch.engine.sampler import Sampler, truncate_after_tokens
+from opadpo_torch.engine.sampler import (
+    TP_PENDING, Sampler, truncate_after_tokens,
+)
 from opadpo_torch.engine.serving_config import (
     make_continuous_engine, make_serving_sampling,
 )
 from opadpo_torch.models.loader import adapter_scaling, load_peft_adapter
+from opadpo_torch.parallel.mesh import MeshConfig, make_mesh
+from opadpo_torch.parallel.sharding import shard_lora
 from opadpo_torch.pipeline import checkpoints as ckpt_lib
 from opadpo_torch.pipeline.config import (
     Config, apply_overrides, load_config, save_config,
@@ -148,22 +160,23 @@ def run(cfg: Config, tokenizer=None,
     """Run stages 1-2 as ``cfg`` says -> the step timer (one ``sample``
     entry per step sampled; none when every step's shard exists)."""
     t = cfg.training if "training" in cfg else Config()
-    if int(cfg.get_path("mesh.model", 1)) > 1:
-        raise ValueError(
-            "mesh.model > 1: tensor parallelism over several GPUs is not "
-            "ported yet (ROADMAP Queue 1 item 8, multi-GPU)")
+    n_model = int(cfg.get_path("mesh.model", 1))
+    if n_model > 1 and int(t.get("continuous_slots", 0)):
+        raise ValueError(f"training.continuous_slots {TP_PENDING}")
     output_dir = os.environ.get("OUTPUT_DIR", cfg.get_path(
         "training.output_dir", "./output"))
     rollout_dir = os.path.join(output_dir, "rollouts")
-    os.makedirs(rollout_dir, exist_ok=True)
-    save_config(cfg, output_dir)
     logging.basicConfig(level=logging.INFO)
 
     tiny = bool(cfg.get_path("debug.tiny", False))
     seed = int(t.get("seed", 42))
-    dev = resolve_device(t.get("device", "cuda"))
     model_dir = os.environ.get("MODEL_DIR", cfg.get_path("base_model"))
-    llava_cfg, model = setup_model(
+    # the multi-rank fan-out: each data rank takes rows rank::world, picks
+    # its API key as rank % API_NUM and writes step{N}_rank{R}.json shards
+    # (reference generator.py:87-93 + record_step_stats); at mesh.model 1
+    # the ranks share nothing and start no process group, a model group's
+    # ranks share their rows and its model rank 0 writes
+    llava_cfg, model, mesh = setup_model(
         model_dir,
         vision_dir=cfg.get_path("image_checkpoint"),
         skip_loading_weights=bool(cfg.get_path("model.skip_loading_weights",
@@ -173,13 +186,20 @@ def run(cfg: Config, tokenizer=None,
         act_bits=int(t.get("act_bits", 16)),
         act_outlier_cols=int(t.get("act_outlier_cols", 0)),
         act_bwd_int8=bool(t.get("act_bwd_int8", False)),
-        device=dev)
+        mesh=make_mesh(MeshConfig(model=n_model), t.get("device", "cuda"),
+                       group=n_model > 1))
+    dev, rank, world = mesh.device, mesh.data_rank, mesh.data
+    writer = mesh.model_rank == 0
+    if writer:
+        os.makedirs(rollout_dir, exist_ok=True)
+        save_config(cfg, output_dir)
 
     lora, lora_scaling = None, 1.0
     adapter_dir = os.environ.get("POLICY_LORA_DIR",
                                  cfg.get_path("policy_lora_dir"))
     if adapter_dir and os.path.isdir(adapter_dir):
         lora = load_peft_adapter(adapter_dir, llava_cfg.llama, device=dev)
+        lora = shard_lora(lora, mesh)
         lora_scaling = adapter_scaling(adapter_dir)
 
     if tokenizer is None:
@@ -197,11 +217,6 @@ def run(cfg: Config, tokenizer=None,
         pad_token_id=tokenizer.pad_token_id,
         max_new_tokens=response_len)
 
-    # the multi-rank fan-out: each process takes rows rank::world, picks
-    # its API key as RANK % API_NUM and writes step{N}_rank{R}.json shards
-    # (reference generator.py:87-93 + record_step_stats)
-    rank = int(os.environ.get("RANK", "0"))
-    world = int(os.environ.get("WORLD_SIZE", "1"))
     if data_module is None:
         data_module = make_rollout_data_module(
             tokenizer, os.environ.get("DATA_DIR",
@@ -221,10 +236,10 @@ def run(cfg: Config, tokenizer=None,
 
     api = get_api_service(rank=rank, cache_path=os.path.join(
         output_dir, f"history_rank{rank}.sqlite" if world > 1
-        else "history.sqlite"))
+        else "history.sqlite")) if writer else None
     dry_run_api = not (os.environ.get("API_KEY0")
-                       or os.environ.get("API_KEY"))
-    if dry_run_api:
+                       or os.environ.get("API_KEY")) or not writer
+    if dry_run_api and writer:
         logger.warning("no API_KEY configured: responses pass through "
                        "uncorrected (degraded mode)")
 
@@ -314,7 +329,7 @@ def run(cfg: Config, tokenizer=None,
             # corrections run and before the next step samples
             if pending is not None:
                 flush(*pending)
-            pending = (step_idx, futures, records)
+            pending = (step_idx, futures, records) if writer else None
             logger.info("step %d sampled %d responses in %.1fs", step_idx,
                         len(texts), timer.history[-1]["seconds"])
         if pending is not None:

@@ -3,11 +3,12 @@
 ``load_tokenizer``, ``setup_model``, ``StepTimer``) and the host-batch
 move ``batch_to_device``.
 
-One device, no mesh: multi-GPU set-up comes with ``torch.distributed``
-(ROADMAP Queue 1 item 8).  ``setup_model`` loads a checkpoint directory
-through ``models/loader`` or draws random weights (``tiny``,
-``skip_loading_weights``), then applies the QLoRA quantization and the
-w8a8 switches.
+``setup_model`` loads a checkpoint directory through ``models/loader`` or
+draws random weights (``tiny``, ``skip_loading_weights``), then applies
+the QLoRA quantization and the w8a8 switches.  Over a ``mesh``
+(``parallel/mesh.make_mesh``) it keeps only this rank's shard of the
+decoder (``parallel/sharding``), made one weight at a time: each weight
+is drawn or read whole, quantized whole, then cut.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import collections
 import dataclasses
 import json
 import os
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
@@ -29,6 +30,8 @@ from opadpo_torch.models import projector as projector_model
 from opadpo_torch.models.llava import Llava, LlavaConfig
 from opadpo_torch.models.loader import load_llava_checkpoint
 from opadpo_torch.ops import quant
+from opadpo_torch.parallel import sharding
+from opadpo_torch.parallel.mesh import Mesh, single_mesh
 
 
 def llava_config_from_hf(model_dir: str) -> LlavaConfig:
@@ -85,8 +88,9 @@ def setup_model(
     act_outlier_cols: int = 0,
     act_bwd_int8: bool = False,
     device: str = "cuda",
-) -> Tuple[LlavaConfig, Llava]:
-    """(cfg, model) on ``device``.  A ``model_dir``: the checkpoint there
+    mesh: Optional[Mesh] = None,
+):
+    """(cfg, model, mesh) on ``device``.  A ``model_dir``: the checkpoint there
     (``models/loader.load_llava_checkpoint``; its configuration from its
     ``config.json``, the vision tower from ``vision_dir`` when the
     directory lacks it).  ``tiny``: the tiny random model;
@@ -96,7 +100,14 @@ def setup_model(
     block linears; the full-size random branch draws it straight into
     quantized form, and a model already quantized is not quantized again).
     ``act_bits`` 8 (with ``act_outlier_cols`` and ``act_bwd_int8``): the
-    w8a8 mode of an int8 base."""
+    w8a8 mode of an int8 base.
+
+    ``mesh``: this rank's place (``parallel/mesh.make_mesh``); the model
+    goes to the mesh's device, cut to this rank's shard (random weights
+    drawn as one process draws them; a checkpoint's decoder weights read
+    from the memory-mapped files one at a time, each moved, quantized
+    whole and cut before the next).  Without one: the ``1 x 1`` mesh of
+    ``device``."""
     if bits not in (16, 8, 4):
         raise ValueError(f"bits={bits} unsupported (16, 8 or 4)")
     if act_bits not in (16, 8):
@@ -105,26 +116,58 @@ def setup_model(
         raise ValueError("act_bits=8 requires bits=8")
     mode = quant.QuantMode(act_bits, act_outlier_cols if act_bits == 8 else 0,
                            act_bwd_int8 and act_bits == 8)
-    dev = resolve_device(device)
+    mesh = mesh or single_mesh(device)
+    dev = mesh.device
+    tp = (mesh.model_rank, mesh.model) if mesh.model > 1 else None
     gen = torch.Generator(device=dev).manual_seed(seed)
+    cut = False
     if tiny:
         cfg = LlavaConfig.tiny()
         model = llava_model.init_params(cfg, gen, dev)
     elif skip_loading_weights or model_dir is None:
         cfg = (llava_config_from_hf(model_dir) if model_dir
                else LlavaConfig.llava_7b())
-        if bits in (8, 4):
+        if bits in (8, 4) or tp is not None:
             model = llava_model.init_params_quantized(cfg, gen, bits, dev,
-                                                      mode)
+                                                      mode, tp)
+            cut = tp is not None
         else:
             model = llava_model.init_params(cfg, gen, dev)
     else:
         cfg = llava_config_from_hf(model_dir)
-        model = load_llava_checkpoint(model_dir, cfg, vision_dir, dev)
-    if bits in (8, 4) and not quant.is_quantized(model):
+        if tp is None:
+            model = load_llava_checkpoint(model_dir, cfg, vision_dir, dev)
+        else:
+            model = _load_cut(model_dir, cfg, vision_dir, dev, bits, mode,
+                              tp)
+            cut = True
+    if bits in (8, 4):
+        # the linears not yet quantized (all of them, or a cut decoder's
+        # vision tower)
         quant.quantize_params(model, bits=bits, mode=mode)
     quant.set_quant_mode(model, mode)
-    return cfg, model
+    sharding.shard_module(model, mesh, weights_done=cut)
+    return cfg, model, mesh
+
+
+def _load_cut(model_dir, cfg, vision_dir, dev, bits, mode, tp) -> Llava:
+    """A checkpoint whose decoder block linears and lm_head are read one
+    at a time from the memory-mapped files, moved to ``dev``, quantized
+    whole (the block linears at ``bits`` 8 / 4) and cut to model rank
+    ``tp[0]``'s shard of ``tp[1]`` before the next one is read."""
+
+    @torch.no_grad()
+    def linear(owner, name, weight):
+        lin = getattr(owner, name)
+        w = weight.to(dev).to(lin.weight.dtype)
+        if bits in (8, 4) and name != "lm_head":
+            setattr(owner, name, quant.QuantLinear.from_weight(w, bits,
+                                                              mode=mode))
+        else:
+            lin.weight = torch.nn.Parameter(w, requires_grad=False)
+        sharding.shard_linear(owner, name, *tp)
+
+    return load_llava_checkpoint(model_dir, cfg, vision_dir, dev, linear)
 
 
 def batch_to_device(batch: dict, dev: torch.device) -> dict:

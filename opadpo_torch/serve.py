@@ -437,8 +437,8 @@ def build_worker(args: argparse.Namespace, tokenizer=None):
     from opadpo_torch.models.loader import adapter_scaling, load_peft_adapter
     from opadpo_torch.pipeline.runtime import load_tokenizer, setup_model
 
-    cfg, model = setup_model(args.model_path, vision_dir=args.vision_path,
-                             bits=args.bits, device=args.device)
+    cfg, model, _ = setup_model(args.model_path, vision_dir=args.vision_path,
+                                bits=args.bits, device=args.device)
     if tokenizer is None:
         tokenizer = load_tokenizer(args.model_path)
     lora, scaling = None, 1.0

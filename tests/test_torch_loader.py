@@ -325,8 +325,8 @@ def test_setup_model_matches_jax_loader(tmp_path, monkeypatch, bits, fmt,
     model_dir, vision_dir = _write_checkpoint(tmp_path, fmt, vision_in_dir)
     monkeypatch.setattr(runtime, "llava_config_from_hf",
                         lambda _: TCFG16)
-    cfg, model = runtime.setup_model(model_dir, vision_dir=vision_dir,
-                                     bits=bits, device="cpu")
+    cfg, model, _ = runtime.setup_model(model_dir, vision_dir=vision_dir,
+                                        bits=bits, device="cpu")
     jparams = jax_loader.load_llava_checkpoint(model_dir, JCFG16,
                                                vision_dir=vision_dir)
     if bits != 16:

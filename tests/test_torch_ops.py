@@ -160,8 +160,8 @@ def test_port_imports_no_jax():
     """Every opadpo_torch module, and chip_smoke.py, imports in a process
     where ``jax`` and ``opadpo_tpu`` cannot be imported; the training
     slice's, the quantized base's, speculative decode's and the stage-4
-    slice's, the stage 1-3 slice's, the continuous engine's and the 13
-    eval modules are among them.  A second
+    slice's, the stage 1-3 slice's, the continuous engine's, the 13
+    eval modules and the multi-GPU package's three are among them.  A second
     process also blocks the packages the GPU machine lacks (``yaml``,
     ``safetensors``, ``transformers``, ``datasets``, ``PIL``,
     ``requests``): every module still imports, and the config reader and
@@ -177,7 +177,7 @@ def test_port_imports_no_jax():
             "names = [m.name for m in pkgutil.walk_packages("
             "opadpo_torch.__path__, 'opadpo_torch.')]\n"
             "for n in names: importlib.import_module(n)\n"
-            "assert len(names) >= 55, names\n"
+            "assert len(names) >= 59, names\n"
             "assert {'opadpo_torch.engine.dpo', 'opadpo_torch.engine.train_state',"
             " 'opadpo_torch.ops.heads_layout', 'opadpo_torch.ops.logprobs',"
             " 'opadpo_torch.ops.image_ops', 'opadpo_torch.ops.quant',"
@@ -194,6 +194,8 @@ def test_port_imports_no_jax():
             " 'opadpo_torch.pipeline.prompts',"
             " 'opadpo_torch.pipeline.dataset_ops',"
             " 'opadpo_torch.engine.continuous',"
+            " 'opadpo_torch.parallel.mesh', 'opadpo_torch.parallel.comm',"
+            " 'opadpo_torch.parallel.sharding',"
             " 'opadpo_torch.engine.serving_config',"
             " 'opadpo_torch.eval.model_vqa', 'opadpo_torch.eval.model_vqa_logit',"
             " 'opadpo_torch.eval.model_qa', 'opadpo_torch.eval.model_vqa_science',"

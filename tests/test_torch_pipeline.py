@@ -518,9 +518,12 @@ def test_stage4_resume_is_bitwise_and_completed_is_noop(tmp_path,
 
 
 def test_stage4_refuses_a_tensor_parallel_mesh(tmp_path, stage4_inputs):
+    """``mesh.model: 2`` in one process, with no process group: the
+    mesh's resolve error, as the JAX package raises it (tensor parallelism
+    runs under ``torchrun``, ``tests/test_torch_parallel_pipeline.py``)."""
     cfg = _stage4_cfg(str(tmp_path), stage4_inputs)
     cfg["mesh"]["model"] = 2
-    with pytest.raises(ValueError, match="Queue 1 item 8"):
+    with pytest.raises(ValueError, match=r"mesh 0x2 != 1 devices"):
         opadpo_train.train(cfg)
 
 

@@ -179,16 +179,16 @@ def test_setup_model_quantizes_once_and_validates(tmp_path):
     sets the w8a8 switches, and rejects what the JAX package rejects; a
     directory without ``config.json`` is no checkpoint; the HF config
     reader reads ``config.json`` alone."""
-    cfg, model = runtime.setup_model(tiny=True, bits=8, act_bits=8,
-                                     act_outlier_cols=2, act_bwd_int8=True,
-                                     device="cpu")
+    cfg, model, _ = runtime.setup_model(tiny=True, bits=8, act_bits=8,
+                                        act_outlier_cols=2,
+                                        act_bwd_int8=True, device="cpu")
     lins = [m for _, _, m in tq.quantizable_linears(model)]
     assert all(isinstance(m, tq.QuantLinear) and m.q.dtype == torch.int8
                for m in lins)
     assert {m.mode for m in lins} == {tq.QuantMode(8, 2, True)}
     tq.quantize_params(model, bits=8)
     assert [m for _, _, m in tq.quantizable_linears(model)] == lins
-    _, m4 = runtime.setup_model(tiny=True, bits=4, device="cpu")
+    _, m4, _ = runtime.setup_model(tiny=True, bits=4, device="cpu")
     assert m4.llama.layers[0].wq.bits == 4
     assert m4.llama.layers[0].w_down.bits == 8        # K = 352
     with pytest.raises(ValueError, match="act_bits=8 requires bits=8"):

@@ -216,9 +216,12 @@ def test_stage3_matches_jax_train(tmp_path, monkeypatch, inputs):
 
 
 def test_stage3_refuses_a_tensor_parallel_mesh(tmp_path, inputs):
+    """``mesh.model: 2`` in one process, with no process group: the
+    mesh's resolve error, as the JAX package raises it (tensor parallelism
+    runs under ``torchrun``, ``tests/test_torch_parallel_pipeline.py``)."""
     cfg = _cfg(config, str(tmp_path), inputs["llava"], inputs["opa"])
     cfg["mesh"]["model"] = 2
-    with pytest.raises(ValueError, match="Queue 1 item 8"):
+    with pytest.raises(ValueError, match=r"mesh 0x2 != 1 devices"):
         opa_train.train(cfg)
 
 

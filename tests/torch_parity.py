@@ -46,11 +46,13 @@ def torch_model(params: dict):
     return bridge.llava_from_jax(to_np(params), TCFG32, device="cpu")
 
 
-def jax_lora(seed: int = 1, rank: int = 4) -> dict:
+def jax_lora(seed: int = 1, rank: int = 4, cfg=None) -> dict:
     """A non-zero adapter over the decoder, the vision tower, the
-    projector and the lm_head (the JAX init leaves B at zero)."""
+    projector and the lm_head (the JAX init leaves B at zero), for ``cfg``
+    (default ``JCFG32``)."""
+    cfg = cfg or JCFG32
     lcfg = JaxLoraConfig(rank=rank, alpha=2.0 * rank, dtype=jnp.float32)
-    lora = jax_llava.init_lora(jax.random.PRNGKey(seed), JCFG32, lcfg,
+    lora = jax_llava.init_lora(jax.random.PRNGKey(seed), cfg, lcfg,
                                include_vision=True)
     rng = np.random.default_rng(seed)
 
@@ -60,7 +62,7 @@ def jax_lora(seed: int = 1, rank: int = 4) -> dict:
         return x
 
     lora = jax.tree_util.tree_map_with_path(fill_b, lora)
-    d, v = JCFG32.llama.hidden_size, JCFG32.llama.vocab_size
+    d, v = cfg.llama.hidden_size, cfg.llama.vocab_size
     lora["llama"]["lm_head"] = {
         "a": jnp.asarray(rng.normal(0, 0.1, (d, rank)), jnp.float32),
         "b": jnp.asarray(rng.normal(0, 0.05, (rank, v)), jnp.float32)}
