@@ -158,9 +158,30 @@ Phases, each fatal on failure:
      derived from its batches, #9 / #10's odd-shape variant never launched
      (also in the tiny references of step 8), and the 13B run launching
      both of #11's kernels;
-  21. one JSON line of the 11 kernels' numbers (with the slot pool's and
+  21. the native JPEG pipeline (``opadpo_torch/data/native_image.py``,
+     right after the build): ``jpeglib.h`` probed with a one-line
+     compile; where it is there, the library built at first use and 32
+     seeded 640 x 480 JPEGs through one batch call within a mean |diff|
+     of 0.02 of PIL, both batch times; else the PIL path stated;
+  22. visual-token pruning on the 7B from disk (after step 15): the serve
+     CLI at ``--visual-tokens 144``, batch and ``--continuous``, prompts
+     of qlen - 1 + 144 positions; the pruned bf16 Sampler's greedy tokens
+     against a greedy loop over the pruned full forward, every first
+     departure a near-tie and the first token's logits within a bf16
+     limit of the forward's; the prefill's time at 144 and 576 patches;
+  23. after the multi-GPU phase: the slot pool and speculative decode at
+     tensor parallelism 2 on the 13B int4 (one process first, then the
+     split-K control in it, then two ranks, over gloo on one card): the
+     rollout through the int4 pool, the int8 pool with speculative
+     segments at k 4 and the speculative Sampler with both advances;
+     tokens equal on both ranks, budgets kept, every first departure from
+     one process a near-tie, |logits(TP) - logits(one)| within twice the
+     control's and the first-token logits within 1e-3 of the control's,
+     #7 / #8 launches per rank as derived; then #6, #7 and #8 at the TP
+     pool's shapes against their plain versions;
+  24. one JSON line of the 11 kernels' numbers (with the slot pool's and
      the eval suite's launches and the pool-shape times of #1, #6, #7 and
-     #8), the card line, and last
+     #8, and the TP-2 and TP-pool shapes'), the card line, and last
      ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA GPU and the repository around it: anywhere else it exits
@@ -170,6 +191,7 @@ of 20 launches with the L2 cache flushed (by a read) before each.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -2400,6 +2422,266 @@ def phase_serve_cli(model, card, dirs, adapter, plain_answers):
     return res
 
 
+# the pruned 7B: the patches kept (``--visual-tokens``), the greedy tokens
+# held against the pruned full forward, and the prefill timing repeats;
+# the largest |logits(Sampler) - logits(forward)| the first token may be
+# drawn from: one prefill against one full forward of the same rows, the
+# bf16 rounding of two schedules (twice the reading on an H100 80GB HBM3
+# at 700 W, 0.1771, PERF.md)
+PRUNE_K = 144
+PRUNE_NEW = 32
+PRUNE_TIMED = 5
+PRUNE_PREFILL_ABS = 0.35
+
+
+def phase_pruned_serve(model, card, dirs):
+    """Visual-token pruning on the 7B from disk: the serve CLI's
+    ``build_worker`` with ``--visual-tokens 144`` over the checkpoint, as a
+    batch worker (kv 8, 8 requests: every prompt ``qlen - 1 + 144``
+    positions, #1 and #6 as the batches derive) and as ``--continuous``
+    (16 slots: ``sp_splice`` ``qlen - 1 + 144``, no request over its
+    budget, #1 and #6 as the pool's schedule derives); on the in-memory
+    model (the same weights) made pruned, the bf16 Sampler's greedy tokens
+    against a greedy loop over the pruned full forward, every row's first
+    departure a near-tie (the forward's top-2 gap smaller than the largest
+    |logits(Sampler) - logits(forward)| there) and the first token's
+    logits within PRUNE_PREFILL_ABS of the forward's (a limit the
+    departures do not set); and the prefill's time at 144 and at 576
+    patches."""
+    import dataclasses
+
+    import torch
+
+    from opadpo_torch import serve
+    from opadpo_torch.engine.sampler import Sampler
+    from opadpo_torch.engine.serving_config import make_serving_sampling
+    from opadpo_torch.models import llava
+
+    t_phase = time.perf_counter()
+    cfg, dev = model.cfg, next(model.parameters()).device
+    prompts = [f"Describe object {i} in the image in detail."
+               for i in range(8)]
+    reqs = [{"prompt": p} for p in prompts]
+    argv = ["--model-path", dirs["llava"], "--vision-path", dirs["clip"],
+            "--kv-bits", "8", "--max-new-tokens", "64", "--max-batch", "8",
+            "--port", "0", "--device", dev.type, "--visual-tokens",
+            str(PRUNE_K)]
+    res = {"card": card, "visual_tokens": PRUNE_K}
+    pruned_cfg = dataclasses.replace(cfg, visual_tokens=PRUNE_K)
+
+    # the batch worker
+    args = serve.parse_args(argv)
+    worker = serve.build_worker(args, tokenizer=WordTokenizer())
+    check(worker.model.cfg.num_patches == PRUNE_K,
+          f"--visual-tokens {PRUNE_K}: the worker's model keeps "
+          f"{worker.model.cfg.num_patches} patches")
+    results, stats, launches, wall = _serve_worker(worker, reqs, args=args)
+    del worker
+    gc.collect()
+    torch.cuda.empty_cache()
+    qlen = _server_batch(cfg, prompts, 8, dev)[0].shape[1]
+    positions = sorted({s["prompt_positions"] for s in stats})
+    check(positions == [qlen - 1 + PRUNE_K],
+          f"pruned batches' prompt positions {positions}, not "
+          f"{qlen} - 1 + {PRUNE_K}")
+    _check_attention_launches(pruned_cfg, stats, launches)
+    res["batch"] = {"prompt_positions": positions, "wall_s": wall,
+                    **_serve_metrics(stats, wall, len(reqs)),
+                    "launches_flash": launches["flash_fwd"],
+                    "launches_decode": launches["decode_attention_int8"]}
+
+    # the continuous worker
+    args = serve.parse_args(argv[:argv.index("--max-batch")] + [
+        "--continuous", "--max-batch", "16", "--port", "0", "--device",
+        dev.type, "--visual-tokens", str(PRUNE_K)])
+    worker = serve.build_worker(args, tokenizer=WordTokenizer())
+    sp = worker.engine.sp_splice
+    check(sp == args.query_len - 1 + PRUNE_K,
+          f"pruned pool splice {sp}, not {args.query_len} - 1 + {PRUNE_K}")
+    creqs = [{"prompt": p, "max_new_tokens": 16 + 6 * i}
+             for i, p in enumerate(prompts + prompts)]
+    results, secs, delta, launches, wall, peak = _serve_continuous(
+        worker, creqs, "pruned continuous")
+    _check_pool_launches(pruned_cfg, delta, launches,
+                         "decode_attention_int8", "pruned continuous")
+    del worker
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["continuous"] = {"sp_splice": sp, "wall_s": wall, "peak_gb": peak,
+                         "tokens": delta["tokens"],
+                         "generated_tok_per_s": delta["tokens"] / wall,
+                         "launches_flash": launches["flash_fwd"],
+                         "launches_decode": launches["decode_attention_int8"]}
+
+    # the pruned Sampler against the pruned full forward, and the prefill
+    sampling = make_serving_sampling(greedy=True, max_new_tokens=PRUNE_NEW,
+                                     eos_token_id=-1, pad_token_id=0)
+    ids, mask, images = _server_batch(cfg, prompts, 8, dev)
+    full_cfg = model.cfg
+    model.cfg = pruned_cfg
+    try:
+        with torch.inference_mode(), _DecisionLogits() as rec:
+            toks = Sampler(sampling).generate(model, ids, mask, images)
+        rec.place([(b, 0) for b in range(8)])
+        cur_ids, cur_mask, naive, fwd = ids, mask, [], {}
+        with torch.inference_mode():
+            for p in range(PRUNE_NEW):
+                lg = llava.forward(model, cur_ids, cur_mask, images,
+                                   remat=False)["logits"][:, -1].float()
+                fwd.update(((b, p), x) for b, x in enumerate(lg.cpu()))
+                nxt = lg.argmax(-1)
+                naive.append(nxt)
+                cur_ids = torch.cat([cur_ids, nxt[:, None]], 1)
+                cur_mask = torch.cat([cur_mask, torch.ones_like(
+                    nxt)[:, None]], 1)
+        naive = torch.stack(naive, 1).cpu()
+        toks = toks.cpu()
+        deps, _ = _first_departures(toks.tolist(), naive.tolist(),
+                                    rec.store, fwd)
+        # the first token's logits: one prefill against one full forward
+        prefill_err = max(float((rec.store[(b, 0)] - fwd[(b, 0)]).abs()
+                                .max()) for b in range(8))
+        times = {}
+        s = Sampler(make_serving_sampling(max_new_tokens=1), kv_bits=8)
+        for label, c in ((str(PRUNE_K), pruned_cfg),
+                         (str(full_cfg.num_patches), full_cfg)):
+            model.cfg = c
+            with torch.inference_mode():
+                s.prefill(model, ids, mask, images)
+                times[label] = time_ms(lambda: s.prefill(model, ids, mask,
+                                                         images),
+                                       torch.empty(0, device=dev),
+                                       n=PRUNE_TIMED, warmup=1)
+    finally:
+        model.cfg = full_cfg
+    near = sum(1 for d in deps if d.get("near_tie"))
+    res["greedy"] = {"rows_equal": int((toks == naive).all(1).sum()),
+                     "of": toks.shape[0], "tokens": PRUNE_NEW,
+                     "first_departures": deps, "near_ties": near,
+                     "prefill_logits_max_abs_diff": prefill_err}
+    res["prefill_ms"] = times
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[pruned] --visual-tokens {PRUNE_K}: batch prompts {positions} "
+        f"positions (qlen {qlen}); pool splice {sp}; continuous "
+        f"{delta['tokens']} tokens in {wall:.2f} s; Sampler greedy "
+        f"{res['greedy']['rows_equal']} of {toks.shape[0]} rows equal to "
+        f"the pruned full forward's over {PRUNE_NEW} tokens, {len(deps)} "
+        f"first departures, {near} near-ties; first-token logits max "
+        f"|Sampler - forward| {prefill_err:.4g} (limit {PRUNE_PREFILL_ABS}); "
+        f"prefill [8, {qlen}] (ms by patches kept) {times}; phase "
+        f"{res['seconds']:.1f} s; card: {card}")
+    check(near == len(deps), f"pruned Sampler: first departures from the "
+          f"full forward that are not near-ties: {deps}")
+    check(prefill_err <= PRUNE_PREFILL_ABS, f"pruned Sampler: first-token "
+          f"logits max |Sampler - forward| {prefill_err} over "
+          f"{PRUNE_PREFILL_ABS}")
+    log(f"[pruned] {json.dumps(res)}")
+    return res
+
+
+# the native JPEG pipeline's batch: seeded 640 x 480 JPEGs
+NATIVE_IMAGES = 32
+NATIVE_TOL = 0.02           # mean |native - PIL|, the JAX package's bound
+
+
+def phase_native_image(card):
+    """The native JPEG pipeline (``opadpo_torch/data/native_image.py``):
+    probed for ``jpeglib.h`` with a one-line compile; where the header is
+    there, built at first use (a failed build fails the smoke), then 32
+    seeded 640 x 480 JPEGs (PIL's encoder) through one batch call against
+    PIL's ``clip_preprocess`` (mean |diff| < 0.02 each) and through
+    ``preprocess_images``' dispatch, with both batch times (best of 3);
+    without the header, the port answers through PIL, as the JAX package
+    does."""
+    import io
+
+    import numpy as np
+
+    from opadpo_torch.data import image_processing as ip
+    from opadpo_torch.data import native_image
+
+    t0 = time.perf_counter()
+    cxx = shutil.which("g++")
+    probe = None if cxx is None else subprocess.run(
+        [cxx, "-x", "c++", "-fsyntax-only", "-"],
+        input="#include <cstdio>\n#include <jpeglib.h>\n", text=True,
+        capture_output=True, timeout=60)
+    header = probe is not None and probe.returncode == 0
+    res = {"card": card, "g++": cxx, "jpeglib_h": header,
+           "cpus": os.cpu_count()}
+    if not header:
+        res["native"] = native_image.native_available()
+        res["seconds"] = time.perf_counter() - t0
+        log(f"[native-image] no jpeglib.h on this machine ({cxx or 'no g++'}"
+            f"): the port preprocesses every image through PIL, as the JAX "
+            f"package does; library loaded: {res['native']}; phase "
+            f"{res['seconds']:.1f} s; card: {card}")
+        return res
+    ok = native_image.native_available()
+    res["build_s"] = time.perf_counter() - t0
+    check(ok, f"native image pipeline failed to build: "
+          f"{native_image.build_error}")
+    res["library"] = str(native_image.library_path().relative_to(ROOT))
+    if not _have_pil():
+        log(f"[native-image] built in {res['build_s']:.1f} s; no PIL, so no "
+            "JPEG is made and nothing is compared")
+        return res
+    from PIL import Image
+
+    rng = np.random.default_rng(17)
+    jpegs = []
+    for _ in range(NATIVE_IMAGES):
+        base = rng.normal(size=(48, 64, 3))
+        arr = np.kron(base, np.ones((10, 10, 1))) + rng.normal(
+            0, 0.05, (480, 640, 3))
+        arr = ((arr - arr.min()) / (arr.max() - arr.min()) * 255).astype(
+            np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, format="JPEG", quality=90)
+        jpegs.append(buf.getvalue())
+
+    def best(fn, n=3):
+        out = []
+        for _ in range(n):
+            t = time.perf_counter()
+            fn()
+            out.append(time.perf_counter() - t)
+        return min(out) * 1e3
+
+    nat = native_image.preprocess_jpeg_batch(jpegs)
+    pil = np.stack([ip.clip_preprocess(Image.open(io.BytesIO(j)))
+                    for j in jpegs])
+    diffs = np.abs(nat - pil).mean(axis=(1, 2, 3))
+    saved = ip._PIL_ONLY
+    ip.set_pil_preprocess(False)
+    try:
+        dispatched = ip.preprocess_images(jpegs)
+    finally:
+        ip.set_pil_preprocess(saved)
+    res.update(
+        images=NATIVE_IMAGES, size="640x480",
+        mean_abs_diff_max=float(diffs.max()),
+        mean_abs_diff_mean=float(diffs.mean()),
+        max_abs_diff=float(np.abs(nat - pil).max()),
+        native_batch_ms=best(lambda: native_image.preprocess_jpeg_batch(
+            jpegs)),
+        pil_batch_ms=best(lambda: [ip.clip_preprocess(
+            Image.open(io.BytesIO(j))) for j in jpegs]),
+        seconds=time.perf_counter() - t0)
+    log(f"[native-image] built {res['library']} in {res['build_s']:.1f} s; "
+        f"{NATIVE_IMAGES} JPEGs 640x480: mean |native - PIL| per image at "
+        f"most {res['mean_abs_diff_max']:.4f} (limit {NATIVE_TOL}); batch "
+        f"{res['native_batch_ms']:.1f} ms native against "
+        f"{res['pil_batch_ms']:.1f} ms PIL on {res['cpus']} CPUs; phase "
+        f"{res['seconds']:.1f} s; card: {card}")
+    check(bool(np.array_equal(dispatched, nat)),
+          "preprocess_images did not send the JPEGs through the native batch")
+    check(res["mean_abs_diff_max"] < NATIVE_TOL,
+          f"native against PIL: mean |diff| {res['mean_abs_diff_max']} >= "
+          f"{NATIVE_TOL}")
+    return res
+
+
 _STAGE_ENV = ("OUTPUT_DIR", "MODEL_DIR", "DATA_DIR", "IMAGE_DIR",
               "POLICY_LORA_DIR", "API_KEY", "API_KEY0", "API_NUM", "RANK",
               "WORLD_SIZE")
@@ -2982,7 +3264,9 @@ BF16_REL = 2.0 ** -7
 #   two halves of K, rounded to bf16 and added in f32, as TP 2's partial
 #   sums are, by plain PyTorch (``_split_row_products``): max |TP -
 #   control| at most TP_CONTROL_ABS [1.4e-6], and max |TP - one| at most
-#   TP_LOGIT_FACTOR times max |control - one| [both 0.3315];
+#   TP_LOGIT_FACTOR times max |control - one| [both 0.3315]; the TP pool
+#   (phase_tp_pool) is held to the same two limits against its own control
+#   run, at every request's first token and over the decision logits;
 # - the second step's loss movement (loss2 - loss1: the first step's loss
 #   is the reference's, whatever the numerics) within TP_MOVE_REL of one
 #   process's [0.031];
@@ -3084,30 +3368,102 @@ def _adapter_diff(a: dict, b: dict):
     return diff, top, all(bool((a[k] == b[k]).all()) for k in a)
 
 
-def _record_logits(store: list):
-    """Patch ``llava.prefill_unrolled`` and ``llava.decode_step_unrolled``
-    so that the logits each token is sampled from are appended to
-    ``store`` (on the host, f32): entry i gives token i.  Returns the
-    restore function."""
-    from opadpo_torch.models import llava
+class _DecisionLogits:
+    """While installed (``with``), the logits each emitted token was chosen
+    from, on the host in f32, keyed by (request, offset): the plain decode
+    loop's ``sample_tokens`` calls or, in speculative decode, the first
+    token's and each verify group's logits (``_accept_and_correct``),
+    placed by the groups' advances.  The pool's steps place their own
+    slots; after a Sampler's ``generate``, ``place`` files them with the
+    batch row as the request.  Keeps each finished pool request's tokens
+    and the last engine stepped."""
 
-    pre, step = llava.prefill_unrolled, llava.decode_step_unrolled
+    def __init__(self):
+        self.store, self.tokens, self.engine = {}, {}, None
+        self.reset()
 
-    def prefill(*a, **kw):
-        out = pre(*a, **kw)
-        store.append(out["last_logits"].float().cpu())
-        return out
+    def reset(self):
+        self._steps, self._first, self._groups, self._spec = [], [], [], []
+        self._slots = None
 
-    def decode(*a, **kw):
-        logits, suffix = step(*a, **kw)
-        store.append(logits.float().cpu())
-        return logits, suffix
+    def __enter__(self):
+        from opadpo_torch.engine import continuous, sampler, speculative
 
-    llava.prefill_unrolled, llava.decode_step_unrolled = prefill, decode
+        eng = continuous.ContinuousEngine
+        self._saved = [(sampler, "sample_tokens"),
+                       (speculative, "sample_tokens"),
+                       (speculative, "_accept_and_correct"),
+                       (speculative, "decode_loop_spec"),
+                       (eng, "_admit_pending"), (eng, "step")]
+        orig = self._orig = [getattr(o, n) for o, n in self._saved]
+        rec = self
 
-    def restore():
-        llava.prefill_unrolled, llava.decode_step_unrolled = pre, step
-    return restore
+        def plain_tok(logits, cfg, gen=None):
+            rec._steps.append(logits.float().cpu())
+            return orig[0](logits, cfg, gen)
+
+        def first_tok(logits, cfg, gen=None):
+            rec._first.append(logits.float().cpu())
+            return orig[1](logits, cfg, gen)
+
+        def accept(logits_g, drafts, cfg, gen):
+            rec._groups.append(logits_g.float().cpu())
+            return orig[2](logits_g, drafts, cfg, gen)
+
+        def spec_loop(*a, **kw):
+            res = orig[3](*a, **kw)
+            rec._spec.append(res[1])
+            return res
+
+        def admit(engine):
+            orig[4](engine)
+            rec._slots = [None if s is None or s.finished
+                          else (s.request_id, s.emitted)
+                          for s in engine._slots]
+
+        def step(engine):
+            rec.reset()
+            out = orig[5](engine)
+            rec.engine = engine
+            if rec._slots is not None:
+                rec.place(rec._slots)
+            for rid, toks in out:
+                rec.tokens[rid] = [int(x) for x in toks]
+            return out
+
+        for (o, n), fn in zip(self._saved, (plain_tok, first_tok, accept,
+                                            spec_loop, admit, step)):
+            setattr(o, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (o, n), fn in zip(self._saved, self._orig):
+            setattr(o, n, fn)
+
+    def place(self, rows):
+        """File what the last decode call recorded: ``rows`` [(request,
+        offset of the call's first token) or None], by batch row."""
+        for i, row in enumerate(rows):
+            if row is None:
+                continue
+            key, e0 = row
+            if not self._spec:
+                for s, lg in enumerate(self._steps):
+                    self.store[(key, e0 + s)] = lg[i].clone()
+                continue
+            self.store[(key, e0)] = self._first[-1][i].clone()
+            e = 1
+            for gi, adv in enumerate(self._spec[-1]["advances"]):
+                for j in range(adv[i]):
+                    self.store[(key, e0 + e + j)] = \
+                        self._groups[gi][i, j].clone()
+                e += adv[i]
+
+    def rows(self, offset: int, n: int):
+        """The logits at ``offset`` of requests 0 .. n - 1, stacked."""
+        import torch
+
+        return torch.stack([self.store[(i, offset)] for i in range(n)])
 
 
 def _prefill_logits(model):
@@ -3123,15 +3479,11 @@ def _prefill_logits(model):
                                      eos_token_id=2, pad_token_id=0)
     ids, mask, images = _server_batch(model.cfg, list(TP_PROMPTS), TP_ROWS,
                                       dev)
-    store = []
-    restore = _record_logits(store)
-    try:
-        with torch.inference_mode():
-            Sampler(sampling, kv_bits=4, head_bits=4).generate(
-                model, ids, mask, images)
-    finally:
-        restore()
-    return store[0]
+    with torch.inference_mode(), _DecisionLogits() as rec:
+        Sampler(sampling, kv_bits=4, head_bits=4).generate(
+            model, ids, mask, images)
+    rec.place([(b, 0) for b in range(TP_ROWS)])
+    return rec.rows(0, TP_ROWS)
 
 
 def _dequantize_decoder(model) -> None:
@@ -3160,23 +3512,33 @@ def _dequantize_decoder(model) -> None:
 
 
 def _split_row_products(model) -> None:
-    """Each decoder layer's ``wo`` and ``w_down`` product (``nn.Linear``
-    weights) computed, in this one process by plain PyTorch, as two model
-    ranks compute it: each half of K on its own, rounded to the model
-    dtype, the two added in f32 and rounded again (no adapter)."""
+    """Each decoder layer's ``wo`` and ``w_down`` product computed, in this
+    one process, as two model ranks compute it: each half of K through its
+    own rank's shard (``shard_weight`` of an ``nn.Linear``, by plain
+    PyTorch, or ``shard_quant`` of a ``QuantLinear``, by its kernel),
+    rounded to the model dtype, the two added in f32 and rounded again (no
+    adapter)."""
     import types
 
-    import torch.nn.functional as F
+    from opadpo_torch.models.lora import lora_dense
+    from opadpo_torch.ops.quant import QuantLinear
+    from opadpo_torch.parallel.sharding import ROW, shard_quant, shard_weight
 
     def dense(layer, x, name, ll, scaling):
-        if name not in ("wo", "w_down"):
+        if name not in layer.row_halves:
             return type(layer).dense(layer, x, name, ll, scaling)
-        w, k = getattr(layer, name).weight, x.shape[-1] // 2
-        lo = F.linear(x[..., :k].contiguous(), w[:, :k].contiguous())
-        hi = F.linear(x[..., k:].contiguous(), w[:, k:].contiguous())
+        k = x.shape[-1] // 2
+        lo, hi = (lora_dense(x[..., r * k:(r + 1) * k].contiguous(), w)
+                  for r, w in enumerate(layer.row_halves[name]))
         return (lo.float() + hi.float()).to(x.dtype)
 
     for layer in model.llama.layers:
+        layer.row_halves = {}
+        for name in ("wo", "w_down"):
+            lin = getattr(layer, name)
+            layer.row_halves[name] = [
+                shard_quant(lin, ROW, r, 2) if isinstance(lin, QuantLinear)
+                else shard_weight(lin.weight, ROW, r, 2) for r in range(2)]
         layer.dense = types.MethodType(dense, layer)
 
 
@@ -3196,7 +3558,7 @@ def _tp_rollout(model, record=None):
     over the int4 KV cache and the int4 head (#1 in the prefill, #7 every
     decode step, #11 in every decoder linear and the head), the launches
     checked against the Sampler's own schedule; the logits recorded into
-    ``record`` when given."""
+    ``record`` (a ``_DecisionLogits``) when given."""
     import torch
 
     from opadpo_torch.engine.sampler import Sampler
@@ -3210,8 +3572,7 @@ def _tp_rollout(model, record=None):
                                       dev)
     sampler = Sampler(sampling, kv_bits=4, head_bits=4)
     counters = _counters()
-    restore = _record_logits(record) if record is not None else None
-    try:
+    with record or contextlib.nullcontext():
         _reset(counters)
         comm.reset_counts()
         torch.cuda.synchronize()
@@ -3221,9 +3582,8 @@ def _tp_rollout(model, record=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _read(counters)
-    finally:
-        if restore is not None:
-            restore()
+    if record is not None:
+        record.place([(b, 0) for b in range(TP_ROWS)])
     stats = list(sampler.stats)
     _check_attention_launches(model.cfg, stats, launches,
                               "decode_attention_int4")
@@ -3357,11 +3717,11 @@ def _job_tp13b(job, rank):
     load_s = time.perf_counter() - t0
     check(mesh.model == 2 and mesh.model_rank == rank,
           f"rank {rank}: mesh {mesh.data}x{mesh.model}")
-    record = [] if rank == 0 else None
+    record = _DecisionLogits() if rank == 0 else None
     roll = _tp_rollout(model, record)
     roll["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if record is not None:
-        torch.save(torch.stack(record), job["logits"])
+        torch.save(record.store, job["logits"])
     exp = _expected_q4_train(model)
     shapes = sorted({(m.out_features, m.in_features)
                      for m in _quant_layers(model)[1]})
@@ -3479,7 +3839,8 @@ def rank_job(path: str) -> int:
     job["path"] = path
     try:
         res = {"tp13b": _job_tp13b, "stage4": _job_stage4,
-               "ckpt_tp": _job_ckpt_tp}[job["kind"]](job, rank)
+               "ckpt_tp": _job_ckpt_tp,
+               "tp_pool": _job_tp_pool}[job["kind"]](job, rank)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -3488,28 +3849,36 @@ def rank_job(path: str) -> int:
     return 0
 
 
-def _first_departures(tp_tokens, one_tokens, tp_logits, one_logits):
-    """Each row's first departure of the TP rollout from the one-process
-    one, judged as ``spec_departure`` judges one: a near-tie (rounding)
-    where one process's top-2 logit gap there is smaller than the largest
-    |logits(TP) - logits(one)| over the vocabulary."""
-    out = []
-    for row, (a, b) in enumerate(zip(tp_tokens, one_tokens)):
-        pos = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+def _first_departures(got, ref, got_logits, ref_logits):
+    """Each row's first departure of token lists ``got`` from ``ref``,
+    judged as ``spec_departure`` judges one: a near-tie (rounding) where
+    ``ref``'s top-2 logit gap there is smaller than the largest |logits(got)
+    - logits(ref)| over the vocabulary (logits looked up by (row,
+    offset)).  -> (the departures, the largest such |diff| at any offset
+    where both rows still agree or first depart: an error the judgement
+    does not set)."""
+    out, err = [], 0.0
+    for row, (a, b) in enumerate(zip(got, ref)):
+        pos = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                   None if len(a) == len(b) else min(len(a), len(b)))
+        for p in range(len(a) if pos is None else pos + 1):
+            lg, lr = got_logits.get((row, p)), ref_logits.get((row, p))
+            if lg is not None and lr is not None:
+                err = max(err, float((lg - lr).abs().max()))
         if pos is None:
             continue
-        if pos >= len(one_logits) or pos >= len(tp_logits):
-            out.append({"row": row, "position": pos, "judged": False})
-            continue
-        lp, lt = one_logits[pos][row], tp_logits[pos][row]
-        top2 = lp.topk(2).values
-        gap = float(top2[0] - top2[1])
-        diff = float((lt - lp).abs().max())
-        out.append({"row": row, "position": pos, "tokens_one_tp": [b[pos],
-                                                                  a[pos]],
-                    "top2_gap": gap, "max_abs_logit_diff": diff,
-                    "near_tie": gap < diff})
-    return out
+        lg, lr = got_logits.get((row, pos)), ref_logits.get((row, pos))
+        dep = {"row": row, "position": pos, "judged": False}
+        if lg is not None and lr is not None:
+            top2 = lr.topk(2).values
+            dep.update(judged=True,
+                       tokens_ref_got=[b[pos] if pos < len(b) else None,
+                                       a[pos] if pos < len(a) else None],
+                       top2_gap=float(top2[0] - top2[1]),
+                       max_abs_logit_diff=float((lg - lr).abs().max()))
+            dep["near_tie"] = dep["top2_gap"] < dep["max_abs_logit_diff"]
+        out.append(dep)
+    return out, err
 
 
 def _tp_kernel_cases(g, flush):
@@ -3672,15 +4041,17 @@ def phase_multi_gpu(card, dirs, root, stage4, g):
 
     # (b) 13B int4, TP 2: one process first, then two ranks
     model_dir = _model_13b_dir(root)
-    one_logits = []
+    one_rec = _DecisionLogits()
     torch.cuda.reset_peak_memory_stats()
     _, model, _ = runtime.setup_model(model_dir, skip_loading_weights=True,
                                       bits=4, seed=0, device="cuda")
-    one_roll = _tp_rollout(model, one_logits)
+    one_roll = _tp_rollout(model, one_rec)
+    one_logits = one_rec.store
+    one0 = one_rec.rows(0, TP_ROWS)
     one_exp = _expected_q4_train(model)
     # the control: TP 2's rounding of the row-parallel products, here
     _dequantize_decoder(model)
-    check(bool(torch.equal(_prefill_logits(model), one_logits[0])),
+    check(bool(torch.equal(_prefill_logits(model), one0)),
           "13B: the dequantized decoder's prefill logits differ from the "
           "int4 model's (its prefill rows take dequantize + matmul)")
     _split_row_products(model)
@@ -3703,15 +4074,16 @@ def phase_multi_gpu(card, dirs, root, stage4, g):
     r0, r1 = ranks
     tp_tokens, one_tokens = r0["rollout"]["tokens"], one_roll["tokens"]
     equal_rows = sum(a == b for a, b in zip(tp_tokens, one_tokens))
-    deps = _first_departures(tp_tokens, one_tokens, tp_logits, one_logits)
+    deps, _ = _first_departures(tp_tokens, one_tokens, tp_logits,
+                                one_logits)
     near = sum(1 for d in deps if d.get("near_tie"))
     # the prefill logits against one process, beside the control's
-    one0 = one_logits[0]
-    logit_err = float((tp_logits[0] - one0).abs().max())
+    tp0 = torch.stack([tp_logits[(b, 0)] for b in range(TP_ROWS)])
+    logit_err = float((tp0 - one0).abs().max())
     ctrl_err = float((ctrl_logits - one0).abs().max())
-    logit_rel = float((tp_logits[0] - one0).norm() / one0.norm())
+    logit_rel = float((tp0 - one0).norm() / one0.norm())
     ctrl_rel = float((ctrl_logits - one0).norm() / one0.norm())
-    sim_err = float((tp_logits[0] - ctrl_logits).abs().max())
+    sim_err = float((tp0 - ctrl_logits).abs().max())
     losses_tp, losses_one = r0["train"]["losses"], one_train["losses"]
     move_tp = losses_tp[1] - losses_tp[0]
     move_one = losses_one[1] - losses_one[0]
@@ -3826,6 +4198,421 @@ def phase_multi_gpu(card, dirs, root, stage4, g):
     del flush
     torch.cuda.empty_cache()
     log(f"[multi_gpu] {json.dumps({k: v for k, v in res.items() if k != 'kernels'})}")
+    return res
+
+
+# -- tensor parallelism of the slot pool and of speculative decode -----------
+
+# the 13B TP-2 pool runs (greedy, qlen 128): the rollout's 16 prompt rows
+# through an int4 pool of 8 slots, responses cut to 24 tokens, segments of
+# 12; 8 requests with seeded budgets of 16 to 24 tokens through an int8
+# pool of 16 slots with speculative segments at k 4, segments of 32; the
+# Sampler at k 4 on the 8 TP_PROMPTS rows, 24 tokens, with each advance
+# (few and short: the ranks may share one card over gloo, so the part
+# checks correctness, not speed, inside the smoke's time limit)
+TPP_SLOTS = 8
+TPP_NEW = 24
+TPP_SEG = 12
+TPP_SPEC_REQUESTS = 8
+TPP_SPEC_SLOTS = 16
+TPP_SPEC_SEG = 32
+TPP_K = 4
+TPP_QLEN = 128
+TPP_PARTS = ("rollout", "spec_pool", "sampler_shared", "sampler_per_row")
+
+
+def _tpp_requests(cfg):
+    """The speculative pool's requests: (ids, mask, black image, budget),
+    prompts of 8 to 40 words, budgets from a seed in [16, TPP_NEW]."""
+    import random
+
+    import numpy as np
+
+    from opadpo_torch.data.image_processing import black_image
+    from opadpo_torch.data.tokenization import tokenizer_image_token
+    from opadpo_torch.serve import build_prompt
+
+    rng = random.Random(17)
+    out = []
+    for i in range(TPP_SPEC_REQUESTS):
+        words = " ".join(f"detail{j}" for j in range(rng.randint(0, 32)))
+        ids = np.asarray(tokenizer_image_token(build_prompt(
+            f"Describe object {i} in the image. {words}"), WordTokenizer()),
+            np.int64)
+        out.append((ids, np.ones_like(ids),
+                    black_image(cfg.vision.image_size),
+                    rng.randint(16, TPP_NEW)))
+    return out
+
+
+def _tpp_rollout_config(model_dir, out, model: int):
+    """``configs/llava_online_generation.yaml`` on the 13B config directory
+    drawn into int4 from seed 0: the int4 pool of TPP_SLOTS slots, greedy
+    (top-k 1), responses of TPP_NEW tokens, the 16 rows in one loader
+    batch, ``mesh.model`` ``model``."""
+    from opadpo_torch.pipeline.config import apply_overrides, load_config
+
+    return apply_overrides(load_config(os.path.join(
+        ROOT, "configs", "llava_online_generation.yaml")), [
+        f"base_model={model_dir}", "image_checkpoint=null",
+        "model.skip_loading_weights=true", "training.bits=4",
+        "training.kv_bits=4", f"training.continuous_slots={TPP_SLOTS}",
+        f"training.continuous_seg_len={TPP_SEG}",
+        f"training.response_len={TPP_NEW}",
+        f"training.query_len={TPP_QLEN}",
+        f"training.rollout_per_device_batch_size={STAGE12_ROWS}",
+        "training.top_k=1", "training.seed=0", f"training.output_dir={out}",
+        "training.device=cuda", f"mesh.model={model}"])
+
+
+def _tpp_runs(model, mesh, model_dir, out):
+    """The TP pool parts on ``model`` (one process, or a rank's shard over
+    ``mesh``), each with its kernel counters and collectives counted from
+    0: (i) the rollout through ``online_generation.run`` over the int4
+    pool (its ``setup_model`` answered with ``model`` once its arguments
+    are checked); (ii) the int8 pool with speculative segments at k 4;
+    (iii) the speculative Sampler at k 4 with the shared and the per-row
+    advance.  Launches are checked against each run's schedule.  ->
+    (results, {part: its _DecisionLogits})."""
+    import torch
+
+    from opadpo_torch.data.collators import QueryCollator
+    from opadpo_torch.data.datasets import QueryDataset
+    from opadpo_torch.engine.sampler import Sampler
+    from opadpo_torch.engine.serving_config import (
+        make_continuous_engine, make_serving_sampling,
+    )
+    from opadpo_torch.parallel import comm
+    from opadpo_torch.pipeline import online_generation
+
+    cfg, dev = model.cfg, next(model.parameters()).device
+    counters = _counters()
+    res, recs = {}, {}
+
+    def start():
+        _reset(counters)
+        comm.reset_counts()
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def finish(label, t0, rec):
+        torch.cuda.synchronize()
+        launches = _read(counters)
+        recs[label] = rec
+        res[label] = {"wall_s": time.perf_counter() - t0,
+                      "collectives": comm.counts(),
+                      "launches": {k: v for k, v in launches.items() if v}}
+        return launches
+
+    # (i) the rollout over the int4 pool
+    have_pil = _have_pil()
+    tok = WordTokenizer()
+    dataset = _pixel_class(QueryDataset, have_pil)(
+        _stage12_rows(have_pil, 8), tok, query_len=TPP_QLEN,
+        image_size=cfg.vision.image_size)
+    module = {"train_dataset": dataset, "eval_dataset": None,
+              "data_collator": QueryCollator()}
+    stub = CorrectorStub(8)
+
+    def cached_setup(path, **kw):
+        check(path == model_dir and kw.get("bits") == 4
+              and kw.get("seed") == 0 and kw.get("skip_loading_weights")
+              and kw["mesh"].model == mesh.model,
+              f"rollout set-up arguments {path} {kw}")
+        return cfg, model, mesh
+
+    saved_env = {k: os.environ.pop(k) for k in _STAGE_ENV if k in os.environ}
+    saved = online_generation.setup_model, online_generation.get_api_service
+    try:
+        os.environ["API_KEY"] = "smoke-dummy"
+        online_generation.setup_model = cached_setup
+        online_generation.get_api_service = (
+            lambda rank=0, cache_path="": stub)
+        with _DecisionLogits() as rec:
+            t0 = start()
+            online_generation.run(
+                _tpp_rollout_config(model_dir, out, mesh.model),
+                tokenizer=tok, data_module=module)
+            launches = finish("rollout", t0, rec)
+    finally:
+        online_generation.setup_model, online_generation.get_api_service = \
+            saved
+        os.environ.pop("API_KEY", None)
+        os.environ.update(saved_env)
+    eng = rec.engine
+    check(eng is not None and eng.kv_bits == 4 and eng.b == TPP_SLOTS,
+          "the rollout did not run the int4 pool")
+    _check_pool_launches(cfg, eng.stats, launches, "decode_attention_int4",
+                         "TP pool rollout")
+    res["rollout"].update(
+        tokens=[rec.tokens[r] for r in range(len(rec.tokens))],
+        budgets=[TPP_NEW] * len(rec.tokens), forwards=eng.stats["forwards"],
+        segments=eng.stats["segments"], sp_used=eng.stats["sp_used"],
+        admit_groups=eng.stats["admit_groups"], s_total=eng.s_total,
+        corrections=len(stub.calls))
+
+    # (ii) the int8 pool with speculative segments
+    sampling = make_serving_sampling(greedy=True, max_new_tokens=TPP_NEW,
+                                     eos_token_id=2, pad_token_id=0)
+    reqs = _tpp_requests(cfg)
+    with torch.inference_mode(), _DecisionLogits() as rec:
+        eng = make_continuous_engine(
+            model, sampling, slots=TPP_SPEC_SLOTS, kv_bits=8, spec_k=TPP_K,
+            seg_len=TPP_SPEC_SEG, qlen=TPP_QLEN, collect_spec_stats=True,
+            generator=torch.Generator(device=dev).manual_seed(0))
+        t0 = start()
+        rids = [eng.add_request(ids, m, img, max_new=b)
+                for ids, m, img, b in reqs]
+        while eng.has_work():
+            eng.step()
+        launches = finish("spec_pool", t0, rec)
+    _check_pool_launches(cfg, eng.stats, launches, "decode_attention_multi",
+                         "TP spec pool")
+    res["spec_pool"].update(
+        tokens=[rec.tokens[r] for r in rids], budgets=[b for *_, b in reqs],
+        forwards=eng.stats["forwards"], segments=eng.stats["segments"],
+        sp_used=eng.stats["sp_used"], admit_groups=eng.stats["admit_groups"],
+        spec=dict(eng.spec_stats), s_total=eng.s_total)
+
+    # (iii) the speculative Sampler, each advance
+    ids, mask, images = _server_batch(cfg, list(TP_PROMPTS), TP_ROWS, dev)
+    for adv in ("shared", "per_row"):
+        sampler = Sampler(sampling, kv_bits=8, spec_k=TPP_K,
+                          spec_advance=adv)
+        with torch.inference_mode(), _DecisionLogits() as rec:
+            t0 = start()
+            toks = sampler.generate(model, ids, mask, images)
+            rec.place([(b, 0) for b in range(TP_ROWS)])
+            launches = finish(f"sampler_{adv}", t0, rec)
+        stats = list(sampler.stats)
+        _check_attention_launches(cfg, stats, launches,
+                                  "decode_attention_multi")
+        res[f"sampler_{adv}"].update(
+            tokens=toks.cpu().tolist(), budgets=[TPP_NEW] * TP_ROWS,
+            forwards=stats[-1]["decode_steps"],
+            accepted_drafts=stats[-1]["accepted_drafts"])
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res, recs
+
+
+def _job_tp_pool(job, rank):
+    """A rank of the TP pool phase: the 13B int4 shard over a ``1 x 2``
+    mesh through ``_tpp_runs``; rank 0 also saves every part's decision
+    logits, keyed by (request, offset) (``job["logits"]``)."""
+    import torch
+
+    from opadpo_torch.parallel.mesh import MeshConfig, make_mesh
+    from opadpo_torch.pipeline import runtime
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, model, mesh = runtime.setup_model(
+        job["model_dir"], skip_loading_weights=True, bits=4, seed=0,
+        mesh=make_mesh(MeshConfig(model=2), "cuda"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(mesh.model == 2 and mesh.model_rank == rank,
+          f"rank {rank}: mesh {mesh.data}x{mesh.model}")
+    res, recs = _tpp_runs(model, mesh, job["model_dir"], job["out"])
+    if rank == 0:
+        torch.save({p: recs[p].store for p in TPP_PARTS}, job["logits"])
+    log(f"[tp_pool] rank {rank}: setup {load_s:.1f} s; "
+        + "; ".join(f"{p} {res[p]['wall_s']:.2f} s" for p in TPP_PARTS)
+        + f"; peak {res['peak_gb']:.2f} GB")
+    res["load_s"] = load_s
+    return res
+
+
+def _tpp_kernel_cases(g, flush, runs):
+    """#8 at the TP Sampler's verify shape ([8, 20, 768, 128], G 5) and
+    over the TP spec pool ([16, 20, s_total, 128], G 5) at the watermarks
+    it visited, #6 over the same pool, and #7 over the TP rollout's packed
+    int4 pool ([8, 20, s_total / 2, 128]) at its watermarks, each against
+    its plain version (``runs``: a rank's ``_tpp_runs`` results)."""
+    import torch
+
+    from opadpo_torch.ops import decode_attention as da
+
+    h, hd = 20, 128
+    sm = hd ** -0.5
+
+    def tensors(b, s_total):
+        q = torch.randn(b, h, TPP_K + 1, hd, generator=g,
+                        device="cuda").to(torch.bfloat16)
+        ks, vs = (torch.rand(b, h, s_total, generator=g, device="cuda")
+                  * 0.02 for _ in range(2))
+        bias = torch.zeros(b, s_total, device="cuda")
+        for i in range(b):
+            bias[i, 703 + 3 * i:] = NEG_INF     # rows at their own fill
+        pk, pv = (torch.randint(-127, 128, (b, h, s_total, hd), generator=g,
+                                device="cuda", dtype=torch.int8)
+                  for _ in range(2))
+        return q, pk, ks, pv, vs, bias
+
+    def marks(part):
+        return sorted(int(s) for s in runs[part]["sp_used"])
+
+    multi = (da.decode_attention_multi_cuda,
+             da.decode_attention_prompt_multi_plain)
+    q, pk, ks, pv, vs, bias = tensors(TP_ROWS, 768)
+    out = {"multi_sampler": [_decode_case(
+        *multi, (q, pk, ks, pv, vs, bias, sm), 768, TPP_K + 1, False, flush,
+        "decode_attention_multi")]}
+    q, pk, ks, pv, vs, bias = tensors(TPP_SPEC_SLOTS,
+                                      runs["spec_pool"]["s_total"])
+    out["multi_pool"] = [_decode_case(
+        *multi, (q, pk, ks, pv, vs, bias, sm), su, TPP_K + 1, False, flush,
+        "decode_attention_multi") for su in marks("spec_pool")]
+    out["int8_pool"] = [_decode_case(
+        da.decode_attention_cuda, da.decode_attention_prompt_plain,
+        (q[:, :, 0].contiguous(), pk, ks, pv, vs, bias, sm), su, 1, False,
+        flush, "decode_attention_int8") for su in marks("spec_pool")]
+    st = runs["rollout"]["s_total"]
+    q, pk, ks, pv, vs, bias = tensors(TPP_SLOTS, st)
+    pk4, pv4 = (x[:, :, :st // 2].contiguous() for x in (pk, pv))
+    out["int4_pool"] = [_decode_case(
+        da.decode_attention4_cuda, da.decode_attention_prompt4_plain,
+        (q[:, :, 0].contiguous(), pk4, ks, pv4, vs, bias, sm), su, 1, True,
+        flush, "decode_attention_int4") for su in marks("rollout")]
+    for group, cases in out.items():
+        for c in cases:
+            c["ranks"], c["per"] = da.decode_split(
+                c["s_used"], c["shape"][0] * h, group == "int4_pool",
+                c["G"])
+            log(f"[tp_pool] {group} {c['shape']} G {c['G']} s_used "
+                f"{c['s_used']}: {c['ms']:.4f} ms (plain "
+                f"{c['plain_ms']:.4f}) against {c['bound_ms']:.4f} ms of "
+                f"bound, {c['ranks']} ranks of {c['per']}, max |err| "
+                f"{c['err_out']:.3g}")
+    return out
+
+
+def phase_tp_pool(card, root, g):
+    """The slot pool and speculative decode at tensor parallelism 2 on
+    LLaVA-1.5-13B int4 (random, from the config-only directory), full
+    width.  One process first on the same weights (``_tpp_runs``), then
+    the control: that process with each ``wo`` / ``w_down`` product split
+    into the two ranks' shards (``_split_row_products``), freed; then two
+    rank processes (``python chip_smoke.py --rank-job``: NCCL with a card
+    each where two are visible, else sharing the one card over a gloo
+    group the smoke starts).  Tokens equal on both ranks, no request over
+    its budget, model rank 0 alone correcting the rollout's rows, #7 / #8
+    launches per rank as each run's schedule derives.  Against one
+    process: the rows equal counted and every first departure judged a
+    near-tie (``_first_departures``); the largest |logits(TP) -
+    logits(one)| where the rows agree or first depart at most
+    TP_LOGIT_FACTOR times the control's own, and every request's
+    first-token logits (its admission prefill) within TP_CONTROL_ABS of
+    the control's: limits the TP run does not set.  Peak memory per rank
+    and wall times; then #6, #7 and #8 at the TP pool's shapes against
+    their plain versions."""
+    import torch
+
+    from opadpo_torch.parallel.mesh import single_mesh
+    from opadpo_torch.pipeline import runtime
+
+    t_phase = time.perf_counter()
+    n_gpu = torch.cuda.device_count()
+    model_dir = _model_13b_dir(root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, model, _ = runtime.setup_model(model_dir, skip_loading_weights=True,
+                                      bits=4, seed=0, device="cuda")
+    one, one_recs = _tpp_runs(model, single_mesh("cuda"), model_dir,
+                              os.path.join(root, "tpp_one"))
+    _split_row_products(model)
+    ctrl, ctrl_recs = _tpp_runs(model, single_mesh("cuda"), model_dir,
+                                os.path.join(root, "tpp_control"))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    shared = n_gpu < 2
+    logits_path = os.path.join(root, "tpp_logits.pt")
+    ranks = _run_ranks({"kind": "tp_pool", "model_dir": model_dir,
+                        "out": os.path.join(root, "tpp_tp"), "gloo": shared,
+                        "logits": logits_path},
+                       2, [0, 0] if shared else [0, 1], "tp_pool")
+    tp_logits = torch.load(logits_path)
+    os.remove(logits_path)
+    r0, r1 = ranks
+    res = {"card": card, "ranks_share_one_card": shared,
+           "backend": "gloo (two processes on one card)" if shared
+           else "nccl", "peak_gb_per_rank": [r["peak_gb"] for r in ranks],
+           "peak_gb_one_process": one["peak_gb"],
+           "load_s_per_rank": [r["load_s"] for r in ranks]}
+    bad, over = [], []
+    for part in TPP_PARTS:
+        a0, a1, o, c = (r0[part]["tokens"], r1[part]["tokens"],
+                        one[part]["tokens"], ctrl[part]["tokens"])
+        check(a0 == a1, f"TP pool {part}: the model ranks emitted different "
+              "tokens")
+        for toks, who in ((a0, "TP"), (o, "one process"), (c, "control")):
+            budgets = r0[part]["budgets"]
+            over_budget = [i for i, (x, b) in enumerate(zip(toks, budgets))
+                           if len(x) > b]
+            check(len(toks) == len(budgets) and not over_budget,
+                  f"TP pool {part} ({who}): requests {over_budget} over "
+                  "budget")
+        one_l, tp_l, ctrl_l = (one_recs[part].store, tp_logits[part],
+                               ctrl_recs[part].store)
+        deps, tp_err = _first_departures(a0, o, tp_l, one_l)
+        _, ctrl_err = _first_departures(c, o, ctrl_l, one_l)
+        first_err = max(float((tp_l[(i, 0)] - ctrl_l[(i, 0)]).abs().max())
+                        for i in range(len(o)))
+        bad += [(part, d) for d in deps if not d.get("near_tie")]
+        if tp_err > TP_LOGIT_FACTOR * ctrl_err or first_err > TP_CONTROL_ABS:
+            over.append((part, tp_err, ctrl_err, first_err))
+        res[part] = {
+            "requests": len(o),
+            "rows_equal_to_one_process": sum(a == b for a, b in zip(a0, o)),
+            "rows_equal_to_control": sum(a == b for a, b in zip(a0, c)),
+            "first_departures": deps,
+            "near_ties": sum(1 for d in deps if d.get("near_tie")),
+            "max_abs_logit_diff": tp_err,
+            "control_max_abs_logit_diff": ctrl_err,
+            "first_token_max_abs_diff_to_control": first_err,
+            "tokens": sum(len(x) for x in a0),
+            "wall_s_per_rank": [r[part]["wall_s"] for r in ranks],
+            "wall_s_one_process": one[part]["wall_s"],
+            "forwards": r0[part]["forwards"],
+            "launches_rank0": r0[part]["launches"],
+            "launches_rank1": r1[part]["launches"],
+            "collectives_rank0": r0[part]["collectives"],
+            **{k: r0[part][k] for k in ("sp_used", "admit_groups", "spec",
+                                        "accepted_drafts", "corrections")
+               if k in r0[part]}}
+        log(f"[tp_pool] {part}: tokens equal on both ranks; "
+            f"{res[part]['rows_equal_to_one_process']} of {len(o)} equal to "
+            f"one process's ({res[part]['rows_equal_to_control']} to the "
+            f"control's), {len(deps)} first departures, "
+            f"{res[part]['near_ties']} near-ties; max |TP - one| {tp_err:.4g}"
+            f" against the control's {ctrl_err:.4g} (limit "
+            f"{TP_LOGIT_FACTOR} x); first-token logits max |TP - control| "
+            f"{first_err:.4g} (limit {TP_CONTROL_ABS}); wall "
+            f"{res[part]['wall_s_per_rank']} s a rank against "
+            f"{one[part]['wall_s']:.2f} s in one process; "
+            f"{r0[part]['forwards']} forwards; launches rank 0 "
+            f"{r0[part]['launches']}; collectives rank 0 "
+            f"{r0[part]['collectives']}; card: {card}")
+    check(r0["rollout"]["corrections"] == STAGE12_ROWS
+          and r1["rollout"]["corrections"] == 0,
+          f"TP rollout corrections {r0['rollout']['corrections']} / "
+          f"{r1['rollout']['corrections']}: model rank 0 corrects every row")
+    check(not bad, f"TP pool: first departures from one process that are "
+          f"not near-ties: {bad}")
+    check(not over, f"TP pool logits (part, max |TP - one|, the control's, "
+          f"first-token max |TP - control|) over their limits "
+          f"({TP_LOGIT_FACTOR} x the control's, {TP_CONTROL_ABS}): {over}")
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    res["kernels"] = _tpp_kernel_cases(g, flush, r0)
+    del flush
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[tp_pool] peak {res['peak_gb_per_rank']} GB a rank (one process "
+        f"{one['peak_gb']:.2f} GB); phase {res['seconds']:.1f} s; card: "
+        f"{card}")
+    log(f"[tp_pool] {json.dumps({k: v for k, v in res.items() if k != 'kernels'})}")
     return res
 
 
@@ -4458,6 +5245,27 @@ def slice4_kernel_entries(decode, rollout, spec):
     return out
 
 
+def tp_pool_kernel_entries(kernels, tpp) -> None:
+    """The decode kernels' entries get, under ``tp_pool``, their checks and
+    times at the TP pool's shapes (``_tpp_kernel_cases``) and rank 0's
+    launches in each TP pool run; #1 its launches there."""
+    kc = tpp["kernels"]
+    keys = ("s_used", "G", "shape", "err_out", "ms", "plain_ms",
+            "bound_ms", "bound_by", "ranks", "per")
+    groups = {"decode_attention_multi": ("multi_sampler", "multi_pool"),
+              "decode_attention_int8": ("int8_pool",),
+              "decode_attention_int4": ("int4_pool",), "flash_fwd": ()}
+    for entry in kernels:
+        name = entry["name"]
+        if name not in groups:
+            continue
+        entry["tp_pool"] = {
+            "launches_rank0": {p: tpp[p]["launches_rank0"].get(name, 0)
+                               for p in TPP_PARTS},
+            "cases": [{"group": grp, **{k: c[k] for k in keys}}
+                      for grp in groups[name] for c in kc[grp]]}
+
+
 def main() -> int:
     try:
         import torch
@@ -4482,6 +5290,7 @@ def main() -> int:
 
     name, card = phase_device()
     phase_build()
+    native = phase_native_image(card)
     g = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     flash = phase_flash(g, flush)
@@ -4511,8 +5320,10 @@ def main() -> int:
         del adapter
         gc.collect()
         torch.cuda.empty_cache()
+        pruned = phase_pruned_serve(model, card, dirs)
         stage4 = phase_stage4(model.cfg, card, dirs, train)
         multi = phase_multi_gpu(card, dirs, root, stage4, g)
+        tpp = phase_tp_pool(card, root, g)
         shutil.rmtree(dirs["stage4"], ignore_errors=True)
         stage12, merged, n_words = phase_stages12(model.cfg, card, dirs)
         stage3 = phase_stage3(model.cfg, card, dirs, merged, n_words)
@@ -4615,6 +5426,7 @@ def main() -> int:
             entry["launches_serve_cli"] = (cli["base"][key]
                                            + cli["adapter"][key])
     tp2_kernel_entries(kernels, multi)
+    tp_pool_kernel_entries(kernels, tpp)
     pool_keys = ("s_used", "G", "err_out", "ms", "plain_ms", "bound_ms",
                  "bound_by", "ranks", "per")
     for entry in kernels:
@@ -4660,6 +5472,9 @@ def main() -> int:
         f"steps {stage4['step_s']} s; stage 1-2 sampling "
         f"{stage12['sample_s']} s; stage-3 micro-steps "
         f"{stage3['micro_step_s']} s, peak {stage3['peak_gb']:.2f} GB")
+    log(f"[tp-pool, pruning, jpeg] seconds: TP pool {tpp['seconds']:.1f}, "
+        f"pruned serve {pruned['seconds']:.1f}, native image "
+        f"{native.get('seconds', 0.0):.1f}; card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

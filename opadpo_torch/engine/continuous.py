@@ -30,6 +30,13 @@ follows its own length rather than its batch's longest.
   and a window that covers both nibbles of a byte never races.
 
 Every random draw comes from one explicit ``torch.Generator``.
+
+Under tensor parallelism each rank of a model group runs the pool on its
+own heads: the caches are shaped from the first admitted group's prefill,
+which is local, the admission and the folds write local heads, and the
+last logits come back gathered over the whole vocabulary.  The segment
+loops take model rank 0's sampled tokens (and, with ``spec_k``, its
+verdicts), so the host bookkeeping after a segment is equal on every rank.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ import numpy as np
 import torch
 
 from opadpo_torch.engine import speculative
-from opadpo_torch.engine.sampler import TP_PENDING, decode_loop_unrolled
+from opadpo_torch.engine.sampler import decode_loop_unrolled
 from opadpo_torch.engine.sampling import SamplingConfig
 from opadpo_torch.models import llama as llama_model
 from opadpo_torch.models import llava as llava_model
@@ -160,7 +167,13 @@ class ContinuousEngine:
     admission group's size, decoder forwards of the segments (verify
     groups and flushes with ``spec_k``), segments per watermark, tokens
     kept; ``spec_stats`` (with ``collect_spec_stats``) the speculative
-    groups, accepted drafts and verify-loop tokens."""
+    groups, accepted drafts and verify-loop tokens.
+
+    Over a tensor-parallel model every rank of the model group must be
+    given the same requests in the same order (the same ``add_request``
+    calls, the same ``step`` calls), and a ``generator`` seeded equally on
+    every rank of the group: admission, segments and folds are collective
+    there."""
 
     def __init__(self, model, sampling: SamplingConfig, lora=None,
                  lora_scaling: float = 1.0, max_batch: int = 8,
@@ -171,8 +184,6 @@ class ContinuousEngine:
                  collect_spec_stats: bool = False, head_bits: int = 16,
                  prefill: Optional[Callable] = None):
         cfg = model.cfg
-        if model.llama.tp is not None:
-            raise ValueError(f"the continuous slot pool {TP_PENDING}")
         if kv_bits not in (8, 4):
             raise ValueError(f"kv_bits={kv_bits}: the slot pool is int8 (8) "
                              "or packed int4 (4)")

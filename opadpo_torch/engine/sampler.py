@@ -16,8 +16,9 @@ once per model.  Decoding stops when every row has emitted EOS, as the JAX
 Under tensor parallelism each rank's caches hold its own heads and the
 logits come back gathered over the vocabulary; every rank samples from
 them and takes model rank 0's tokens (a ``broadcast``), so the ranks'
-caches never fork.  Speculative decode is not ported to tensor
-parallelism yet (ROADMAP Queue 1 item 8b).
+caches never fork.  Speculative decode takes rank 0's first tokens and
+each group's verdicts and corrections the same way
+(``engine/speculative.py``).
 """
 
 from __future__ import annotations
@@ -36,9 +37,6 @@ from opadpo_torch.models import llama as llama_model
 from opadpo_torch.models import llava as llava_model
 from opadpo_torch.ops.decode_attention import MAX_G
 from opadpo_torch.parallel import comm
-
-TP_PENDING = ("under tensor parallelism (mesh.model > 1) is not ported yet "
-              "(ROADMAP Queue 1 item 8b)")
 
 
 def decode_loop_unrolled(model, prompt_kv_list: list,
@@ -188,8 +186,6 @@ class Sampler:
                head=None) -> Tuple[torch.Tensor, dict]:
         """Decode after ``prefill`` -> (tokens [B, max_new_tokens], what it
         did: decode_steps, folds, sp_used and the speculative counts)."""
-        if self.spec is not None and model.llama.tp is not None:
-            raise ValueError(f"speculative decode {TP_PENDING}")
         info = {"decode_steps": 0, "folds": 0, "sp_used": []}
         args = (model, pf["kv_list"], pf["key_mask"], pf["next_position"],
                 pf["last_logits"], generator, self.sampling)

@@ -59,7 +59,9 @@ def make_continuous_engine(
     head_bits: int = 16,
 ):
     """A ``ContinuousEngine`` at ``ENGINE_GEOMETRY``, with the overrides
-    given (a large model caps ``max_admit_group`` at 1 or 2)."""
+    given (a large model caps ``max_admit_group`` at 1 or 2), over
+    ``model`` as it is: one process's, or a rank's tensor-parallel shard
+    (then every rank of its model group builds one, seeded alike)."""
     from opadpo_torch.engine.continuous import ContinuousEngine
 
     geo = dict(ENGINE_GEOMETRY)

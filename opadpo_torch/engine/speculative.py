@@ -25,6 +25,15 @@ The loops run on the host, in Python: each group reads the accepted
 counts (a synchronise), as the plain decode loop reads ``done`` each step.
 Draws come from an explicit ``torch.Generator``.
 
+Under tensor parallelism every rank of the model group runs the loop on
+its own heads (suffix caches sized from the local ``model.llama.cfg``)
+and takes model rank 0's first tokens and, after each verify group, its
+verdicts and corrections (one int64 ``broadcast`` each time), so the host
+decisions that follow (the advance, ``done``, the emitted tokens, the
+raw-row targets) are equal on every rank and no collective is left
+waiting.  Every rank still draws from its own generator with the same
+calls in the same order, so the generators stay in step.
+
 Drafts: "ngram" (2-gram lookup in the row's own output), "pad" (the worst
 case) or "oracle" (``oracle_tokens[b, t:t + k]`` at generated-token offset
 t: the controlled-acceptance A/B; wrong drafts cost acceptance only).
@@ -48,6 +57,7 @@ from opadpo_torch.engine.sampling import NEG_INF, SamplingConfig, \
     sample_tokens
 from opadpo_torch.models import llama as llama_model
 from opadpo_torch.models import llava as llava_model
+from opadpo_torch.parallel import comm
 
 DRAFTS = ("ngram", "pad", "oracle")
 ADVANCES = ("shared", "per_row")
@@ -113,6 +123,18 @@ def _accept_and_correct(logits_g: torch.Tensor, drafts: torch.Tensor,
     fix = torch.gather(idx, 1, local)[:, 0].reshape(b, k)
     bonus = sample_tokens(logits_g[:, k], cfg, generator)
     return acc, torch.cat([fix, bonus[:, None]], dim=1)
+
+
+def _decisions_of_rank0(acc: torch.Tensor, corrections: torch.Tensor, tp):
+    """Model rank 0's ``acc`` [B, k] and ``corrections`` [B, k + 1] on every
+    rank of ``tp`` (one int64 broadcast; the tensors given without
+    tensor parallelism)."""
+    if tp is None:
+        return acc, corrections
+    k = acc.shape[1]
+    buf = comm.broadcast_(torch.cat([acc.long(), corrections.long()], dim=1),
+                          tp)
+    return buf[:, :k].bool(), buf[:, k:]
 
 
 def _ngram_drafts(out_buf: torch.Tensor, e, last_tok: torch.Tensor, k: int,
@@ -204,9 +226,9 @@ def decode_loop_spec(model, prompt_kv_list: list, prompt_mask: torch.Tensor,
                          done_init, max_new, return_state)
 
 
-def _first_token(last_logits, generator, sampling, total, g,
+def _first_token(last_logits, generator, sampling, total, g, tp,
                  done_init=None):
-    t1 = sample_tokens(last_logits, sampling, generator)
+    t1 = comm.broadcast_(sample_tokens(last_logits, sampling, generator), tp)
     done = t1 == sampling.eos_token_id
     if done_init is not None:
         t1 = torch.where(done_init, sampling.pad_token_id, t1)
@@ -231,14 +253,14 @@ def _emit(drafts, corrections, lead, n, done, k, pad_id):
 
 def _loop_shared(model, kv, pm, positions, last_logits, generator, sampling,
                  spec, lora, lora_scaling, head, sp_used, oracle):
-    cfg = model.cfg.llama
+    cfg, tp = model.llama.cfg, model.llama.tp
     b, dev = pm.shape[0], pm.device
     k, g = spec.k, spec.k + 1
     total, eos, pad = (sampling.max_new_tokens, sampling.eos_token_id,
                        sampling.pad_token_id)
     # worst case: every group advances by 1 and writes g rows
     suffix = llama_model.init_suffix_cache(cfg, b, total + g, dev)
-    out, done = _first_token(last_logits, generator, sampling, total, g)
+    out, done = _first_token(last_logits, generator, sampling, total, g, tp)
     e, advances = 1, []
     while e < total and not bool(done.all()):
         last_tok = out[:, e - 1]
@@ -248,8 +270,8 @@ def _loop_shared(model, kv, pm, positions, last_logits, generator, sampling,
         logits, suffix = llava_model.decode_step_multi(
             model, toks, kv, pm, suffix, e - 1, positions, lora=lora,
             lora_scaling=lora_scaling, sp_used=sp_used, head=head)
-        acc, corrections = _accept_and_correct(logits, drafts, sampling,
-                                               generator)
+        acc, corrections = _decisions_of_rank0(*_accept_and_correct(
+            logits, drafts, sampling, generator), tp)
         acc = acc | done[:, None]                 # done rows never throttle
         lead = torch.cumprod(acc.long(), dim=1).sum(dim=1)
         n = int(lead.min()) + 1
@@ -270,7 +292,7 @@ def _loop_shared(model, kv, pm, positions, last_logits, generator, sampling,
 def _loop_per_row(model, kv, pm, positions, last_logits, generator,
                   sampling, spec, lora, lora_scaling, head, sp_used, oracle,
                   done_init, max_new, return_state):
-    cfg = model.cfg.llama
+    cfg, tp = model.llama.cfg, model.llama.tp
     b, dev = pm.shape[0], pm.device
     k, g = spec.k, spec.k + 1
     total = max_new or sampling.max_new_tokens
@@ -282,7 +304,7 @@ def _loop_per_row(model, kv, pm, positions, last_logits, generator,
     settled = llama_model.init_suffix_cache(cfg, b, total, dev)
     rawtgt = torch.full((b, c_groups * g), -1, dtype=torch.int64, device=dev)
     w = torch.zeros(b, dtype=torch.int64, device=dev)
-    out, done = _first_token(last_logits, generator, sampling, total, g,
+    out, done = _first_token(last_logits, generator, sampling, total, g, tp,
                              done_init)
     e = torch.ones(b, dtype=torch.int64, device=dev)
     advances = []
@@ -297,8 +319,8 @@ def _loop_per_row(model, kv, pm, positions, last_logits, generator,
             model, toks, kv, pm, raw, settled, slot, rawtgt >= 0, w,
             positions, lora=lora, lora_scaling=lora_scaling,
             sp_used=sp_used, head=head)
-        acc, corrections = _accept_and_correct(logits, drafts, sampling,
-                                               generator)
+        acc, corrections = _decisions_of_rank0(*_accept_and_correct(
+            logits, drafts, sampling, generator), tp)
         lead = torch.cumprod(acc.long(), dim=1).sum(dim=1)
         n = torch.where(done, 0, torch.minimum(lead + 1, total - e))
         emit, jpos = _emit(drafts, corrections, lead, n, done, k, pad)

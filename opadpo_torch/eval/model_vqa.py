@@ -32,7 +32,9 @@ import torch
 
 from opadpo_torch.constants import DEFAULT_IMAGE_TOKEN
 from opadpo_torch.data import conversation as conversation_lib
-from opadpo_torch.data.image_processing import preprocess_images
+from opadpo_torch.data.image_processing import (
+    preprocess_images, set_pil_preprocess,
+)
 from opadpo_torch.data.tokenization import tokenizer_image_token
 from opadpo_torch.engine.sampler import Sampler, truncate_after_tokens
 from opadpo_torch.engine.sampling import SamplingConfig
@@ -229,13 +231,18 @@ def _run_inference_continuous(
 
 def load_for_eval(args: argparse.Namespace):
     """(cfg, model, lora, lora_scaling) from a driver's ``--model-path``,
-    ``--vision-path``, ``--adapter-path`` and ``--device``."""
+    ``--vision-path``, ``--adapter-path``, ``--device`` and, where the
+    driver has them, ``--visual-tokens`` and ``--pil-preprocess``."""
     from opadpo_torch.models.loader import adapter_scaling, load_peft_adapter
     from opadpo_torch.pipeline.runtime import setup_model
 
+    if getattr(args, "pil_preprocess", False):
+        set_pil_preprocess(True)
     cfg, model, _ = setup_model(args.model_path,
                                 vision_dir=getattr(args, "vision_path", None),
-                                device=args.device)
+                                device=args.device,
+                                visual_tokens=getattr(args, "visual_tokens",
+                                                      0) or None)
     lora, scaling = None, 1.0
     if args.adapter_path:
         lora = load_peft_adapter(args.adapter_path, cfg.llama,
@@ -276,14 +283,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--seg-len", type=int, default=64,
                    help="continuous mode: decode steps per segment")
     p.add_argument("--pil-preprocess", action="store_true",
-                   help="accepted for the JAX driver's command lines: PIL "
-                        "is the port's only image path")
+                   help="force the PIL image path (strict HF-numerics "
+                        "parity) instead of the native C++ JPEG pipeline")
     p.add_argument("--visual-tokens", type=int, default=0,
-                   help="visual-token pruning: not ported (0 = all 576 "
-                        "patches, the only value taken)")
+                   help="training-free visual-token pruning: keep only "
+                        "the top-K projected patches (0 = all 576)")
     args = p.parse_args(argv)
-    if args.visual_tokens:
-        p.error("--visual-tokens: visual-token pruning is not ported")
+    if args.visual_tokens < 0:
+        p.error("--visual-tokens must be >= 0 (0 = all patches)")
     return args
 
 

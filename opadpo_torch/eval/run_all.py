@@ -62,8 +62,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "GPT-4 API (the reference's shipped mode) instead "
                         "of the regex + synonym matcher (needs API_KEY)")
     p.add_argument("--pil-preprocess", action="store_true",
-                   help="accepted for the JAX driver's command lines: PIL "
-                        "is the port's only image path")
+                   help="force the PIL image path (strict HF-numerics "
+                        "parity) instead of the native C++ JPEG pipeline")
     return p.parse_args(argv)
 
 

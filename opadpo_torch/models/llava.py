@@ -12,6 +12,11 @@ RoPE positions are ``max(cumsum(mask) - 1, 0)`` of the spliced mask.  The
 CoPO "attention" method masks patches through ``image_mask``, spliced into
 the key mask the same way; SFT labels are spliced too, ``IGNORE_INDEX`` on
 the patches.
+
+Visual-token pruning (``LlavaConfig.visual_tokens`` K): only the K
+projected patches with the largest f32 sum of squares are kept, in
+spatial order, so every downstream length (the splice, the prompt cache,
+the scoring sequence) shrinks by 576 - K; the weights are unchanged.
 """
 
 from __future__ import annotations
@@ -37,7 +42,8 @@ class LlavaConfig:
     llama: llama_model.LlamaConfig
     vision: clip_model.ClipVisionConfig
     projector: projector_model.ProjectorConfig
-    # visual-token pruning is not ported; anything but None is rejected
+    # training-free visual-token pruning: keep the top K projected patches
+    # by feature norm (None, or K >= the patch count: all of them)
     visual_tokens: Optional[int] = None
 
     @staticmethod
@@ -63,16 +69,16 @@ class LlavaConfig:
 
     @property
     def num_patches(self) -> int:
+        """The patch tokens spliced into the sequence: every consumer
+        (splice, cache sizes, samplers, the slot pool) keys off this."""
+        if self.visual_tokens:
+            return min(self.visual_tokens, self.vision.num_patches)
         return self.vision.num_patches
 
 
 class Llava(nn.Module):
     def __init__(self, cfg: LlavaConfig):
         super().__init__()
-        if cfg.visual_tokens is not None:
-            raise NotImplementedError(
-                "visual_tokens pruning is not ported (ROADMAP, modules "
-                "without kernels)")
         self.cfg = cfg
         self.vision = clip_model.ClipVisionTower(cfg.vision)
         self.projector = projector_model.Projector(cfg.projector)
@@ -158,14 +164,39 @@ def init_params_quantized(cfg: LlavaConfig, generator: torch.Generator,
     return model
 
 
+def check_prunable(cfg: LlavaConfig, image_key_mask) -> None:
+    """Pruning and a CoPO per-patch ``image_key_mask`` (which indexes the
+    full patch grid) do not compose: raise before the vision tower runs."""
+    if image_key_mask is not None and \
+            cfg.num_patches < cfg.vision.num_patches:
+        raise ValueError(
+            "visual_tokens pruning does not compose with image_key_mask "
+            "(CoPO attention masking indexes the full patch grid)")
+
+
+def prune_patches(proj: torch.Tensor, k: int) -> torch.Tensor:
+    """The ``k`` patches of ``proj`` [B, P, D] with the largest f32 sum of
+    squares, in spatial order; ties go to the lower patch index, as
+    ``lax.top_k`` breaks them (a stable descending sort)."""
+    if k >= proj.shape[1]:
+        return proj
+    score = proj.float().square().sum(dim=-1)
+    order = torch.sort(score, dim=1, descending=True, stable=True).indices
+    idx = torch.sort(order[:, :k], dim=1).values
+    return torch.gather(proj, 1, idx[..., None].expand(-1, -1,
+                                                       proj.shape[2]))
+
+
 def encode_images(model: Llava, images: torch.Tensor, lora=None,
                   lora_scaling: float = 1.0, remat: bool = True
                   ) -> torch.Tensor:
-    """[B, H, W, 3] -> projected patch features [B, P, D]."""
+    """[B, H, W, 3] -> projected patch features [B, num_patches, D]
+    (pruned to ``cfg.visual_tokens`` when set)."""
     feats = model.vision(images, lora=tree_get(lora, "vision"),
                          lora_scaling=lora_scaling, remat=remat)
-    return model.projector(feats, lora=tree_get(lora, "projector"),
+    proj = model.projector(feats, lora=tree_get(lora, "projector"),
                            lora_scaling=lora_scaling)
+    return prune_patches(proj, model.cfg.num_patches)
 
 
 def splice_positions(input_ids: torch.Tensor) -> torch.Tensor:
@@ -255,6 +286,7 @@ def forward(model: Llava, input_ids: torch.Tensor, text_mask: torch.Tensor,
     ``return_hidden``, hidden [B, S, D]; key_mask [B, S]; labels [B, S],
     the spliced ``labels`` [B, L], or None).  ``remat`` covers the CLIP
     blocks and the decoder's layers."""
+    check_prunable(model.cfg, image_key_mask)
     image_feats = encode_images(model, images, lora, lora_scaling, remat)
     text_embeds = llama_model.embed_tokens(model.llama, input_ids)
     embeds, key_mask, *spliced = splice_sequence(

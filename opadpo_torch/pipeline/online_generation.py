@@ -31,7 +31,8 @@ mesh (``parallel/mesh.py``): the rows are split over the data ranks only,
 the ranks of a model group sample their rows together (tensor-parallel
 decode, ``engine/sampler.py``) and only its model rank 0 calls GPT-4V and
 writes ``step{N}_rank{R}.json``, R its data rank.  The continuous engine
-is not ported to tensor parallelism yet (ROADMAP Queue 1 item 8b).
+runs there too: the ranks of a model group feed one pool the same rows in
+the same order, its generator seeded at seed + 1000 + data rank on each.
 
 One GPU a rank (``training.device``, default cuda; ``cpu`` runs the
 plain versions).  ``run`` also takes the tokenizer and the data module as
@@ -57,9 +58,7 @@ from opadpo_torch.constants import LLAMA_NL_QMARK_TOKEN, LLAMA_QMARK_TOKEN
 from opadpo_torch.data.char_tokenizer import CharTokenizer
 from opadpo_torch.data.datasets import make_rollout_data_module
 from opadpo_torch.data.loading import DataLoader, ShardedDataset
-from opadpo_torch.engine.sampler import (
-    TP_PENDING, Sampler, truncate_after_tokens,
-)
+from opadpo_torch.engine.sampler import Sampler, truncate_after_tokens
 from opadpo_torch.engine.serving_config import (
     make_continuous_engine, make_serving_sampling,
 )
@@ -161,8 +160,6 @@ def run(cfg: Config, tokenizer=None,
     entry per step sampled; none when every step's shard exists)."""
     t = cfg.training if "training" in cfg else Config()
     n_model = int(cfg.get_path("mesh.model", 1))
-    if n_model > 1 and int(t.get("continuous_slots", 0)):
-        raise ValueError(f"training.continuous_slots {TP_PENDING}")
     output_dir = os.environ.get("OUTPUT_DIR", cfg.get_path(
         "training.output_dir", "./output"))
     rollout_dir = os.path.join(output_dir, "rollouts")
@@ -249,7 +246,8 @@ def run(cfg: Config, tokenizer=None,
                       chunk=int(t.get("decode_chunk", 0)))
     # continuous_slots N > 0: generation through the slot-pool engine, so a
     # row that ends early frees its slot for the next query (one engine per
-    # rank; its draws from seed + 1000 + rank)
+    # data rank; its draws from seed + 1000 + data rank, the same on each
+    # model rank of the group, which feeds it the same rows)
     engine = None
     slots = int(t.get("continuous_slots", 0))
     if slots:

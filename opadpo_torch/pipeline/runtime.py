@@ -89,6 +89,7 @@ def setup_model(
     act_bwd_int8: bool = False,
     device: str = "cuda",
     mesh: Optional[Mesh] = None,
+    visual_tokens: Optional[int] = None,
 ):
     """(cfg, model, mesh) on ``device``.  A ``model_dir``: the checkpoint there
     (``models/loader.load_llava_checkpoint``; its configuration from its
@@ -107,13 +108,18 @@ def setup_model(
     drawn as one process draws them; a checkpoint's decoder weights read
     from the memory-mapped files one at a time, each moved, quantized
     whole and cut before the next).  Without one: the ``1 x 1`` mesh of
-    ``device``."""
+    ``device``.
+
+    ``visual_tokens`` K >= 1: training-free visual-token pruning (the
+    weights are unchanged; ``cfg.num_patches`` becomes min(K, 576))."""
     if bits not in (16, 8, 4):
         raise ValueError(f"bits={bits} unsupported (16, 8 or 4)")
     if act_bits not in (16, 8):
         raise ValueError(f"act_bits={act_bits} unsupported (16 or 8)")
     if act_bits == 8 and bits != 8:
         raise ValueError("act_bits=8 requires bits=8")
+    if visual_tokens is not None and int(visual_tokens) < 1:
+        raise ValueError(f"visual_tokens must be >= 1, got {visual_tokens}")
     mode = quant.QuantMode(act_bits, act_outlier_cols if act_bits == 8 else 0,
                            act_bwd_int8 and act_bits == 8)
     mesh = mesh or single_mesh(device)
@@ -141,6 +147,9 @@ def setup_model(
             model = _load_cut(model_dir, cfg, vision_dir, dev, bits, mode,
                               tp)
             cut = True
+    if visual_tokens is not None:
+        cfg = dataclasses.replace(cfg, visual_tokens=int(visual_tokens))
+        model.cfg = cfg
     if bits in (8, 4):
         # the linears not yet quantized (all of them, or a cut decoder's
         # vision tower)

@@ -52,7 +52,9 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from opadpo_torch.data.image_processing import black_image, preprocess_images
+from opadpo_torch.data.image_processing import (
+    black_image, preprocess_images, set_pil_preprocess,
+)
 from opadpo_torch.data.tokenization import tokenizer_image_token
 from opadpo_torch.device import resolve_device
 from opadpo_torch.engine.sampler import Sampler, truncate_after_tokens
@@ -392,11 +394,11 @@ def _parser() -> argparse.ArgumentParser:
                    help="continuous mode: largest admission prefill batch "
                         "(1-2 for large models, to keep memory headroom)")
     p.add_argument("--visual-tokens", type=int, default=0,
-                   help="visual-token pruning: not ported (0 = all 576 "
-                        "patches, the only value taken)")
+                   help="training-free visual-token pruning: keep only "
+                        "the top-K projected patches (0 = all 576)")
     p.add_argument("--pil-preprocess", action="store_true",
-                   help="accepted for the JAX server's command lines: PIL "
-                        "is the port's only image path")
+                   help="force the PIL image path (strict HF-numerics "
+                        "parity) instead of the native C++ JPEG pipeline")
     p.add_argument("--spec-k", type=int, default=0,
                    help="speculative decoding: verify k draft tokens per "
                         "group; needs greedy decoding or --top-k > 0, and "
@@ -415,10 +417,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     combination, is an argparse error (exit 2)."""
     p = _parser()
     args = p.parse_args(argv)
-    if args.visual_tokens:
-        p.error("--visual-tokens: visual-token pruning is not ported "
-                "(models/llava.py refuses it; ROADMAP, modules without "
-                "kernels)")
+    if args.visual_tokens < 0:
+        p.error("--visual-tokens must be >= 0 (0 = all patches)")
     if args.spec_k and args.temperature > 0 and args.top_k == 0:
         p.error("--spec-k with --temperature > 0 needs --top-k > 0 "
                 "(speculative sampling draws from the top-k set)")
@@ -437,8 +437,11 @@ def build_worker(args: argparse.Namespace, tokenizer=None):
     from opadpo_torch.models.loader import adapter_scaling, load_peft_adapter
     from opadpo_torch.pipeline.runtime import load_tokenizer, setup_model
 
+    if args.pil_preprocess:
+        set_pil_preprocess(True)
     cfg, model, _ = setup_model(args.model_path, vision_dir=args.vision_path,
-                                bits=args.bits, device=args.device)
+                                bits=args.bits, device=args.device,
+                                visual_tokens=args.visual_tokens or None)
     if tokenizer is None:
         tokenizer = load_tokenizer(args.model_path)
     lora, scaling = None, 1.0

@@ -172,8 +172,8 @@ def test_sampled_tokens_stay_in_support():
 
 def test_sampler_rejects_unported_modes():
     """The decode modes are ported (kv4, chunk, spec_k); the combinations
-    the JAX Sampler asserts against are ValueErrors, as are the oracle
-    draft and an unported model variant."""
+    the JAX Sampler asserts against are ValueErrors, as is the oracle
+    draft; the pruned model variant (``visual_tokens``) is taken."""
     s = SamplingConfig(greedy=True)
     for kw in (dict(kv_bits=4), dict(kv_bits=8, chunk=128),
                dict(kv_bits=4, chunk=256), dict(spec_k=2),
@@ -196,8 +196,12 @@ def test_sampler_rejects_unported_modes():
         Sampler(SamplingConfig(temperature=1.0, top_k=0), spec_k=2)
     Sampler(SamplingConfig(temperature=1.0, top_k=30), spec_k=2)
     import dataclasses
-    with pytest.raises(NotImplementedError):
-        t_llava.Llava(dataclasses.replace(TCFG32, visual_tokens=64))
+    # visual-token pruning, refused before it was ported: K caps at the
+    # tower's patches, and a model takes the configuration
+    pruned = dataclasses.replace(TCFG32, visual_tokens=64)
+    assert pruned.num_patches == TCFG32.vision.num_patches == 4
+    assert dataclasses.replace(TCFG32, visual_tokens=2).num_patches == 2
+    assert t_llava.Llava(pruned).cfg.num_patches == 4
     # the port quantizes block linears only; a quantized lm_head is refused
     with pytest.raises(ValueError, match="quantized leaf"):
         bridge.llava_from_jax(

@@ -161,7 +161,8 @@ def test_port_imports_no_jax():
     where ``jax`` and ``opadpo_tpu`` cannot be imported; the training
     slice's, the quantized base's, speculative decode's and the stage-4
     slice's, the stage 1-3 slice's, the continuous engine's, the 13
-    eval modules and the multi-GPU package's three are among them.  A second
+    eval modules, the multi-GPU package's three and the native image
+    pipeline's binding are among them.  A second
     process also blocks the packages the GPU machine lacks (``yaml``,
     ``safetensors``, ``transformers``, ``datasets``, ``PIL``,
     ``requests``): every module still imports, and the config reader and
@@ -177,7 +178,7 @@ def test_port_imports_no_jax():
             "names = [m.name for m in pkgutil.walk_packages("
             "opadpo_torch.__path__, 'opadpo_torch.')]\n"
             "for n in names: importlib.import_module(n)\n"
-            "assert len(names) >= 59, names\n"
+            "assert len(names) >= 60, names\n"
             "assert {'opadpo_torch.engine.dpo', 'opadpo_torch.engine.train_state',"
             " 'opadpo_torch.ops.heads_layout', 'opadpo_torch.ops.logprobs',"
             " 'opadpo_torch.ops.image_ops', 'opadpo_torch.ops.quant',"
@@ -203,7 +204,8 @@ def test_port_imports_no_jax():
             " 'opadpo_torch.eval.amber', 'opadpo_torch.eval.amber_similarity',"
             " 'opadpo_torch.eval.mmhal', 'opadpo_torch.eval.llava_bench',"
             " 'opadpo_torch.eval.gpt_review', 'opadpo_torch.eval.object_hal',"
-            " 'opadpo_torch.eval.run_all'}"
+            " 'opadpo_torch.eval.run_all', 'opadpo_torch.data.native_image',"
+            " 'opadpo_torch.data.image_processing'}"
             " <= set(names), names\n"
             "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
             "from opadpo_torch.pipeline.config import load_config\n"

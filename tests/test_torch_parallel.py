@@ -17,8 +17,10 @@ in one process, against the JAX package's ``opadpo_tpu/parallel``:
   bits 16, 8 and 4, vision tower included;
 - the ZeRO-1 axis against ``zero1_opt_state_specs``;
 - the collectives are the identity over a group of one;
-- speculative decode and the continuous slot pool refuse a
-  tensor-parallel model (ROADMAP Queue 1 item 8b).
+- speculative decode and the continuous slot pool, once refused on a
+  tensor-parallel model, take one: the speculative suffix caches hold the
+  rank's own heads (the two-rank runs are
+  ``tests/test_torch_parallel_pool.py``).
 """
 
 import dataclasses
@@ -252,23 +254,43 @@ def test_collectives_are_the_identity_over_a_group_of_one():
     assert comm.counts() == {}
 
 
-def test_tensor_parallel_speculative_and_pool_refuse_item_8b(tmp_path):
+def test_tensor_parallel_speculative_and_pool_refuse_item_8b(
+        tmp_path, monkeypatch):
     """Speculative decode and the continuous pool on a tensor-parallel
-    model, and ``continuous_slots`` with ``mesh.model`` 2, raise naming
-    Queue 1 item 8b."""
+    model, and ``continuous_slots`` with ``mesh.model`` 2, once refused,
+    are taken: on model rank 0's shard of a ``1 x 2``
+    mesh without a process group (its own head, no collective) the shared
+    and per-row speculative loops decode, every suffix cache they allocate
+    holds the rank's 1 of 2 heads, the pool is built, and the rollout with
+    the pool fails only where one process cannot make the mesh."""
+    from opadpo_torch.models import llama
     params = jax_llava.init_params(jax.random.PRNGKey(0), JCFG32)
     model = bridge.llava_from_jax(to_np(params), tiny_f32(), "cpu")
     sharding.shard_module(model, fake_mesh(0))
     ids, mask, images = inputs()
     sampling = SamplingConfig(greedy=True, max_new_tokens=4, eos_token_id=-1)
-    with pytest.raises(ValueError, match="Queue 1 item 8b"):
-        Sampler(sampling, kv_bits=8, spec_k=2).decode(model, {})
-    with pytest.raises(ValueError, match="Queue 1 item 8b"):
-        ContinuousEngine(model, sampling, max_batch=2, qlen=10)
+    shapes = []
+    init = llama.init_suffix_cache
+
+    def recording(cfg, batch, n, device):
+        caches = init(cfg, batch, n, device)
+        shapes.append(tuple(caches[0][0].shape))
+        return caches
+
+    monkeypatch.setattr(llama, "init_suffix_cache", recording)
+    for advance in ("shared", "per_row"):
+        with torch.inference_mode():
+            out = Sampler(sampling, kv_bits=8, spec_k=2,
+                          spec_advance=advance).generate(
+                model, t(ids), t(mask), t(images))
+        assert out.shape == (2, 4)
+    hd = JCFG32.llama.head_dim
+    assert shapes and all(s[0] == 2 and s[2:] == (1, hd) for s in shapes)
+    eng = ContinuousEngine(model, sampling, max_batch=2, qlen=10)
+    assert eng.sp_splice == 10 - 1 + JCFG32.vision.num_patches
     cfg = config.Config({
         "mesh": {"model": 2}, "debug": {"tiny": True},
         "training": {"output_dir": str(tmp_path), "device": "cpu",
                      "continuous_slots": 2}})
-    with pytest.raises(ValueError, match="Queue 1 item 8b"):
+    with pytest.raises(ValueError, match="mesh 0x2 != 1 devices"):
         online_generation.run(cfg)
-    assert t(ids).shape[0] == 2

@@ -67,25 +67,29 @@ def test_parse_args_takes_the_batch_servers_flags(argv):
     (["--continuous", "--seg-len", "2"], None),
     (["--continuous", "--query-len", "64"], None),
     (["--continuous", "--admit-group", "2"], None),
-    (["--visual-tokens", "64"], "not ported"),
+    (["--continuous", "--visual-tokens", "2"], None),
+    (["--visual-tokens", "-1"], "must be >= 0"),
     (["--spec-k", "4", "--temperature", "0.7"], "--top-k > 0"),
     (["--continuous", "--spec-k", "2", "--kv-bits", "4"], "int8 pool"),
     (["--continuous", "--spec-k", "2", "--temperature", "0.7"],
      "--top-k > 0"),
     (["--spec-draft", "oracle"], "invalid choice: 'oracle'"),
 ], ids=["continuous", "seg-len", "query-len", "admit-group",
-        "visual-tokens", "spec-sampling-top-k-0", "continuous-spec-kv4",
+        "visual-tokens", "visual-tokens-negative", "spec-sampling-top-k-0", "continuous-spec-kv4",
         "continuous-spec-sampling-top-k-0", "oracle-without-spec-k"])
 def test_parse_args_refuses_what_the_port_cannot_honour(
         capsys, monkeypatch, checkpoint, argv, needle):
     """A mode the port does not have, or an impossible combination
     (``--continuous --spec-k`` over the int4 pool, speculative sampling
-    without top-k, and the oracle draft, a benchmark's, which is no server
-    draft at all), is an argparse error naming it.
+    without top-k, the oracle draft, a benchmark's, which is no server
+    draft at all, and a negative ``--visual-tokens``), is an argparse error
+    naming it.
     The continuous flags, refused before the slot pool was ported, now
     build the ``ContinuousWorker`` from the checkpoint: its greedy answers
     (f32, int8 pool, 5 tokens, one request at a budget of 3) equal the JAX
-    ``ContinuousWorker``'s at the same flags."""
+    ``ContinuousWorker``'s at the same flags.  So does ``--visual-tokens``,
+    refused before pruning was ported: 2 of the tiny tower's 4 patches on
+    both sides."""
     if needle is not None:
         with pytest.raises(SystemExit) as e:
             serve.parse_args(["--model-path", "/m"] + argv)
@@ -102,7 +106,9 @@ def test_parse_args_refuses_what_the_port_cannot_honour(
     eng = worker.engine
     assert (eng.seg_len, eng.qlen, eng.max_admit_group, eng.kv_bits) == (
         args.seg_len, args.query_len, args.admit_group, 8)
-    cfg, params, _ = jax_runtime.setup_model(model_dir)
+    assert eng.sp_splice == args.query_len - 1 + (args.visual_tokens or 4)
+    cfg, params, _ = jax_runtime.setup_model(
+        model_dir, visual_tokens=args.visual_tokens or None)
     jworker = JaxContinuousWorker(
         params, cfg, FakeTokenizer(), max_batch=2, max_new_tokens=5,
         seg_len=args.seg_len, query_len=args.query_len,

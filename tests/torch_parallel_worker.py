@@ -261,14 +261,71 @@ def case_stages12(cfg):
             "rows": sum(e.get("rows", 0) for e in timer.history)}
 
 
-def case_refuse(cfg):
-    """``online_generation.run`` of ``cfg``: the error it raises."""
-    from opadpo_torch.pipeline import config, online_generation
-    try:
-        online_generation.run(config.Config(cfg))
-    except ValueError as e:
-        return str(e)
-    return None
+def _drain(eng, requests) -> list:
+    """``requests`` [(ids, mask, image)] through ``eng`` -> each one's
+    tokens, in request order."""
+    rids = [eng.add_request(*r) for r in requests]
+    done = {}
+    while eng.has_work():
+        done.update(eng.step())
+    return [np.asarray(done[r]) for r in rids]
+
+
+def case_tp_pool(params, requests, runs, max_batch=2, seg_len=2, max_new=4):
+    """TP 2: the slot pool's greedy tokens over ``requests`` for each
+    ``(kv_bits, spec_k)`` run, with the collectives each run made."""
+    from opadpo_torch.engine.continuous import ContinuousEngine
+    from opadpo_torch.engine.sampling import SamplingConfig
+    from opadpo_torch.parallel import comm
+    mesh = _mesh(2)
+    model = _model(params, mesh)
+    sampling = SamplingConfig(greedy=True, max_new_tokens=max_new,
+                              eos_token_id=-1, pad_token_id=0)
+    out = {}
+    for kv, spec_k in runs:
+        comm.reset_counts()
+        eng = ContinuousEngine(model, sampling, max_batch=max_batch,
+                               qlen=len(requests[0][0]), seg_len=seg_len,
+                               kv_bits=kv, spec_k=spec_k)
+        out[(kv, spec_k)] = {"tokens": _drain(eng, requests),
+                             "counts": comm.counts()}
+    return out
+
+
+def case_tp_spec(params, ids, mask, images, runs, max_new=6):
+    """TP 2: the speculative Sampler's tokens for each ``(kv_bits,
+    advance, top_k)`` run (greedy at ``top_k`` 0, else top-k sampling from
+    a generator seeded 3 on every rank), with the shapes of every suffix
+    cache the run allocated."""
+    from opadpo_torch.engine.sampler import Sampler
+    from opadpo_torch.engine.sampling import SamplingConfig
+    from opadpo_torch.models import llama
+    mesh = _mesh(2)
+    model = _model(params, mesh)
+    ids, mask, images = map(_t, (ids, mask, images))
+    init = llama.init_suffix_cache
+    out = {}
+    for kv, advance, top_k in runs:
+        shapes = []
+
+        def recording(cfg, batch, n, device):
+            caches = init(cfg, batch, n, device)
+            shapes.append(tuple(caches[0][0].shape))
+            return caches
+
+        sampling = SamplingConfig(greedy=not top_k, top_k=top_k,
+                                  max_new_tokens=max_new, eos_token_id=-1)
+        gen = torch.Generator().manual_seed(3)
+        llama.init_suffix_cache = recording
+        try:
+            with torch.inference_mode():
+                toks = Sampler(sampling, kv_bits=kv, spec_k=3,
+                               spec_advance=advance).generate(
+                    model, ids, mask, images, gen)
+        finally:
+            llama.init_suffix_cache = init
+        out[(kv, advance, top_k)] = {"tokens": _np(toks), "shapes": shapes}
+    return out
 
 
 def main(spec_path: str, out_dir: str) -> None:
