@@ -83,7 +83,7 @@ Phases, each fatal on failure:
      1 + its advances, agreement with step 9's answers reported;
   12. the continuous slot pool behind the serve CLI's ``--continuous``
      worker on the same weights (16 slots, segments of 64, qlen 128, a
-     cap of 256): 32 requests in two bursts with seeded budgets of 16 to
+     cap of 256): 16 requests in two bursts with seeded budgets of 16 to
      256 tokens, on the int8 pool, the int4 pool and with speculative
      segments at k 4; no error, no request over its budget, #1 once per
      CLIP and decoder layer per admission group and #6 / #7 / #8 once per
@@ -124,7 +124,7 @@ Phases, each fatal on failure:
      2 rollouts and 2 steps derive; the temporary directories go in a
      ``finally``;
   17. stages 1-2 from that checkpoint: ``configs/llava_online_generation.
-     yaml`` (batch 8, responses cut to 256 tokens, bf16 KV, top-k 30,
+     yaml`` (batch 8, responses cut to 128 tokens, bf16 KV, top-k 30,
      top-p 0.95), ``online_generation.run`` over 16 seeded prompts given
      in memory, a stub in place of the GPT-4V service (no network) and a
      dummy ``API_KEY``, so the threaded correction path runs: 2 shards,
@@ -134,13 +134,14 @@ Phases, each fatal on failure:
   18. stage 3 from that checkpoint on those rows: ``configs/llava_opa.yaml``
      (r 256 / alpha 512, the vision tower tuned, per-device batch 4,
      accumulation cut to 2, 1 epoch), ``opa_train.train`` through the
-     port's ``SFTDataset`` / ``SFTCollator``: 8 micro-steps of 4 rows of
-     1599 spliced positions, finite losses, ``checkpoint-final`` with
-     moved vision and projector adapters, a decoder-only PEFT directory,
+     port's ``SFTDataset`` / ``SFTCollator`` over the first 8 rows: 4
+     micro-steps of 4 rows of 1599 spliced positions, finite losses,
+     ``checkpoint-final`` with moved vision and projector adapters, a
+     decoder-only PEFT directory,
      ``completed``, and #1-#5 launched as ``expected_sft_launches``
      derives; micro-step time, positions per second and peak memory;
   19. the eval suite from that checkpoint: ``eval.run_all --benchmarks
-     pope`` over three seeded POPE splits of 16 questions (PNG images;
+     pope`` over three seeded POPE splits of 8 questions (PNG images;
      PIL required) at batch 8 and at ``--continuous-slots 16``, then
      ``eval.model_vqa_logit`` on one split, no judge stage: scores, each
      split's time, the answers both modes share, #1 and #6 launched as
@@ -168,7 +169,8 @@ Phases, each fatal on failure:
      of qlen - 1 + 144 positions; the pruned bf16 Sampler's greedy tokens
      against a greedy loop over the pruned full forward, every first
      departure a near-tie and the first token's logits within a bf16
-     limit of the forward's; the prefill's time at 144 and 576 patches;
+     limit of the forward's, beside the unpruned model's same reading;
+     the prefill's time at 144 and 576 patches;
   23. after the multi-GPU phase: the slot pool and speculative decode at
      tensor parallelism 2 on the 13B int4 (one process first, then the
      split-K control in it, then two ranks, over gloo on one card): the
@@ -179,10 +181,19 @@ Phases, each fatal on failure:
      control's and the first-token logits within 1e-3 of the control's,
      #7 / #8 launches per rank as derived; then #6, #7 and #8 at the TP
      pool's shapes against their plain versions;
-  24. one JSON line of the 11 kernels' numbers (with the slot pool's and
+  24. after the eval suite, the port's tools (``opadpo_torch/tools/``) on
+     the same 7B at short depths, each through its ``run(args, model=)``:
+     bench_decode, bench_train (dpo, sft), bench_serve (both modes, then
+     oracle drafts at k 4), bench_spec, bench_quality (int8, int4),
+     profile_decode with summarize_trace on its trace, profile_serving
+     --continuous (int8, spec k 4), profile_train --mode sft, e2e_rehearsal
+     (the four stages and POPE) and bench_image_pipeline; every record's
+     fields finite and positive, the quality and acceptance orderings, and
+     each tool's launches as its shapes derive;
+  25. one JSON line of the 11 kernels' numbers (with the slot pool's and
      the eval suite's launches and the pool-shape times of #1, #6, #7 and
-     #8, and the TP-2 and TP-pool shapes'), the card line, and last
-     ``{"ok": true, "device": {...}}``.
+     #8, the TP-2 and TP-pool shapes', and each tool's launches), the card
+     line, and last ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA GPU and the repository around it: anywhere else it exits
 non-zero before printing any result.  Kernel times are CUDA-event medians
@@ -1682,16 +1693,18 @@ def phase_main_path(card):
 
 ROLLOUT_TOKENS = 896                # configs/llava_online_generation.yaml
 ROLLOUT_CHUNK = 256
+PATH_A_NEW = 384        # the smoke's path-A run: 1.5 chunks, one fold
 
 
 def phase_rollout_decode(model, card):
     """Path A, the rollout recipe's decode served
     (``configs/llava_online_generation.yaml``: int4 prompt KV, int4 head,
-    chunk 256, 896 new tokens at batch 8, temperature 1.0, top-k 30,
-    top-p 0.95): 8 concurrent requests, one batch.  Prompts of qlen 128
-    give 703 positions, an int4 cache preallocated at 768 + 3 x 256 = 1536,
-    four chunks reading to 768, 1024, 1280 and 1536, three folds (fewer if
-    every row ends early: derived from the decode forwards).  #7 must run
+    chunk 256, temperature 1.0, top-k 30, top-p 0.95; PATH_A_NEW new
+    tokens of the recipe's 896) at batch 8: 8 concurrent requests, one
+    batch.  Prompts of qlen 128 give 703 positions, an int4 cache
+    preallocated at 768 + 256 = 1024, two chunks reading to 768 and 1024,
+    one fold (fewer if every row ends early: derived from the decode
+    forwards).  #7 must run
     once per layer per decode forward, #6 and #8 never, #11 (the int4
     head) once per prefill and per decode forward."""
     import torch
@@ -1702,7 +1715,7 @@ def phase_rollout_decode(model, card):
     torch.cuda.reset_peak_memory_stats()
     results, stats, launches, wall = _serve(
         model, cfg, [{"prompt": p} for p in prompts], warm=False,
-        max_batch=8, max_new_tokens=ROLLOUT_TOKENS, kv_bits=4,
+        max_batch=8, max_new_tokens=PATH_A_NEW, kv_bits=4,
         decode_chunk=ROLLOUT_CHUNK, head_bits=4, temperature=1.0, top_k=30,
         top_p=0.95, batch_window_s=0.5)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1715,7 +1728,7 @@ def phase_rollout_decode(model, card):
     q4 = {k: launches[k] for k in want if k.startswith("quant_matmul4")}
     check(q4 == {k: want[k] for k in q4} and q4["quant_matmul4.decode"] > 0,
           f"int4 head launches {q4} != {want}")
-    n_chunks = -(-ROLLOUT_TOKENS // ROLLOUT_CHUNK)
+    n_chunks = -(-PATH_A_NEW // ROLLOUT_CHUNK)
     sp_pad0 = -(-want_pos // 256) * 256
     for s in stats:
         folds = min(s["decode_steps"] // ROLLOUT_CHUNK, n_chunks - 1)
@@ -1774,78 +1787,40 @@ def _server_batch(cfg, prompts, rows, dev):
 def spec_departure(model, prompts, rows=8, max_new=64, k=4):
     """Where speculative greedy (k drafts, ngram, per-row advance, int8 KV:
     the verify kernel #8) first departs from plain greedy (#6) on one
-    server-shaped batch of ``prompts``, decoded from one prefill, and the
-    two numbers that tell rounding from a fault there: plain greedy's
-    top-2 logit gap at that position, and the largest |logits(#8) -
-    logits(#6)| over the vocabulary at it (both paths emitted the same
-    tokens before it).  The departure is rounding only where the gap is
-    the smaller.  Returns the first departure of each row that departs and
-    the verdict."""
+    server-shaped batch of ``prompts``, decoded from one prefill, judged by
+    ``tools/bench_spec``'s recorder and rule (``LogitRecorder``,
+    ``first_departures``): plain greedy's top-2 logit gap at that position
+    against the largest |logits(#8) - logits(#6)| over the vocabulary at it
+    (both paths emitted the same tokens before it); rounding only where
+    the gap is the smaller.  Returns the first departure of each row that
+    departs and the verdict."""
     import torch
 
     from opadpo_torch.engine import speculative
     from opadpo_torch.engine.sampler import Sampler, decode_loop_unrolled
     from opadpo_torch.engine.serving_config import make_serving_sampling
-    from opadpo_torch.models import llava
+    from opadpo_torch.tools.bench_spec import LogitRecorder, first_departures
 
     dev = next(model.parameters()).device
     sampling = make_serving_sampling(greedy=True, max_new_tokens=max_new,
                                      eos_token_id=2, pad_token_id=0)
     ids, mask, images = _server_batch(model.cfg, prompts, rows, dev)
-    rec_plain, rec_spec = [], []
-    step_fn, multi_fn = llava.decode_step_unrolled, llava.decode_step_multi_pr
-
-    def plain_step(*a, **kw):
-        logits, suffix = step_fn(*a, **kw)
-        rec_plain.append(logits.float())
-        return logits, suffix
-
-    def multi_step(*a, **kw):
-        logits, raw = multi_fn(*a, **kw)
-        rec_spec.append(logits.float())
-        return logits, raw
-
     with torch.inference_mode():
         pf = Sampler(sampling, kv_bits=8).prefill(model, ids, mask, images)
         args = (model, pf["kv_list"], pf["key_mask"], pf["next_position"],
                 pf["last_logits"], None, sampling)
-        try:
-            llava.decode_step_unrolled = plain_step
-            llava.decode_step_multi_pr = multi_step
+        with LogitRecorder() as rec:
             out_plain, _ = decode_loop_unrolled(*args)
             out_spec, st = speculative.decode_loop_spec(
                 *args, speculative.SpecConfig(k=k, advance="per_row"))
-        finally:
-            llava.decode_step_unrolled = step_fn
-            llava.decode_step_multi_pr = multi_fn
-    departures = []
-    for b in range(len(prompts)):
-        differ = torch.nonzero(out_plain[b] != out_spec[b])
-        if not len(differ):
-            continue
-        pos = int(differ[0])
-        if pos == 0 or pos > len(rec_plain):
-            continue            # from the shared prefill, or past plain's end
-        lp = rec_plain[pos - 1][b]
-        e = 1
-        for gi, adv in enumerate(st["advances"]):
-            if e <= pos < e + adv[b]:
-                ls = rec_spec[gi][b, pos - e]
-                break
-            e += adv[b]
-        top2 = lp.topk(2).values
-        departures.append({
-            "row": b, "position": pos,
-            "tokens_plain_spec": [int(out_plain[b, pos]),
-                                  int(out_spec[b, pos])],
-            "plain_top2_gap": float(top2[0] - top2[1]),
-            "max_abs_logit_diff": float((ls - lp).abs().max())})
-    rounding = all(d["plain_top2_gap"] < d["max_abs_logit_diff"]
-                   for d in departures)
-    return {"rows_departing": len(departures), "of": len(prompts),
+    n = len(prompts)
+    departures = first_departures(out_plain[:n].cpu(), out_spec[:n].cpu(),
+                                  rec.plain, rec.verify, st["advances"])
+    fault = [d for d in departures if not d.get("near_tie")]
+    return {"rows_departing": len(departures), "of": n,
             "departures": departures,
             "verdict": ("no departure" if not departures else
-                        "rounding" if rounding else "fault")}
+                        "fault" if fault else "rounding")}
 
 
 def phase_spec_serve(model, card, plain_answers):
@@ -2446,8 +2421,9 @@ def phase_pruned_serve(model, card, dirs):
     departure a near-tie (the forward's top-2 gap smaller than the largest
     |logits(Sampler) - logits(forward)| there) and the first token's
     logits within PRUNE_PREFILL_ABS of the forward's (a limit the
-    departures do not set); and the prefill's time at 144 and at 576
-    patches."""
+    departures do not set), beside the same reading on the unpruned model
+    (576 patches, the same rows: bf16 rounding of the two schedules sets
+    both); and the prefill's time at 144 and at 576 patches."""
     import dataclasses
 
     import torch
@@ -2541,6 +2517,18 @@ def phase_pruned_serve(model, card, dirs):
         # the first token's logits: one prefill against one full forward
         prefill_err = max(float((rec.store[(b, 0)] - fwd[(b, 0)]).abs()
                                 .max()) for b in range(8))
+        # the same reading on the unpruned model: 576 patches, same rows
+        model.cfg = full_cfg
+        one = make_serving_sampling(greedy=True, max_new_tokens=1,
+                                    eos_token_id=-1, pad_token_id=0)
+        with torch.inference_mode(), _DecisionLogits() as rec_full:
+            Sampler(one).generate(model, ids, mask, images)
+            lg_full = llava.forward(model, ids, mask, images,
+                                    remat=False)["logits"][:, -1]
+        rec_full.place([(b, 0) for b in range(8)])
+        lg_full = lg_full.float().cpu()
+        full_err = max(float((rec_full.store[(b, 0)] - lg_full[b]).abs()
+                             .max()) for b in range(8))
         times = {}
         s = Sampler(make_serving_sampling(max_new_tokens=1), kv_bits=8)
         for label, c in ((str(PRUNE_K), pruned_cfg),
@@ -2558,7 +2546,10 @@ def phase_pruned_serve(model, card, dirs):
     res["greedy"] = {"rows_equal": int((toks == naive).all(1).sum()),
                      "of": toks.shape[0], "tokens": PRUNE_NEW,
                      "first_departures": deps, "near_ties": near,
-                     "prefill_logits_max_abs_diff": prefill_err}
+                     "prefill_logits_max_abs_diff": prefill_err,
+                     "prefill_logits_max_abs_diff_unpruned": full_err,
+                     "pruned_over_unpruned": prefill_err / max(full_err,
+                                                               1e-30)}
     res["prefill_ms"] = times
     res["seconds"] = time.perf_counter() - t_phase
     log(f"[pruned] --visual-tokens {PRUNE_K}: batch prompts {positions} "
@@ -2567,7 +2558,8 @@ def phase_pruned_serve(model, card, dirs):
         f"{res['greedy']['rows_equal']} of {toks.shape[0]} rows equal to "
         f"the pruned full forward's over {PRUNE_NEW} tokens, {len(deps)} "
         f"first departures, {near} near-ties; first-token logits max "
-        f"|Sampler - forward| {prefill_err:.4g} (limit {PRUNE_PREFILL_ABS}); "
+        f"|Sampler - forward| {prefill_err:.4g} (limit {PRUNE_PREFILL_ABS}), "
+        f"{full_err:.4g} unpruned at {full_cfg.num_patches} patches; "
         f"prefill [8, {qlen}] (ms by patches kept) {times}; phase "
         f"{res['seconds']:.1f} s; card: {card}")
     check(near == len(deps), f"pruned Sampler: first departures from the "
@@ -2883,6 +2875,7 @@ def phase_stage4(cfg, card, dirs, train_res, device="cuda"):
 
 
 STAGE12_ROWS = 16
+STAGE12_NEW = 128           # the sampled responses' length in tokens
 # the stage-3 rows' length in tokens: llava_opa.yaml's query_len 128 plus
 # response_len 896, so the spliced sequence holds 1024 - 1 + 576 = 1599
 SFT_TOKENS = 1024
@@ -2966,7 +2959,7 @@ class CorrectorStub:
 def phase_stages12(cfg, card, dirs, device="cuda"):
     """Stages 1-2 from the checkpoint: ``configs/llava_online_generation.
     yaml`` through the port's reader with overrides (the checkpoint and
-    the CLIP directory, batch 8, ``response_len`` 256; the rest the
+    the CLIP directory, batch 8, ``response_len`` STAGE12_NEW; the rest the
     recipe: bf16 KV, temperature 1, top-k 30, top-p 0.95), and
     ``online_generation.run`` over 16 seeded prompt rows given in memory
     (``QueryDataset`` / ``QueryCollator``), with ``CorrectorStub`` in place
@@ -2996,7 +2989,8 @@ def phase_stages12(cfg, card, dirs, device="cuda"):
         ROOT, "configs", "llava_online_generation.yaml")), [
         f"base_model={dirs['llava']}", f"image_checkpoint={dirs['clip']}",
         "training.rollout_per_device_batch_size=8",
-        "training.response_len=256", f"training.output_dir={out}",
+        f"training.response_len={STAGE12_NEW}",
+        f"training.output_dir={out}",
         f"training.device={dev.type}"])
     stub = CorrectorStub(n_words)
     saved_env = {k: os.environ.pop(k) for k in _STAGE_ENV if k in os.environ}
@@ -3059,12 +3053,16 @@ def phase_stages12(cfg, card, dirs, device="cuda"):
            "kept_rows": len(merged), "launches": launches,
            "images": "pil" if have_pil else "seeded", "card": card}
     log(f"[stages12] run() {wall:.1f} s (load, 2 steps of 8 rows sampled to "
-        f"256 tokens at {[round(x, 2) for x in sample_s]} s, 16 stubbed "
-        f"corrections); response words {resp_words}; a second run returned "
+        f"{STAGE12_NEW} tokens at {[round(x, 2) for x in sample_s]} s, 16 "
+        f"stubbed corrections); response words {resp_words}; a second run returned "
         f"in {again_s:.2f} s; merge_and_filter kept {len(merged)}; card: "
         f"{card}")
     log(f"[stages12] {json.dumps(res)}")
     return res, merged, n_words
+
+
+# the OPA rows stage 3 trains on: 2 examples a row, 4 micro-steps of 4
+STAGE3_ROWS = 8
 
 
 def phase_stage3(cfg, card, dirs, merged, n_words, device="cuda"):
@@ -3072,10 +3070,11 @@ def phase_stage3(cfg, card, dirs, merged, n_words, device="cuda"):
     port's reader with overrides (the checkpoint and the CLIP directory,
     r 256 / alpha 512, 1 epoch, logging every micro-step; the recipe's
     per-device batch 4 and ``tune_vision_tower``, accumulation cut from 8
-    to 2), ``opa_train.train`` over ``merge_and_filter``'s 16 rows as the
-    OPA dataset's columns hold them, through the port's ``SFTDataset`` /
-    ``SFTCollator`` (32 examples: 8 micro-steps of 4 rows of 1024 tokens,
-    1599 spliced positions, 4 optimizer steps): a finite log line per
+    to 2), ``opa_train.train`` over the first STAGE3_ROWS of
+    ``merge_and_filter``'s 16 rows as the OPA dataset's columns hold them,
+    through the port's ``SFTDataset`` / ``SFTCollator`` (16 examples: 4
+    micro-steps of 4 rows of 1024 tokens, 1599 spliced positions, 2
+    optimizer steps): a finite log line per
     micro-step; ``checkpoint-final`` whose ``adapter_full.pt`` holds vision
     and projector adapters whose B factors moved from zero, a PEFT
     directory with the decoder's entries only, ``completed``; #1-#5
@@ -3093,7 +3092,7 @@ def phase_stage3(cfg, card, dirs, merged, n_words, device="cuda"):
     have_pil = _have_pil()
     tok = WordTokenizer()
     cols = dataset_ops.opa_columns(merged)
-    rows = [dict(zip(cols, v)) for v in zip(*cols.values())]
+    rows = [dict(zip(cols, v)) for v in zip(*cols.values())][:STAGE3_ROWS]
     dataset = _pixel_class(SFTDataset, have_pil)(
         rows, tok, query_len=128, response_len=896,
         image_size=cfg.vision.image_size)
@@ -3138,7 +3137,7 @@ def phase_stage3(cfg, card, dirs, merged, n_words, device="cuda"):
     gc.collect()
     _empty_cache(dev)
     micro = len(dataset) // 4
-    check(len(timer.history) == micro == 8,
+    check(len(timer.history) == micro == STAGE3_ROWS // 2,
           f"{len(timer.history)} micro-steps, expected {micro}")
     with open(os.path.join(out, "train_log.jsonl")) as f:
         lines = [json.loads(x) for x in f]
@@ -3177,8 +3176,8 @@ def phase_stage3(cfg, card, dirs, merged, n_words, device="cuda"):
            "checkpoint_gb": _gb(_dir_bytes(final)),
            "launches_per_micro_step": per, "launches": launches,
            "images": "pil" if have_pil else "seeded", "card": card}
-    log(f"[stage3] train() {wall:.1f} s (load, 8 micro-steps of 4 x 1599 "
-        f"spliced positions, checkpoint-final {res['checkpoint_gb']:.2f} "
+    log(f"[stage3] train() {wall:.1f} s (load, {micro} micro-steps of 4 x "
+        f"1599 spliced positions, checkpoint-final {res['checkpoint_gb']:.2f} "
         f"GB); micro-step {[round(x, 3) for x in step_s]} s (median after "
         f"the first {med:.3f} s, {positions / med:.0f} positions/s); peak "
         f"{peak_gb:.2f} GB ({base_gb:.2f} GB held before train()); losses "
@@ -3251,7 +3250,7 @@ def phase_13b_int4(card):
 # the 13B tensor-parallel rollout: rows and new tokens (greedy, int4 KV and
 # head), and its prompts (the serving phase's shape: qlen 128, black images)
 TP_ROWS = 8
-TP_NEW = 64
+TP_NEW = 16
 TP_PROMPTS = tuple(f"Describe object {i} in the image in detail, with its "
                    f"colour, shape and place." for i in range(TP_ROWS))
 # the bf16 tolerance the one-rank NCCL run is held to against phase_stage4
@@ -4203,17 +4202,21 @@ def phase_multi_gpu(card, dirs, root, stage4, g):
 
 # -- tensor parallelism of the slot pool and of speculative decode -----------
 
-# the 13B TP-2 pool runs (greedy, qlen 128): the rollout's 16 prompt rows
-# through an int4 pool of 8 slots, responses cut to 24 tokens, segments of
-# 12; 8 requests with seeded budgets of 16 to 24 tokens through an int8
-# pool of 16 slots with speculative segments at k 4, segments of 32; the
-# Sampler at k 4 on the 8 TP_PROMPTS rows, 24 tokens, with each advance
+# the 13B TP-2 pool runs (greedy, qlen 128): the rollout's first 8 prompt
+# rows through an int4 pool of 4 slots in two waves, responses cut to 16
+# tokens, segments of 8 (each row decodes across a fold); 4 requests with
+# budgets of 16 tokens through an int8 pool of 16 slots with speculative
+# segments at k 4, segments of 32; the Sampler at k 4 on the first 2
+# TP_PROMPTS rows, 16 tokens, with each advance (an admission prefill of
+# 4 rows moves ~4.6 GB through gloo all_reduce)
 # (few and short: the ranks may share one card over gloo, so the part
 # checks correctness, not speed, inside the smoke's time limit)
-TPP_SLOTS = 8
-TPP_NEW = 24
-TPP_SEG = 12
-TPP_SPEC_REQUESTS = 8
+TPP_SLOTS = 4
+TPP_NEW = 16
+TPP_SEG = 8
+TPP_SPEC_REQUESTS = 4
+TPP_ROLLOUT_ROWS = 8    # two waves through the TPP_SLOTS slots
+TPP_SAMPLER_ROWS = 2
 TPP_SPEC_SLOTS = 16
 TPP_SPEC_SEG = 32
 TPP_K = 4
@@ -4248,8 +4251,8 @@ def _tpp_requests(cfg):
 def _tpp_rollout_config(model_dir, out, model: int):
     """``configs/llava_online_generation.yaml`` on the 13B config directory
     drawn into int4 from seed 0: the int4 pool of TPP_SLOTS slots, greedy
-    (top-k 1), responses of TPP_NEW tokens, the 16 rows in one loader
-    batch, ``mesh.model`` ``model``."""
+    (top-k 1), responses of TPP_NEW tokens, TPP_ROLLOUT_ROWS rows in one
+    loader batch, ``mesh.model`` ``model``."""
     from opadpo_torch.pipeline.config import apply_overrides, load_config
 
     return apply_overrides(load_config(os.path.join(
@@ -4283,7 +4286,7 @@ def _tpp_runs(model, mesh, model_dir, out):
         make_continuous_engine, make_serving_sampling,
     )
     from opadpo_torch.parallel import comm
-    from opadpo_torch.pipeline import online_generation
+    from opadpo_torch.pipeline import online_generation, runtime
 
     cfg, dev = model.cfg, next(model.parameters()).device
     counters = _counters()
@@ -4308,8 +4311,8 @@ def _tpp_runs(model, mesh, model_dir, out):
     have_pil = _have_pil()
     tok = WordTokenizer()
     dataset = _pixel_class(QueryDataset, have_pil)(
-        _stage12_rows(have_pil, 8), tok, query_len=TPP_QLEN,
-        image_size=cfg.vision.image_size)
+        _stage12_rows(have_pil, 8)[:TPP_ROLLOUT_ROWS], tok,
+        query_len=TPP_QLEN, image_size=cfg.vision.image_size)
     module = {"train_dataset": dataset, "eval_dataset": None,
               "data_collator": QueryCollator()}
     stub = CorrectorStub(8)
@@ -4322,10 +4325,10 @@ def _tpp_runs(model, mesh, model_dir, out):
         return cfg, model, mesh
 
     saved_env = {k: os.environ.pop(k) for k in _STAGE_ENV if k in os.environ}
-    saved = online_generation.setup_model, online_generation.get_api_service
+    saved = runtime.setup_model, online_generation.get_api_service
     try:
         os.environ["API_KEY"] = "smoke-dummy"
-        online_generation.setup_model = cached_setup
+        runtime.setup_model = cached_setup
         online_generation.get_api_service = (
             lambda rank=0, cache_path="": stub)
         with _DecisionLogits() as rec:
@@ -4335,13 +4338,15 @@ def _tpp_runs(model, mesh, model_dir, out):
                 tokenizer=tok, data_module=module)
             launches = finish("rollout", t0, rec)
     finally:
-        online_generation.setup_model, online_generation.get_api_service = \
-            saved
+        runtime.setup_model, online_generation.get_api_service = saved
         os.environ.pop("API_KEY", None)
         os.environ.update(saved_env)
     eng = rec.engine
     check(eng is not None and eng.kv_bits == 4 and eng.b == TPP_SLOTS,
           "the rollout did not run the int4 pool")
+    check(sum(eng.stats["admit_groups"]) == TPP_ROLLOUT_ROWS > TPP_SLOTS,
+          f"the rollout's {TPP_ROLLOUT_ROWS} rows did not reuse the "
+          f"{TPP_SLOTS} slots (admission groups {eng.stats['admit_groups']})")
     _check_pool_launches(cfg, eng.stats, launches, "decode_attention_int4",
                          "TP pool rollout")
     res["rollout"].update(
@@ -4375,20 +4380,22 @@ def _tpp_runs(model, mesh, model_dir, out):
         spec=dict(eng.spec_stats), s_total=eng.s_total)
 
     # (iii) the speculative Sampler, each advance
-    ids, mask, images = _server_batch(cfg, list(TP_PROMPTS), TP_ROWS, dev)
+    ids, mask, images = _server_batch(cfg, list(TP_PROMPTS[:TPP_SAMPLER_ROWS]),
+                                      TPP_SAMPLER_ROWS, dev)
     for adv in ("shared", "per_row"):
         sampler = Sampler(sampling, kv_bits=8, spec_k=TPP_K,
                           spec_advance=adv)
         with torch.inference_mode(), _DecisionLogits() as rec:
             t0 = start()
             toks = sampler.generate(model, ids, mask, images)
-            rec.place([(b, 0) for b in range(TP_ROWS)])
+            rec.place([(b, 0) for b in range(TPP_SAMPLER_ROWS)])
             launches = finish(f"sampler_{adv}", t0, rec)
         stats = list(sampler.stats)
         _check_attention_launches(cfg, stats, launches,
                                   "decode_attention_multi")
         res[f"sampler_{adv}"].update(
-            tokens=toks.cpu().tolist(), budgets=[TPP_NEW] * TP_ROWS,
+            tokens=toks.cpu().tolist(),
+            budgets=[TPP_NEW] * TPP_SAMPLER_ROWS,
             forwards=stats[-1]["decode_steps"],
             accepted_drafts=stats[-1]["accepted_drafts"])
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -4427,8 +4434,9 @@ def _tpp_kernel_cases(g, flush, runs):
     """#8 at the TP Sampler's verify shape ([8, 20, 768, 128], G 5) and
     over the TP spec pool ([16, 20, s_total, 128], G 5) at the watermarks
     it visited, #6 over the same pool, and #7 over the TP rollout's packed
-    int4 pool ([8, 20, s_total / 2, 128]) at its watermarks, each against
-    its plain version (``runs``: a rank's ``_tpp_runs`` results)."""
+    int4 pool ([TPP_SLOTS, 20, s_total / 2, 128]) at its watermarks, each
+    against its plain version (``runs``: a rank's ``_tpp_runs``
+    results)."""
     import torch
 
     from opadpo_torch.ops import decode_attention as da
@@ -4595,7 +4603,7 @@ def phase_tp_pool(card, root, g):
             f"{r0[part]['forwards']} forwards; launches rank 0 "
             f"{r0[part]['launches']}; collectives rank 0 "
             f"{r0[part]['collectives']}; card: {card}")
-    check(r0["rollout"]["corrections"] == STAGE12_ROWS
+    check(r0["rollout"]["corrections"] == TPP_ROLLOUT_ROWS
           and r1["rollout"]["corrections"] == 0,
           f"TP rollout corrections {r0['rollout']['corrections']} / "
           f"{r1['rollout']['corrections']}: model rank 0 corrects every row")
@@ -4621,8 +4629,9 @@ def phase_tp_pool(card, root, g):
 POOL_SLOTS = 16
 POOL_SEG = 64
 POOL_QLEN = 128
-POOL_MAX_NEW = 256
-POOL_REQUESTS = 32          # two bursts of 16
+POOL_MAX_NEW = 96
+POOL_REQUESTS = 24
+POOL_BURST = 20             # the first burst overfills the pool by 4
 
 
 def _per_prefill(cfg) -> int:
@@ -4638,6 +4647,7 @@ def _stats_delta(after: dict, before: dict) -> dict:
             "forwards": after["forwards"] - before["forwards"],
             "tokens": after["tokens"] - before["tokens"],
             "admit_groups": after["admit_groups"][len(before["admit_groups"]):],
+            "full_queued": after["full_queued"] - before["full_queued"],
             "sp_used": {su: n - before["sp_used"].get(su, 0)
                         for su, n in after["sp_used"].items()
                         if n > before["sp_used"].get(su, 0)}}
@@ -4763,8 +4773,11 @@ def phase_continuous_reference():
 
 
 def _continuous_requests():
-    """The 32 requests: prompts of 8 to 40 words, budgets drawn from a
-    seed between 16 and 256 tokens."""
+    """The POOL_REQUESTS requests: prompts of 8 to 40 words, budgets
+    drawn from a seed between POOL_SEG + 1 and POOL_MAX_NEW tokens: no
+    request ends within its first segment (an EOS aside), so the first
+    burst leaves the pool full with requests queued, whenever they
+    arrive in the first segment."""
     import random
 
     rng = random.Random(15)
@@ -4772,14 +4785,15 @@ def _continuous_requests():
     for i in range(POOL_REQUESTS):
         words = " ".join(f"detail{j}" for j in range(rng.randint(0, 32)))
         reqs.append({"prompt": f"Describe object {i} in the image. {words}",
-                     "max_new_tokens": rng.randint(16, POOL_MAX_NEW)})
+                     "max_new_tokens": rng.randint(POOL_SEG + 1,
+                                                   POOL_MAX_NEW)})
     return reqs
 
 
-def _serve_continuous(worker, reqs, label):
+def _serve_continuous(worker, reqs, label, burst=None):
     """``reqs`` over HTTP to a ContinuousWorker, after one warm-up request:
-    the first half at once, the second half as soon as the first answer
-    comes back.  -> (responses, per-request seconds, the engine's stats
+    the first ``burst`` (by default half) at once, the rest as soon as the
+    first answer comes back.  -> (responses, per-request seconds, the engine's stats
     over these requests, the kernel counters, wall s, peak GB)."""
     import torch
     from http.server import ThreadingHTTPServer
@@ -4810,10 +4824,11 @@ def _serve_continuous(worker, reqs, label):
 
         t_start = time.perf_counter()
         threads = [threading.Thread(target=go, args=(i,)) for i in range(n)]
-        for th in threads[:n // 2]:
+        burst = n // 2 if burst is None else burst
+        for th in threads[:burst]:
             th.start()
         first.wait(timeout=600)
-        for th in threads[n // 2:]:
+        for th in threads[burst:]:
             th.start()
         for th in threads:
             th.join(timeout=900)
@@ -4850,12 +4865,16 @@ def _pct(xs, p):
 def phase_continuous(model, card):
     """The serve CLI's ``--continuous`` worker (``serve.parse_args`` and
     ``make_worker`` over the in-memory 7B, greedy): 16 slots, segments of
-    64, qlen 128, a cap of 256, behind the HTTP server, 32 requests in two
-    bursts with budgets from a seed in [16, 256], three times: the int8
+    64, qlen 128, a cap of POOL_MAX_NEW, behind the HTTP server,
+    POOL_REQUESTS requests with budgets from a seed in [POOL_SEG + 1,
+    POOL_MAX_NEW],
+    POOL_BURST at once and the rest when the first answer comes back, so
+    requests queue behind a full pool, three times: the int8
     pool (#1, #6), the packed int4 pool (#7) and speculative segments at
     k 4 (#8).  Each run: no error response, no request over its budget,
-    #1 once per CLIP and decoder layer per admission group and the decode
-    kernel once per decoder layer per segment forward; generated tokens/s,
+    #1 once per CLIP and decoder layer per admission group, the decode
+    kernel once per decoder layer per segment forward, and at least one
+    segment run with every slot live and requests queued; generated tokens/s,
     per-request latency p50 / p99, segments, folds, admission groups,
     watermarks and peak memory."""
     import collections
@@ -4878,9 +4897,11 @@ def phase_continuous(model, card):
         args = serve.parse_args(base + extra)
         worker = serve.make_worker(args, model, cfg, WordTokenizer())
         results, secs, delta, launches, wall, peak = _serve_continuous(
-            worker, reqs, f"continuous {label}")
+            worker, reqs, f"continuous {label}", burst=POOL_BURST)
         derived = _check_pool_launches(cfg, delta, launches, kernel,
                                        f"continuous {label}")
+        check(delta["full_queued"] >= 1, f"continuous {label}: no segment "
+              f"ran with every slot live and requests queued ({delta})")
         tokens = sum(r["new_tokens"] for r in results)
         texts[label] = [r["text"] for r in results]
         res[label] = {
@@ -4888,6 +4909,7 @@ def phase_continuous(model, card):
             "wall_s": wall, "latency_p50_s": _pct(secs, 50),
             "latency_p99_s": _pct(secs, 99), "segments": delta["segments"],
             "folds": delta["folds"], "forwards": delta["forwards"],
+            "full_queued": delta["full_queued"],
             "admit_groups": dict(collections.Counter(delta["admit_groups"])),
             "sp_used": delta["sp_used"], "peak_gb": peak,
             "launches": {k: launches[k] for k in derived}, "card": card,
@@ -4899,7 +4921,8 @@ def phase_continuous(model, card):
             f"{res[label]['generated_tok_per_s']:.1f} generated tok/s, "
             f"latency p50 {res[label]['latency_p50_s']:.2f} s p99 "
             f"{res[label]['latency_p99_s']:.2f} s, {delta['segments']} "
-            f"segments, {delta['folds']} folds, admission groups "
+            f"segments ({delta['full_queued']} full with requests queued), "
+            f"{delta['folds']} folds, admission groups "
             f"{res[label]['admit_groups']}, watermarks {delta['sp_used']}, "
             f"peak {peak:.2f} GB; launches {res[label]['launches']}; card: "
             f"{card}")
@@ -4921,24 +4944,22 @@ def phase_continuous(model, card):
 def _judge_spec_departures(model, reqs, texts):
     """Queue 3's check on the pool's spec-against-int8 comparison: the
     requests whose spec k 4 answer differs from the int8 pool's, re-decoded
-    in server batches of up to 16 (their prompts, the largest of their
-    budgets) by ``spec_departure``, each first departure judged there: a
-    near-tie where plain greedy's top-2 logit gap is smaller than the
-    largest |logits(#8) - logits(#6)| at it."""
+    in one server batch (their prompts, the largest of their budgets) by
+    ``spec_departure``, each first departure judged there: a near-tie
+    where plain greedy's top-2 logit gap is smaller than the largest
+    |logits(#8) - logits(#6)| at it (unjudged counts as no near-tie)."""
     departing = [i for i, (a, b) in enumerate(zip(texts["int8"],
                                                   texts["spec k4"]))
                  if a != b]
     judged = []
-    for start in range(0, len(departing), POOL_SLOTS):
-        group = departing[start:start + POOL_SLOTS]
-        d = spec_departure(model, [reqs[j]["prompt"] for j in group],
-                           rows=POOL_SLOTS,
+    if departing:
+        d = spec_departure(model, [reqs[j]["prompt"] for j in departing],
+                           rows=len(departing),
                            max_new=max(reqs[j]["max_new_tokens"]
-                                       for j in group))
-        for dep in d["departures"]:
-            judged.append({**dep, "request": group[dep["row"]],
-                           "near_tie": dep["plain_top2_gap"]
-                           < dep["max_abs_logit_diff"]})
+                                       for j in departing))
+        judged = [{**dep, "request": departing[dep["row"]],
+                   "near_tie": bool(dep.get("near_tie"))}
+                  for dep in d["departures"]]
     return {"requests_departing": len(departing),
             "departures_judged": len(judged),
             "near_ties": sum(d["near_tie"] for d in judged),
@@ -5007,11 +5028,12 @@ def phase_pool_kernels(g, res):
 
 
 POPE_SPLITS = ("random", "popular", "adversarial")
-POPE_QUESTIONS = 16
+POPE_QUESTIONS = 8
 
 
 def _pope_data(root):
-    """Three seeded POPE splits of 16 questions with their PNG images."""
+    """Three seeded POPE splits of POPE_QUESTIONS questions with their PNG
+    images."""
     import random
 
     import numpy as np
@@ -5041,7 +5063,7 @@ def _pope_data(root):
 
 def phase_eval(cfg, card, dirs, root):
     """The eval suite from the 7B checkpoint on disk:
-    ``eval.run_all --benchmarks pope`` over three seeded POPE splits of 16
+    ``eval.run_all --benchmarks pope`` over three seeded POPE splits of 8
     questions (PNG images through PIL), at batch 8 (bf16 cache: #1 per
     prefill, no decode kernel) and again at ``--continuous-slots 16`` (#1
     per admission group, #6 per decoder layer per segment forward), then
@@ -5074,7 +5096,8 @@ def phase_eval(cfg, card, dirs, root):
         torch.cuda.empty_cache()
         if mode == "batch":
             n_pf = sum(len(r["batches"]) for r in runs.values())
-            check(n_pf == 3 * 2, f"eval batch: {n_pf} prefills")
+            check(n_pf == 3 * -(-POPE_QUESTIONS // 8),
+                  f"eval batch: {n_pf} prefills")
             want = {"flash_fwd": n_pf * per,
                     **{k: 0 for k in DECODE_KERNELS}}
         else:
@@ -5120,7 +5143,8 @@ def phase_eval(cfg, card, dirs, root):
     launches = _read(counters)
     gc.collect()
     torch.cuda.empty_cache()
-    check(launches["flash_fwd"] == 2 * per and not any(
+    n_pf = -(-POPE_QUESTIONS // 8)
+    check(launches["flash_fwd"] == n_pf * per and not any(
         launches[k] for k in DECODE_KERNELS),
         f"logit readout launches {launches}")
     lines = [json.loads(line) for line in open(logit_file)]
@@ -5133,6 +5157,419 @@ def phase_eval(cfg, card, dirs, root):
     log(f"[eval] {POPE_QUESTIONS * 3} POPE answers, {agree} equal in both "
         f"modes; logit readout {json.dumps(res['logit'])}; card: {card}")
     return res
+
+
+# the tools' phase: opadpo_torch/tools/ on the 7B the smoke holds
+TOOLS_DECODE_STEPS = 32
+TOOLS_SERVE_REQUESTS = 8
+TOOLS_SERVE_NEW = 32
+TOOLS_SPEC_STEPS = 32
+TOOLS_QUALITY_LEN = 64
+TOOLS_PROFILE_STEPS = 16
+TOOLS_POOL_REQUESTS = 16
+TOOLS_POOL_SEG = 16
+TOOLS_COSINE_INT8 = 0.999
+TOOL_NAMES = ("bench_decode", "bench_train_dpo", "bench_train_sft",
+              "bench_serve", "bench_serve_spec", "bench_spec",
+              "bench_quality", "profile_decode", "profile_serving",
+              "profile_train", "e2e_rehearsal", "bench_image_pipeline")
+
+
+def _positive(rec, label, *paths):
+    """Every number at the dotted ``paths`` of ``rec`` finite and > 0."""
+    for path in paths:
+        node = rec
+        for key in path.split("."):
+            node = node.get(key) if isinstance(node, dict) else None
+        check(isinstance(node, (int, float)) and math.isfinite(node)
+              and node > 0, f"{label}: {path} = {node!r}")
+
+
+def _check_want(launches, want, label):
+    for key, n in want.items():
+        check(launches[key] == n, f"{label}: {key} launches {launches[key]}"
+              f", derived {n}")
+
+
+def _attention_want(cfg, prefills, forwards, decode=None) -> dict:
+    """#1 once per CLIP and decoder layer per prefill; the ``decode``
+    kernel once per decoder layer per decode forward, the others never."""
+    want = {"flash_fwd": prefills * _per_prefill(cfg)}
+    for key in DECODE_KERNELS:
+        want[key] = cfg.llama.num_layers * forwards if key == decode else 0
+    return want
+
+
+def _train_want(cfg, rollouts=0, dpo_steps=0, sft_steps=0, dpo=None):
+    """#1-#5 over ``rollouts`` rollout_score calls, ``dpo_steps``
+    dpo_train_steps (the loss and its backward) and ``sft_steps``
+    sft_train_steps with the vision adapter."""
+    from opadpo_torch.engine.dpo import DpoConfig
+    from opadpo_torch.engine.sft import SftConfig
+
+    dpo = dpo or DpoConfig()
+    want = dict.fromkeys(("flash_fwd", "scatter_heads", "flash_bwd_dq",
+                          "flash_bwd_dkv", "gather_heads"), 0)
+    for n, per in ((rollouts, expected_launches(cfg, dpo, False)),
+                   (dpo_steps, expected_launches(cfg, dpo, True)),
+                   (sft_steps, expected_sft_launches(cfg, SftConfig(),
+                                                     True))):
+        for k, v in per.items():
+            want[k] += n * v
+    return want
+
+
+def _meta_quantized(cfg, bits):
+    """``cfg``'s model quantized to ``bits`` on the meta device (no
+    memory): the block linears' widths and shapes, for derived counts."""
+    import torch
+
+    from opadpo_torch.models import llava
+    from opadpo_torch.ops import quant
+
+    with torch.device("meta"):
+        model = llava.Llava(cfg)
+    return quant.quantize_params(model, bits)
+
+
+def _quality_want(model, rec) -> dict:
+    """The launches of ``bench_quality`` on the bf16 ``model``: the bf16
+    scoring pass twice, one rollout_score and one loss-and-gradient pass at
+    the gradient length; each quantized mode's scoring pass (#9 / #11 on
+    every block linear: CLIP at 577 rows, the decoder's prefix and its
+    response stream) and loss-and-gradient pass (``expected_quant_train``);
+    then the decode section on the int8 weights: one prefill (#9 on the
+    CLIP and decoder rows), four first decode steps (#9 at one row each;
+    #6 over the int8 cache, #7 over the int4 one, #11 in the int4 head)."""
+    import dataclasses
+
+    from opadpo_torch.engine.dpo import DpoConfig
+
+    cfg, b = model.cfg, rec["batch"]
+    r = rec["response_len"]
+    g_len = rec["scoring"]["bf16"]["grad_response_len"]
+    dpo_g = DpoConfig(response_len=g_len)
+    score = dataclasses.replace(DpoConfig(response_len=r), CoPO=False)
+    modes = rec["modes"]
+    want = dict.fromkeys(("flash_fwd", "scatter_heads", "flash_bwd_dq",
+                          "flash_bwd_dkv", "gather_heads"), 0)
+    for n, per in ((2 + len(modes), expected_launches(cfg, score, False)),
+                   (1, expected_launches(cfg, dpo_g, False)),
+                   (1 + len(modes), expected_launches(cfg, dpo_g, True))):
+        for k, v in per.items():
+            want[k] += n * v
+    counts = dict.fromkeys(QUANT_KEYS, 0)
+    prefix = b * (cfg.num_patches + 127)
+    for name in modes:
+        qm = _meta_quantized(cfg, 4 if name == "int4" else 8)
+        clip, dec, _ = _quant_layers(qm)
+        _add(counts, clip, b * (cfg.num_patches + 1))
+        _add(counts, dec, prefix)
+        _add(counts, dec, 3 * b * r)
+        for k, v in expected_quant_train(qm, dpo_g, b, True).items():
+            counts[k] += v
+    clip, dec, _ = _quant_layers(_meta_quantized(cfg, 8))
+    _add(counts, clip, cfg.num_patches + 1)
+    _add(counts, dec, rec["decode"]["prompt_positions"])
+    _add(counts, dec, 1, 4)
+    v, d = model.llama.lm_head.weight.shape
+    _add(counts, [types.SimpleNamespace(bits=4, out_features=v,
+                                        in_features=d)], 1)
+    want["flash_fwd"] += _per_prefill(cfg)
+    want.update(decode_attention_int8=cfg.llama.num_layers,
+                decode_attention_int4=cfg.llama.num_layers,
+                decode_attention_multi=0)
+    return {**want, **counts}
+
+
+def phase_tools(model, card, root):
+    """``opadpo_torch/tools/`` on the 7B bf16 model the smoke holds, each
+    tool's ``run(args, model=...)`` at a short depth, its launches counted
+    from 0: bench_decode (kv 8, 32 steps), bench_train (dpo, then sft: one
+    warm-up and one timed iteration), bench_serve (8 requests, max-new
+    32, both modes, then the pool with oracle drafts at k 4), bench_spec
+    (32 steps, accept rates 1.0 and 0.6, int4 head), bench_quality
+    (responses of 64, int8 and int4), profile_decode (int4 cache and
+    head, 32 steps) and summarize_trace on its trace, profile_serving
+    --continuous (the int8 pool, then spec k 4, 16 requests),
+    profile_train --mode sft, e2e_rehearsal at 7B width (4 prompts, 32
+    tokens, 1 DPO step, 4 POPE questions) and bench_image_pipeline.  Every
+    record's times finite and positive; bf16 against itself 0, int8 nearer
+    bf16 than int4 and its gradient cosine >= TOOLS_COSINE_INT8;
+    bench_spec at accept 1.0 emitting more a group than at 0.6, and greedy
+    speculative decode equal to plain greedy, or each first departure a
+    near-tie (the Queue 3 judgement); the oracle pool accepting drafts;
+    the profiled decode kernel among summarize_trace's top kernels; each
+    tool's launches as its shapes derive."""
+    import torch
+
+    from opadpo_torch.engine.dpo import DpoConfig
+    from opadpo_torch.tools import (
+        bench_decode, bench_image_pipeline, bench_quality, bench_serve,
+        bench_spec, bench_train, e2e_rehearsal, profile_decode,
+        profile_serving, profile_train, summarize_trace,
+    )
+
+    t_phase = time.perf_counter()
+    cfg, layers = model.cfg, model.cfg.llama.num_layers
+    per = _per_prefill(cfg)
+    out = os.path.join(root, "tools")
+    os.makedirs(out, exist_ok=True)
+    counters = _counters()
+    res = {"card": card, "seconds": {}, "launches": {}}
+
+    def tool(name, mod, argv):
+        args = mod.parse_args(argv)
+        _reset(counters)
+        t0 = time.perf_counter()
+        rec = mod.run(args, model=model)
+        torch.cuda.synchronize()
+        res["seconds"][name] = time.perf_counter() - t0
+        launches = _read(counters)
+        res["launches"][name] = {k: v for k, v in launches.items() if v}
+        gc.collect()
+        torch.cuda.empty_cache()
+        return rec, launches
+
+    def no_quant(launches, label):
+        _check_want(launches, dict.fromkeys(QUANT_KEYS, 0), label)
+
+    # bench_decode: one warm-up and one timed prefill + 32 steps, kv 8
+    rec, ln = tool("bench_decode", bench_decode, [
+        "--bits", "16", "--kv-bits", "8", "--head-bits", "16",
+        "--steps", str(TOOLS_DECODE_STEPS), "--batch", "4"])
+    _positive(rec, "bench_decode", "steps_per_sec", "tokens_per_sec",
+              "ms_per_step", "prefill_ms", "peak_gb")
+    _check_attention_launches(cfg, rec["runs"], ln)
+    no_quant(ln, "bench_decode")
+    res["bench_decode"] = {k: rec[k] for k in (
+        "steps_per_sec", "tokens_per_sec", "ms_per_step", "prefill_ms",
+        "peak_gb")}
+
+    # bench_train: dpo then sft, 1 warm-up + 1 timed iteration each
+    for mode in ("dpo", "sft"):
+        name = f"bench_train_{mode}"
+        rec, ln = tool(name, bench_train, [
+            "--mode", mode, "--bits", "16", "--act-bits", "16",
+            "--batch", "2", "--lora-rank", "64", "--iters", "1"])
+        _positive(rec, name, "seconds_per_step", "first_iter_s", "peak_gb")
+        check(rec["finite"], f"{name}: loss {rec['loss']}")
+        ran = rec["ran"]
+        _check_want(ln, _train_want(cfg, ran.get("rollouts", 0),
+                                    ran.get("dpo_steps", 0),
+                                    ran.get("sft_steps", 0)), name)
+        no_quant(ln, name)
+        res[name] = {k: rec[k] for k in ("seconds_per_step", "first_iter_s",
+                                         "peak_gb", "loss")}
+
+    # bench_serve: both modes, then the pool with oracle drafts
+    serve_argv = ["--bits", "16", "--head-bits", "16", "--kv-bits", "8",
+                  "--slots", "16", "--requests", str(TOOLS_SERVE_REQUESTS),
+                  "--max-new", str(TOOLS_SERVE_NEW)]
+    rec, ln = tool("bench_serve", bench_serve,
+                   serve_argv + ["--mode", "both"])
+    _positive(rec, "bench_serve", "continuous.tokens_per_sec",
+              "continuous.latency_p50_s", "continuous.latency_p95_s",
+              "batch_sync.tokens_per_sec", "batch_sync.latency_p50_s",
+              "continuous_speedup")
+    pool, batches = rec["ran"]["pool"], rec["ran"]["prefills"]
+    _check_want(ln, _attention_want(
+        cfg, sum(len(p["admit_groups"]) for p in pool) + len(batches),
+        sum(p["forwards"] for p in pool)
+        + sum(s["decode_steps"] for s in batches),
+        "decode_attention_int8"), "bench_serve")
+    no_quant(ln, "bench_serve")
+    res["bench_serve"] = {m: {k: rec[m][k] for k in (
+        "tokens_per_sec", "latency_mean_s", "latency_p50_s",
+        "latency_p95_s")} for m in ("continuous", "batch_sync")}
+    res["bench_serve"]["continuous_speedup"] = rec["continuous_speedup"]
+    rec, ln = tool("bench_serve_spec", bench_serve, serve_argv + [
+        "--mode", "continuous", "--spec-k", "4", "--spec-draft", "oracle"])
+    _positive(rec, "bench_serve_spec", "continuous.tokens_per_sec",
+              "continuous.latency_p50_s")
+    spec = rec["continuous"]["spec"]
+    check(spec["accepted_drafts"] > 0, f"bench_serve oracle: {spec}")
+    pool = rec["ran"]["pool"]
+    _check_want(ln, _attention_want(
+        cfg, sum(len(p["admit_groups"]) for p in pool),
+        sum(p["forwards"] for p in pool), "decode_attention_multi"),
+        "bench_serve_spec")
+    no_quant(ln, "bench_serve_spec")
+    res["bench_serve_spec"] = {"tokens_per_sec":
+                               rec["continuous"]["tokens_per_sec"], **spec}
+
+    # bench_spec: the baseline, oracle at 1.0 and 0.6, ngram; int4 head
+    rec, ln = tool("bench_spec", bench_spec, [
+        "--steps", str(TOOLS_SPEC_STEPS), "--accept-rates", "1.0,0.6",
+        "--head-bits", "4", "--batch", "1"])
+    runs = {k: v for k, v in rec.items() if k.startswith("spec_")}
+    _positive(rec, "bench_spec", "baseline.tokens_per_sec")
+    for k, v in runs.items():
+        _positive(v, f"bench_spec {k}", "tokens_per_sec")
+    a10, a06 = rec["spec_oracle_a1.0"], rec["spec_oracle_a0.6"]
+    check(a10["emitted_per_group"] > a06["emitted_per_group"],
+          f"bench_spec: accept 1.0 emits {a10['emitted_per_group']} a "
+          f"group, 0.6 {a06['emitted_per_group']}")
+    for k, v in runs.items():
+        deps = v.get("first_departures", [])
+        check(v["exact_match_baseline"] or (deps and all(
+            d.get("near_tie") for d in deps)),
+            f"bench_spec {k}: greedy speculative decode departs from plain "
+            f"greedy other than at a near-tie: {deps}")
+    ran = rec["ran"]
+    want = _attention_want(cfg, ran["prefills"], ran["decode_forwards"],
+                           "decode_attention_int8")
+    want["decode_attention_multi"] = layers * ran["verify_groups"]
+    want.update(quant_matmul4=(ran["prefills"] + ran["decode_forwards"]
+                               + ran["verify_groups"]),
+                quant_matmul=0, quant_matmul_t=0)
+    _check_want(ln, want, "bench_spec")
+    res["bench_spec"] = {"baseline": rec["baseline"], **runs}
+
+    # bench_quality: int8 and int4 against bf16, responses of 64
+    rec, ln = tool("bench_quality", bench_quality, [
+        "--response-len", str(TOOLS_QUALITY_LEN), "--modes", "int8,int4"])
+    sc, dq = rec["scoring"], rec["decode"]
+    check(sc["bf16"]["logprob_mae"] == 0
+          and sc["bf16"]["logprob_max_abs"] == 0,
+          f"bench_quality: bf16 against itself {sc['bf16']}")
+    _positive(rec, "bench_quality", "scoring.int8.logprob_mae",
+              "scoring.int4.logprob_mae",
+              "decode.kv8_first_step_logit_mae",
+              "decode.kv4_first_step_logit_mae",
+              "decode.head4_first_step_logit_mae")
+    check(sc["int8"]["logprob_mae"] < sc["int4"]["logprob_mae"],
+          f"bench_quality: int8 MAE {sc['int8']['logprob_mae']} not below "
+          f"int4's {sc['int4']['logprob_mae']}")
+    check(sc["int8"]["lora_grad_cosine_vs_bf16"] >= TOOLS_COSINE_INT8,
+          f"bench_quality: int8 gradient cosine "
+          f"{sc['int8']['lora_grad_cosine_vs_bf16']}")
+    _check_want(ln, _quality_want(model, rec), "bench_quality")
+    res["bench_quality"] = {"scoring": sc, "decode": dq}
+
+    # profile_decode, then summarize_trace on its trace
+    trace_dir = os.path.join(out, "profile_decode")
+    rec, ln = tool("profile_decode", profile_decode, [
+        "--bits", "16", "--kv-bits", "4", "--head-bits", "4",
+        "--steps", str(TOOLS_PROFILE_STEPS), "--outdir", trace_dir])
+    _positive(rec, "profile_decode", "ms_per_step",
+              "profile.device_busy_ms")
+    fwd = 2 * rec["decode_forwards"]
+    want = _attention_want(cfg, 1, fwd, "decode_attention_int4")
+    want.update(quant_matmul4=1 + fwd, quant_matmul=0, quant_matmul_t=0)
+    _check_want(ln, want, "profile_decode")
+    top = summarize_trace.summarize(trace_dir, 10)
+    check(top["device"] and any("decode_attn_int4_kernel" in r["name"]
+                                for r in top["top"]),
+          f"summarize_trace: the profiled chunk's #7 is not among its top "
+          f"kernels: {[r['name'][:60] for r in top['top']]}")
+    res["profile_decode"] = {"ms_per_step": rec["ms_per_step"],
+                             "busy_ms": rec["profile"]["device_busy_ms"],
+                             "groups_ms": rec["profile"]["groups_ms"],
+                             "summarize_trace_top": [
+                                 (r["name"][:80], r["count"], r["us"])
+                                 for r in top["top"][:5]]}
+
+    # profile_serving --continuous: the int8 pool, then spec k 4
+    rec, ln = tool("profile_serving", profile_serving, [
+        "--continuous", "--spec-k", "4", "--requests",
+        str(TOOLS_POOL_REQUESTS), "--seg-len", str(TOOLS_POOL_SEG)])
+    want = _attention_want(cfg, 0, 0)
+    for name, pool in rec["pools"].items():
+        decode = ("decode_attention_multi" if pool["spec_k"]
+                  else "decode_attention_int8")
+        for st in (pool["stats"], pool["warm_stats"]):
+            want["flash_fwd"] += len(st["admit_groups"]) * per
+            want[decode] += layers * st["forwards"]
+        _positive(pool, f"profile_serving {name}",
+                  "phases.segment.unprofiled_ms_per_forward",
+                  "phases.segment.device_busy_ms_per_forward",
+                  "phases.admission_group.device_busy_ms")
+    _check_want(ln, want, "profile_serving")
+    no_quant(ln, "profile_serving")
+    res["profile_serving"] = {
+        "pools": {n: {ph: {k: p["phases"][ph].get(k) for k in (
+            "unprofiled_ms", "host_ms", "device_busy_ms",
+            "unprofiled_ms_per_forward", "device_busy_ms_per_forward",
+            "forwards", "groups_ms", "groups_ms_per_forward")}
+            for ph in p["phases"]} for n, p in rec["pools"].items()},
+        "verify_extra": rec["verify_extra"]}
+
+    # profile_train --mode sft: one stage-3 micro-step (and its warm-up
+    # and unprofiled twin)
+    rec, ln = tool("profile_train", profile_train, ["--mode", "sft"])
+    check(rec["positions"] == 1599,
+          f"profile_train sft: {rec['positions']} positions")
+    _positive(rec, "profile_train", "phases.sft_train_step.unprofiled_ms",
+              "phases.sft_train_step.device_busy_ms",
+              "phases.sft_train_step.peak_gb")
+    _check_want(ln, _train_want(cfg, sft_steps=3), "profile_train")
+    no_quant(ln, "profile_train")
+    ph = rec["phases"]["sft_train_step"]
+    res["profile_train"] = {k: ph.get(k) for k in (
+        "unprofiled_ms", "host_ms", "device_busy_ms",
+        "device_busy_share_unprofiled", "groups_ms", "peak_gb")}
+    res["profile_train"]["top_kernels"] = ph["top_kernels"][:8]
+
+    # e2e_rehearsal at 7B width, the smallest counts
+    work = os.path.join(out, "e2e")
+    rec, ln = tool("e2e_rehearsal", e2e_rehearsal, [
+        "--model", "7b", "--n-prompts", "4", "--response-len", "32",
+        "--dpo-steps", "1", "--pope-questions", "4", "--rollout-batch", "4",
+        "--workdir", work])
+    check(set(rec["stage_seconds"]) == {
+        "rollout_generation", "dataset_build", "opa_sft", "opa_dpo",
+        "pope_eval"}, f"e2e stages {rec['stage_seconds']}")
+    _positive(rec, "e2e_rehearsal", "total_seconds",
+              *(f"stage_seconds.{k}" for k in rec["stage_seconds"]))
+    check(rec["pope_num_examples_by_split"] == [4, 4, 4],
+          f"e2e POPE examples {rec['pope_num_examples_by_split']}")
+    check(os.path.isdir(os.path.join(work, rec["stage4_adapter"])),
+          "e2e: no stage-4 adapter")
+    ran = rec["ran"]
+    want = _train_want(cfg, ran["dpo_rollout_scores"],
+                       ran["dpo_train_steps"], ran["sft_micro_steps"],
+                       DpoConfig())
+    roll = ran["rollout_samples"]
+    want["flash_fwd"] += per * (len(roll) + len(ran["pope_batches"]))
+    want.update(dict.fromkeys(DECODE_KERNELS, 0))
+    want["decode_attention_int8"] = layers * sum(s["decode_steps"]
+                                                 for s in roll)
+    want["quant_matmul4"] = sum(1 + s["decode_steps"] for s in roll)
+    _check_want(ln, want, "e2e_rehearsal")
+    res["e2e_rehearsal"] = {k: rec[k] for k in (
+        "stage_seconds", "steady_state", "total_seconds",
+        "pope_num_examples")}
+    shutil.rmtree(work, ignore_errors=True)
+
+    # bench_image_pipeline: host only
+    rec, ln = tool("bench_image_pipeline", bench_image_pipeline,
+                   ["--images", "16"])
+    _positive(rec, "bench_image_pipeline",
+              "batch_preprocess.pil_ms_per_image",
+              "rollout_rows.pil_rows_per_sec")
+    check(rec["native"] is not None or rec.get("native_reason"),
+          "bench_image_pipeline: no native library and no reason")
+    check(not any(ln.values()), f"bench_image_pipeline launched {ln}")
+    res["bench_image_pipeline"] = {k: rec.get(k) for k in (
+        "native", "native_reason", "batch_preprocess", "rollout_rows")}
+
+    res["phase_s"] = time.perf_counter() - t_phase
+    for name in TOOL_NAMES:
+        log(f"[tools] {name}: {res['seconds'][name]:.1f} s; "
+            f"{json.dumps(res.get(name, {}))}")
+    log(f"[tools] phase {res['phase_s']:.1f} s; launches by tool "
+        f"{json.dumps(res['launches'])}; card: {card}")
+    return res
+
+
+def tools_kernel_entries(kernels, tools) -> None:
+    """Each kernel entry's launches in each tool's run (0 where the tool
+    did not launch it)."""
+    for entry in kernels:
+        entry["launches_tools"] = {
+            name: ln.get(entry["name"], 0)
+            for name, ln in tools["launches"].items()}
 
 
 def quant_kernel_entries(qk, q_serve, q_train):
@@ -5266,7 +5703,26 @@ def tp_pool_kernel_entries(kernels, tpp) -> None:
                       for grp in groups[name] for c in kc[grp]]}
 
 
+_PHASE_S: dict = {}
+_MARK = [0.0, 0.0]           # [start, last mark]
+
+
+def mark(label: str) -> None:
+    """Log the wall seconds since the last mark (the phase just run) and
+    since the first, so the smoke's time against its limit shows by
+    phase."""
+    now = time.perf_counter()
+    if not _MARK[0]:
+        _MARK[:] = [now, now]
+        return
+    _PHASE_S[label] = round(now - _MARK[1], 1)
+    _MARK[1] = now
+    log(f"[time] {label}: {_PHASE_S[label]} s, {now - _MARK[0]:.1f} s in "
+        "all")
+
+
 def main() -> int:
+    mark("start")
     try:
         import torch
     except ImportError:
@@ -5289,57 +5745,90 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     name, card = phase_device()
+    mark("device")
     phase_build()
+    mark("build")
     native = phase_native_image(card)
+    mark("native_image")
     g = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     flash = phase_flash(g, flush)
+    mark("flash")
     bwd = phase_flash_bwd(g, flush)
+    mark("flash_bwd")
     heads = phase_heads(g, flush)
+    mark("heads")
     decode = phase_decode(g, flush)
+    mark("decode")
     qk = phase_quant(g, flush)
+    mark("quant")
     del flush
     torch.cuda.empty_cache()
     for bits in (16, 8, 4):
         phase_reference(bits)
         phase_train_reference(bits)
+        mark(f"references_bits{bits}")
     phase_sft_reference()
+    mark("sft_reference")
     phase_tiny_f32_decode()
+    mark("tiny_f32_decode")
     cont_ref = phase_continuous_reference()
+    mark("continuous_reference")
     serve, model, plain_answers = phase_main_path(card)
+    mark("main_path")
     rollout = phase_rollout_decode(model, card)
+    mark("rollout_decode")
     spec = phase_spec_serve(model, card, plain_answers)
+    mark("spec_serve")
     torch.cuda.empty_cache()
     cont = phase_continuous(model, card)
+    mark("continuous")
     pool = phase_pool_kernels(g, cont)
+    mark("pool_kernels")
     train = phase_train(model, card)
+    mark("train")
     root = os.path.join(ROOT, "build", f"smoke_checkpoints_{os.getpid()}")
     try:
         ckpt, adapter, dirs = phase_checkpoint(model, card, root)
+        mark("checkpoint")
         cli = phase_serve_cli(model, card, dirs, adapter, plain_answers)
+        mark("serve_cli")
         del adapter
         gc.collect()
         torch.cuda.empty_cache()
         pruned = phase_pruned_serve(model, card, dirs)
+        mark("pruned_serve")
         stage4 = phase_stage4(model.cfg, card, dirs, train)
+        mark("stage4")
         multi = phase_multi_gpu(card, dirs, root, stage4, g)
+        mark("multi_gpu")
         tpp = phase_tp_pool(card, root, g)
+        mark("tp_pool")
         shutil.rmtree(dirs["stage4"], ignore_errors=True)
         stage12, merged, n_words = phase_stages12(model.cfg, card, dirs)
+        mark("stages12")
         stage3 = phase_stage3(model.cfg, card, dirs, merged, n_words)
+        mark("stage3")
         gc.collect()
         torch.cuda.empty_cache()
         ev = phase_eval(model.cfg, card, dirs, root)
+        mark("eval")
+        gc.collect()
+        torch.cuda.empty_cache()
+        tools = phase_tools(model, card, root)
+        mark("tools")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     q_serve, q_train = {}, {}
     q_serve["7b-int8"], q_train["7b-int8"] = phase_7b_int8(model, card)
+    mark("7b_int8")
     del model                       # the 13B phase runs without the 7B
     gc.collect()
     torch.cuda.empty_cache()
     q_serve["13b-int4"], q_train["13b-int4"] = phase_13b_int4(card)
+    mark("13b_int4")
 
     def pick(res, *keys):
         return {k: res[k] for k in keys}
@@ -5427,6 +5916,7 @@ def main() -> int:
                                            + cli["adapter"][key])
     tp2_kernel_entries(kernels, multi)
     tp_pool_kernel_entries(kernels, tpp)
+    tools_kernel_entries(kernels, tools)
     pool_keys = ("s_used", "G", "err_out", "ms", "plain_ms", "bound_ms",
                  "bound_by", "ranks", "per")
     for entry in kernels:
@@ -5475,6 +5965,8 @@ def main() -> int:
     log(f"[tp-pool, pruning, jpeg] seconds: TP pool {tpp['seconds']:.1f}, "
         f"pruned serve {pruned['seconds']:.1f}, native image "
         f"{native.get('seconds', 0.0):.1f}; card: {card}")
+    mark("summary")
+    log(f"[time] seconds by phase {json.dumps(_PHASE_S)}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -252,8 +252,11 @@ class ContinuousEngine:
             self.spec = speculative.SpecConfig(
                 k=self.spec_k, draft=spec_draft, advance="per_row",
                 compact_every=max(4, min(32, seg_len)))
+        # full_queued: segments decoded with every slot live that ended with
+        # requests still waiting in the queue
         self.stats = {"segments": 0, "folds": 0, "admit_groups": [],
-                      "forwards": 0, "sp_used": {}, "tokens": 0}
+                      "forwards": 0, "sp_used": {}, "tokens": 0,
+                      "full_queued": 0}
 
     # -- request intake -------------------------------------------------
 
@@ -452,4 +455,5 @@ class ContinuousEngine:
         s["forwards"] += forwards
         s["sp_used"][su] = s["sp_used"].get(su, 0) + 1
         s["tokens"] += int(n_valid.sum())
+        s["full_queued"] += int(all(active) and bool(self._queue))
         return finished

@@ -72,8 +72,9 @@ from opadpo_torch.pipeline.config import (
 from opadpo_torch.pipeline.gpt4v_client import APIService, get_api_service
 from opadpo_torch.pipeline.opadpo_train import rollout_generator
 from opadpo_torch.pipeline.prompts import build_correction_messages
+from opadpo_torch.pipeline import runtime
 from opadpo_torch.pipeline.runtime import (
-    StepTimer, batch_to_device, load_tokenizer, setup_model,
+    StepTimer, batch_to_device, load_tokenizer,
 )
 
 logger = logging.getLogger("online_generation")
@@ -173,7 +174,7 @@ def run(cfg: Config, tokenizer=None,
     # (reference generator.py:87-93 + record_step_stats); at mesh.model 1
     # the ranks share nothing and start no process group, a model group's
     # ranks share their rows and its model rank 0 writes
-    llava_cfg, model, mesh = setup_model(
+    llava_cfg, model, mesh = runtime.setup_model(
         model_dir,
         vision_dir=cfg.get_path("image_checkpoint"),
         skip_loading_weights=bool(cfg.get_path("model.skip_loading_weights",
@@ -299,7 +300,9 @@ def run(cfg: Config, tokenizer=None,
                 tokenizer.pad_token_id,
                 additional_tokens=(LLAMA_QMARK_TOKEN, LLAMA_NL_QMARK_TOKEN))
             texts = tokenizer.batch_decode(tokens, skip_special_tokens=True)
-            timer.record("sample", time.time() - t0, rows=len(texts))
+            ran = ({} if engine is not None else
+                   {"decode_steps": sampler.stats[-1]["decode_steps"]})
+            timer.record("sample", time.time() - t0, rows=len(texts), **ran)
 
             records, futures = [], []
             for i, text in enumerate(texts):

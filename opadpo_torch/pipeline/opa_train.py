@@ -50,8 +50,9 @@ from opadpo_torch.pipeline import checkpoints as ckpt_lib
 from opadpo_torch.pipeline.config import (
     Config, apply_overrides, load_config, save_config,
 )
+from opadpo_torch.pipeline import runtime
 from opadpo_torch.pipeline.runtime import (
-    StepTimer, batch_to_device, load_tokenizer, setup_model,
+    StepTimer, batch_to_device, load_tokenizer,
 )
 from opadpo_torch.utils.metrics import MetricsLogger
 
@@ -68,7 +69,7 @@ def train(cfg: Config, tokenizer=None,
     tiny = bool(cfg.get_path("debug.tiny", False))
     seed = int(t.get("seed", 42))
     model_dir = os.environ.get("MODEL_DIR", cfg.get_path("base_model"))
-    llava_cfg, model, mesh = setup_model(
+    llava_cfg, model, mesh = runtime.setup_model(
         model_dir,
         vision_dir=cfg.get_path("image_checkpoint"),
         skip_loading_weights=bool(cfg.get_path("model.skip_loading_weights",

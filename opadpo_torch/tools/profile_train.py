@@ -11,7 +11,14 @@ backward, LoRA r 64) and with ``--bits 4`` the int4 one
 (``llava_dpo_13b_singlechip.yaml``, LoRA r 64), both at batch 1.
 
     python -m opadpo_torch.tools.profile_train [--model 7b|13b]
-        [--bits 16|8|4] [--json PATH]
+        [--bits 16|8|4] [--mode dpo|sft] [--json PATH]
+
+``--mode sft`` profiles one stage-3 micro-step instead, as
+``chip_smoke.phase_stage3`` runs it (``configs/llava_opa.yaml``): 4 rows
+of 1024 tokens, 1599 positions after the image splice, right-padded,
+labels on the response part; LoRA r 256 / alpha 512 on the decoder, the
+vision tower and the projector; ``sft_train_step`` with CLIP and decoder
+remat.
 
 For each phase it prints the host time (ending in a device synchronise)
 with and without the profiler, the device's busy time and share, and the
@@ -24,21 +31,18 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
-import time
 
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
-from opadpo_torch.constants import IMAGE_TOKEN_INDEX
+from opadpo_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from opadpo_torch.device import resolve_device
 from opadpo_torch.engine import dpo as dpo_engine
+from opadpo_torch.engine.sft import SftConfig, sft_train_step
 from opadpo_torch.engine.train_state import AdamW, OptimizerConfig, TrainState
 from opadpo_torch.models import llava
 from opadpo_torch.models.lora import LoraConfig, make_trainable
 from opadpo_torch.ops.quant import QuantMode
-from opadpo_torch.tools.profile_serving import make_model, summarise
+from opadpo_torch.tools import common
 
 # the reference recipe (configs/llava_dpo.yaml, llava_training_base.yaml)
 RECIPE_LORA = LoraConfig(rank=256, alpha=512.0)
@@ -101,21 +105,100 @@ def make_adapters(cfg: llava.LlavaConfig, lora_cfg: LoraConfig,
     return ref, make_trainable(ref)
 
 
-def main(argv=None) -> int:
+SFT_TOKENS = 1024          # 1599 positions after the 576-patch splice
+SFT_QUERY = 128            # the prompt part, unlabelled
+SFT_BATCH = 4              # configs/llava_opa.yaml's per-device batch
+
+
+def make_sft_batch(cfg: llava.LlavaConfig, batch: int, tokens: int,
+                   generator: torch.Generator, query: int = SFT_QUERY
+                   ) -> dict:
+    """A random stage-3 batch: rows of ``tokens`` ids, BOS then the image
+    token first, row r right-padded by 0 over its last (97 r) mod (tokens /
+    4) ids; labels on the tokens after the first ``query``,
+    ``IGNORE_INDEX`` elsewhere; normalised-scale random images."""
+    dev = generator.device
+    ids = torch.randint(3, cfg.llama.vocab_size, (batch, tokens),
+                        generator=generator, device=dev)
+    length = tokens - (torch.arange(batch, device=dev) * 97) % (tokens // 4)
+    pos = torch.arange(tokens, device=dev)[None]
+    mask = (pos < length[:, None]).long()
+    ids = torch.where(mask != 0, ids, 0)
+    ids[:, 0] = 1
+    ids[:, 1] = IMAGE_TOKEN_INDEX
+    labels = torch.where((mask != 0) & (pos >= query), ids, IGNORE_INDEX)
+    sz = cfg.vision.image_size
+    return {"input_ids": ids, "attention_mask": mask, "labels": labels,
+            "images": torch.randn(batch, sz, sz, 3, generator=generator,
+                                  device=dev)}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda",
                     help="cpu runs the tiny model instead of the 7B / 13B")
     ap.add_argument("--model", choices=("7b", "13b"), default="7b")
     ap.add_argument("--bits", type=int, choices=(16, 8, 4), default=16,
                     help="the base's block linears: bf16, int8 or int4")
+    ap.add_argument("--mode", choices=("dpo", "sft"), default="dpo",
+                    help="dpo: rollout_score and dpo_train_step; sft: one "
+                         "stage-3 micro-step")
     ap.add_argument("--json", help="also write the summary here")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+
+def _phases(runs, dev, top: int = 16) -> dict:
+    """[(name, fn)] -> each phase timed without, then with, the
+    profiler, and its peak memory."""
+    phases = {}
+    for name, fn in runs:
+        _, plain_s = common.timed(fn, dev)
+        common.reset_peak(dev)
+        _, summary = common.profile_phase(fn, dev, plain_s, top=top)
+        if dev.type == "cuda":
+            summary["peak_gb"] = common.peak_gb(dev)
+        phases[name] = {"unprofiled_ms": summary.pop("unprofiled_ms"),
+                        **summary}
+    return phases
+
+
+def run(args, model=None) -> dict:
+    """The profile as ``args`` says, on ``model`` (drawn from seed 0 when
+    None, as ``--bits`` says) -> the record."""
+    dev = (resolve_device(args.device) if model is None
+           else common.model_device(model))
     cuda = dev.type == "cuda"
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
     mode = QuantMode(act_bits=8, bwd_int8=True) if args.bits == 8 else None
-    cfg, model, gen = make_model(args.model, args.bits, dev, cuda, mode=mode)
+    if model is None:
+        _, model, gen = common.make_model(args.model if cuda else "tiny",
+                                          args.bits, dev, mode=mode)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(0)
+    cfg = model.cfg
+    result = {"card": common.card_line(dev),
+              "model": f"llava_{args.model}" if cuda else "tiny",
+              "bits": args.bits, "mode": args.mode}
+    opt = AdamW(RECIPE_OPT)
+    if args.mode == "sft":
+        lcfg = RECIPE_LORA if cuda else LoraConfig(rank=4, alpha=8.0)
+        tokens = SFT_TOKENS if cuda else 24
+        lora = make_trainable(llava.init_lora(cfg, lcfg, gen,
+                                              include_vision=True))
+        state = TrainState.create(lora, opt.cfg)
+        batch = make_sft_batch(cfg, SFT_BATCH, tokens, gen,
+                               SFT_QUERY if cuda else 8)
+        sft = SftConfig(lora_scaling=lcfg.scaling)
+
+        def step():
+            return sft_train_step(state, model, batch, opt, sft)
+
+        result.update(batch=SFT_BATCH, tokens=tokens,
+                      positions=tokens - 1 + cfg.num_patches,
+                      lora_rank=lcfg.rank, vision_adapter=True,
+                      labelled=int((batch["labels"] != IGNORE_INDEX).sum()))
+        step()                                           # warm-up
+        result["phases"] = _phases([("sft_train_step", step)], dev)
+        return result
     b = 2 if args.bits == 16 else 1
     if cuda:
         dpo = dpo_engine.DpoConfig()
@@ -125,7 +208,6 @@ def main(argv=None) -> int:
         lcfg = LoraConfig(rank=4, alpha=8.0)
     ref, policy = make_adapters(cfg, lcfg, gen)
     batch = make_batch(cfg, dpo, b, gen)
-    opt = AdamW(RECIPE_OPT)
     state = TrainState.create(policy, opt.cfg)
 
     def rollout():
@@ -134,46 +216,21 @@ def main(argv=None) -> int:
     def step(full):
         return dpo_engine.dpo_train_step(state, model, full, opt, dpo)
 
-    def timed(fn, *a):
-        t0 = time.perf_counter()
-        out = fn(*a)
-        sync()
-        return out, time.perf_counter() - t0
-
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.splitlines()[0] if cuda else "cpu"
-    result = {"card": card,
-              "model": f"llava_{args.model}" if cuda else "tiny",
-              "bits": args.bits, "batch": b, "query_len": dpo.query_len,
-              "response_len": dpo.response_len, "lora_rank": lcfg.rank}
+    result.update(batch=b, query_len=dpo.query_len,
+                  response_len=dpo.response_len, lora_rank=lcfg.rank)
     full = {**batch, **rollout()}                       # warm-up
     step(full)
-    phases = {}
-    for name, fn, a in (("rollout_score", rollout, ()),
-                        ("dpo_train_step", step, (full,))):
-        _, plain_s = timed(fn, *a)
-        if cuda:
-            torch.cuda.reset_peak_memory_stats()
-        with profile(activities=acts) as prof:
-            _, host_s = timed(fn, *a)
-        kernels = [(e.name, e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if cuda and not kernels:
-            raise RuntimeError("the profiler recorded no device events")
-        summary = summarise(kernels, host_s, top=16)
-        summary["device_busy_share_unprofiled"] = \
-            summary["device_busy_ms"] / (plain_s * 1e3)
-        if cuda:
-            summary["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        phases[name] = {"unprofiled_ms": plain_s * 1e3, **summary}
-    result["phases"] = phases
+    result["phases"] = _phases([("rollout_score", rollout),
+                                ("dpo_train_step", lambda: step(full))], dev)
+    return result
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    result = run(args)
     print(json.dumps(result, indent=1))
     if args.json:
-        with open(args.json, "w") as f:
-            json.dump(result, f, indent=1)
+        common.write_record(result, args.json)
     return 0
 
 

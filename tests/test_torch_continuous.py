@@ -224,7 +224,8 @@ def test_single_request_matches_plain_greedy(kv_bits):
 
 def test_slot_isolation_reuse_and_grouped_admission():
     """Five requests into a 4-slot pool: one group of 4, then one of 1 when
-    a slot frees; every request equals its solo run, and the pool's
+    a slot frees (the pool full with one request queued meanwhile); every
+    request equals its solo run, and the pool's
     tensors are the ones the first admission made (updated in place)."""
     reqs = [_request(s) for s in (51, 52, 53, 54, 55)]
     eng = _engine(4, 4, 2)
@@ -232,12 +233,15 @@ def test_slot_isolation_reuse_and_grouped_admission():
             for i, r in enumerate(reqs)]
     assert eng.queue_length == 5
     eng.step()
-    assert eng.queue_length == 1
+    assert eng.queue_length == 1 and eng.stats["full_queued"] == 1
     ptrs = [eng._state[0][0][0]["q"].data_ptr(), eng._state[1].data_ptr()]
     done = _run_all(eng)
     assert [eng._state[0][0][0]["q"].data_ptr(),
             eng._state[1].data_ptr()] == ptrs
     assert eng.stats["admit_groups"] == [4, 1]
+    # the pool ran full with request 4 queued until request 0's budget
+    # ended in the second segment
+    assert eng.stats["full_queued"] == 2
     for i, rid in enumerate(rids):
         solo = _engine(1, 4, 2)
         srid = solo.add_request(*reqs[i], max_new=3 if i == 0 else None)

@@ -210,7 +210,7 @@ def test_profile_tools_rehearse_quantized_on_cpu(tmp_path):
     recipe), and the quantized kernels' group in their tables."""
     import json
 
-    from opadpo_torch.tools import profile_serving, profile_train
+    from opadpo_torch.tools import common, profile_serving, profile_train
 
     out = tmp_path / "s.json"
     assert profile_serving.main(["--device", "cpu", "--bits", "4",
@@ -226,4 +226,4 @@ def test_profile_tools_rehearse_quantized_on_cpu(tmp_path):
     assert (res["bits"], res["batch"]) == (8, 1)
     assert set(res["phases"]) == {"rollout_score", "dpo_train_step"}
     for name in ("quant_mm_kernel<64, 2>", "splitk_reduce"):
-        assert profile_serving.kernel_group(name) == "quant_matmul (csrc)"
+        assert common.kernel_group(name) == "quant_matmul (csrc)"

@@ -19,7 +19,7 @@ from opadpo_tpu.serve import InferenceWorker as JaxWorker
 from opadpo_torch.data.image_processing import black_image, preprocess_images
 from opadpo_torch.models.llava import empty_model
 from opadpo_torch.serve import InferenceWorker, build_prompt, make_handler
-from opadpo_torch.tools import profile_serving
+from opadpo_torch.tools import common, profile_serving
 from tests.fake_tokenizer import FakeTokenizer
 from tests.torch_parity import JCFG32, TCFG32, jax_params, torch_model
 
@@ -145,7 +145,7 @@ def test_profile_summary_counts_overlap_once():
                ("sm90_xmma_gemm_bf16bf16", 5.0, 20.0),
                ("decode_attn_multi_kernel<128, 1>", 30.0, 32.0),
                ("vectorized_elementwise_kernel", 31.0, 35.0)]
-    s = profile_serving.summarise(kernels, host_s=50e-6)
+    s = common.summarise(kernels, host_s=50e-6)
     assert s["kernels"] == 4
     assert s["device_busy_ms"] == pytest.approx(25e-3)
     assert s["device_busy_share"] == pytest.approx(0.5)
