@@ -190,7 +190,17 @@ Phases, each fatal on failure:
      (the four stages and POPE) and bench_image_pipeline; every record's
      fields finite and positive, the quality and acceptance orderings, and
      each tool's launches as its shapes derive;
-  25. one JSON line of the 11 kernels' numbers (with the slot pool's and
+  25. after the serve CLI, the port's last counterparts of the JAX
+     package: ``ops/image_ops.preprocess_images_device`` on 8 seeded 640
+     x 480 uint8 frames on the card against the same function on the CPU
+     and against PIL's ``clip_preprocess`` (the JAX test's bounds), timed;
+     ``models/lora.merge_lora`` of the r 256 adapter into the 7B read from
+     disk, the prefill logits of 2 prompts after the merge against the
+     adapter's before it (#1 in each forward); and stage 4 at the 7B's
+     widths cut to 2 decoder layers (batch 1, 2 steps) with
+     ``profile_start_step`` 1, whose Chrome trace must hold #1-#5's CUDA
+     kernels, beside a ``fused_attention: false`` config that must raise;
+  26. one JSON line of the 11 kernels' numbers (with the slot pool's and
      the eval suite's launches and the pool-shape times of #1, #6, #7 and
      #8, the TP-2 and TP-pool shapes', and each tool's launches), the card
      line, and last ``{"ok": true, "device": {...}}``.
@@ -2394,6 +2404,249 @@ def phase_serve_cli(model, card, dirs, adapter, plain_answers):
             f"server's; launches flash {launches['flash_fwd']}, int8 decode "
             f"{launches['decode_attention_int8']}; card: {card}")
     log(f"[serve-cli] {json.dumps(res)}")
+    return res
+
+
+# the last counterparts of the JAX package (``phase_port_gaps``): the device
+# preprocess on 8 seeded frames, on the card against the CPU (f32 products,
+# TF32 off; the CPU test's bound against JAX) and against PIL at the JAX
+# test's bounds; the merged 7B's prefill logits against the adapter's (a
+# bf16 limit: the merged weights are rounded to bf16 once, the adapter
+# path adds its f32 delta before each cast; the CPU test's f32 bound is
+# 1e-5); the stage-4 trace's kernels
+GAPS_SEED = 19
+GAPS_FRAMES = 8
+GAPS_PREPROCESS_ABS = 1e-4
+GAPS_HOST_MEAN, GAPS_HOST_P95 = 0.05, 0.2
+GAPS_MERGE_ABS = 0.5
+GAPS_LAYERS = 2
+GAPS_TRACE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                      "flash_bwd_dkv_kernel", "scatter_heads_kernel",
+                      "gather_heads_kernel")
+
+
+def _gaps_frames():
+    """8 seeded 640 x 480 uint8 frames: a coarse random grid upsampled,
+    with a little noise (as ``phase_native_image``'s)."""
+    import numpy as np
+
+    rng = np.random.default_rng(GAPS_SEED)
+    frames = []
+    for _ in range(GAPS_FRAMES):
+        base = rng.normal(size=(48, 64, 3))
+        arr = np.kron(base, np.ones((10, 10, 1))) + rng.normal(
+            0, 0.05, (480, 640, 3))
+        frames.append(((arr - arr.min()) / (arr.max() - arr.min())
+                       * 255).astype(np.uint8))
+    return np.stack(frames)
+
+
+def _gaps_preprocess(dev, flush):
+    """``preprocess_images_device`` on the card against the CPU and PIL."""
+    import numpy as np
+    import torch
+
+    from opadpo_torch.data.image_processing import clip_preprocess
+    from opadpo_torch.ops.image_ops import preprocess_images_device
+
+    frames = _gaps_frames()
+    x = torch.from_numpy(frames)
+    xd = x.to(dev)
+    gpu = preprocess_images_device(xd)
+    cpu = preprocess_images_device(x)
+    err = float((gpu.cpu() - cpu).abs().max())
+    check(gpu.dtype == torch.float32 and tuple(gpu.shape) == (
+        GAPS_FRAMES, 336, 336, 3), f"preprocess gave {gpu.dtype} "
+        f"{tuple(gpu.shape)}")
+    check(err <= GAPS_PREPROCESS_ABS, f"preprocess on the card against the "
+          f"CPU: max |diff| {err} > {GAPS_PREPROCESS_ABS}")
+    res = {"frames": f"{GAPS_FRAMES} x 640x480 uint8", "max_abs_gpu_cpu": err,
+           "ms": time_ms(lambda: preprocess_images_device(xd), flush)
+           if dev.type == "cuda" else None}
+    check(_have_pil(), "PIL is needed to hold the device preprocess "
+          "against the host path")
+    from PIL import Image
+
+    host = np.stack([clip_preprocess(Image.fromarray(f)) for f in frames])
+    diff = np.abs(host - gpu.cpu().numpy())
+    res.update(host_mean_abs=float(diff.mean()),
+               host_p95_abs=float(np.quantile(diff, 0.95)))
+    check(res["host_mean_abs"] < GAPS_HOST_MEAN
+          and res["host_p95_abs"] < GAPS_HOST_P95,
+          f"preprocess against PIL: mean {res['host_mean_abs']}, p95 "
+          f"{res['host_p95_abs']} (limits {GAPS_HOST_MEAN}, {GAPS_HOST_P95})")
+    return res
+
+
+def _gaps_merge(cfg, dirs, adapter, dev, counters):
+    """``merge_lora`` of the r 256 adapter into the 7B read from disk: the
+    prefill logits of 2 prompts with the adapter, then merged without it."""
+    import torch
+
+    from opadpo_torch.models import llava
+    from opadpo_torch.models.lora import merge_lora
+    from opadpo_torch.pipeline.runtime import setup_model
+    from opadpo_torch.tools.profile_train import RECIPE_LORA
+
+    _, model, _ = setup_model(dirs["llava"], vision_dir=dirs["clip"],
+                              device=dev)
+    ids, mask, images = _server_batch(cfg, list(TP_PROMPTS[:2]), 2, dev)
+    scaling = RECIPE_LORA.scaling
+    _reset(counters)
+    with torch.inference_mode():
+        out = llava.forward(model, ids, mask, images)
+        base = out["logits"]
+        valid = out["key_mask"].bool()
+        adapted = llava.forward(model, ids, mask, images, lora=adapter,
+                                lora_scaling=scaling)["logits"]
+    _sync(dev)
+    t0 = time.perf_counter()
+    merge_lora(model, adapter, scaling)
+    _sync(dev)
+    merge_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        merged = llava.forward(model, ids, mask, images)["logits"]
+    launches = _read(counters)["flash_fwd"]
+    err = float((merged - adapted).abs()[valid].max())
+    effect = float((adapted - base).abs()[valid].max())
+    del model, out, base, adapted, merged
+    gc.collect()
+    _empty_cache(dev)
+    per = cfg.vision.num_active_layers + cfg.llama.num_layers
+    check(launches == 3 * per, f"#1 launched {launches} times in 3 "
+          f"forwards, expected {3 * per}")
+    check(err <= GAPS_MERGE_ABS and err < effect,
+          f"merged against adapter logits: max |diff| {err} (limit "
+          f"{GAPS_MERGE_ABS}; the adapter moves them by {effect})")
+    return {"merge_s": merge_s, "max_abs_logit_merged_vs_adapter": err,
+            "max_abs_logit_adapter_vs_base": effect,
+            "positions": int(valid.sum()), "launches_flash_fwd": launches}
+
+
+def _gaps_model_dir(root) -> str:
+    """A directory holding LLaVA-1.5-7B's ``config.json`` with its decoder
+    cut to ``GAPS_LAYERS`` layers (random weights drawn at it)."""
+    path = os.path.join(root, "llava7b_cut_config")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"hidden_size": 4096, "intermediate_size": 11008,
+                   "num_hidden_layers": GAPS_LAYERS,
+                   "num_attention_heads": 32, "num_key_value_heads": 32,
+                   "vocab_size": 32000, "max_position_embeddings": 4096,
+                   "rms_norm_eps": 1e-5, "mm_vision_select_layer": -2}, f)
+    return path
+
+
+def _gaps_profile(root, dev, counters):
+    """Stage 4 at the 7B's widths, 2 decoder layers, batch 1, 2 steps, with
+    ``profile_start_step`` 1: step 2 traced, the trace written when the
+    run ends inside the window; its CUDA kernels hold #1-#5.  The same
+    config with ``fused_attention: false`` raises."""
+    import dataclasses
+
+    from opadpo_torch.engine.dpo import DpoConfig
+    from opadpo_torch.models.llava import LlavaConfig
+    from opadpo_torch.pipeline import opadpo_train
+    from opadpo_torch.pipeline.config import apply_overrides, load_config
+
+    out = os.path.join(root, "stage4_profile")
+    model_dir = _gaps_model_dir(root)
+
+    def config(*extra):
+        return apply_overrides(load_config(os.path.join(
+            ROOT, "configs", "llava_dpo.yaml")), [
+            f"base_model={model_dir}", "image_checkpoint=null",
+            "policy_lora_dir=null", "model.skip_loading_weights=true",
+            "training.max_step=2", "training.rollout_batch_size=1",
+            "training.step_batch_size=1",
+            "training.rollout_per_device_batch_size=1",
+            "training.step_per_device_batch_size=1",
+            "training.save_steps=100", "training.profile_start_step=1",
+            f"training.output_dir={out}", f"training.device={dev.type}",
+            *extra])
+
+    l7 = LlavaConfig.llava_7b()
+    cfg = dataclasses.replace(l7, llama=dataclasses.replace(
+        l7.llama, num_layers=GAPS_LAYERS))
+    module, tok, _ = _stage4_module(cfg)
+    saved_env = {k: os.environ.pop(k) for k in _STAGE_ENV if k in os.environ}
+    try:
+        try:
+            opadpo_train.train(config("training.fused_attention=false",
+                                      f"training.output_dir={out}_unfused"),
+                               tokenizer=tok, data_module=module)
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        check(raised is not None and "fused_attention" in raised,
+              f"fused_attention: false on CUDA did not raise ({raised})")
+        _reset(counters)
+        t0 = time.perf_counter()
+        timer = opadpo_train.train(config(), tokenizer=tok,
+                                   data_module=module)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = _read(counters)
+    finally:
+        os.environ.update(saved_env)
+    check(timer is not None and timer.summary()["train"]["count"] == 2,
+          "the profiled stage-4 run did not take 2 steps")
+    traces = os.listdir(os.path.join(out, "profile"))
+    check(len(traces) == 1, f"profile/ holds {traces}")
+    path = os.path.join(out, "profile", traces[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(k in name for name in kernels)
+             for k in GAPS_TRACE_KERNELS}
+    check(all(found.values()), f"the trace's CUDA kernels lack "
+          f"{[k for k, n in found.items() if not n]}")
+    dpo = DpoConfig()
+    per = {k: expected_launches(cfg, dpo, False)[k]
+           + expected_launches(cfg, dpo, True)[k]
+           for k in expected_launches(cfg, dpo, True)}
+    want = {k: 2 * per.get(k, 0) for k in launches}
+    check(launches == want, f"profiled stage-4 launches {launches}, "
+          f"expected {want}")
+    return {"train_s": wall, "trace": traces[0],
+            "trace_mb": os.path.getsize(path) / 2 ** 20,
+            "trace_kernel_events": len(kernels), "trace_kernels": found,
+            "launches": launches}
+
+
+def phase_port_gaps(cfg, card, dirs, adapter, root, device="cuda"):
+    """The port's last counterparts of the JAX package on the card:
+    ``preprocess_images_device``, ``merge_lora`` on the 7B from disk, and
+    stage 4's ``profile_start_step`` trace (#1-#5 named in it) with the
+    ``fused_attention: false`` refusal."""
+    import torch
+
+    from opadpo_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    counters = _counters()
+    t0 = time.perf_counter()
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    res = {"preprocess": _gaps_preprocess(dev, flush), "card": card}
+    del flush
+    res["merge"] = _gaps_merge(cfg, dirs, adapter, dev, counters)
+    res["profile"] = _gaps_profile(root, dev, counters)
+    res["launches"] = res["profile"]["launches"]
+    res["seconds"] = time.perf_counter() - t0
+    p, m, pr = res["preprocess"], res["merge"], res["profile"]
+    log(f"[port-gaps] preprocess_images_device, {p['frames']}: "
+        f"{p['ms']} ms on the card, max |GPU - CPU| "
+        f"{p['max_abs_gpu_cpu']:.2e} (limit {GAPS_PREPROCESS_ABS}), against "
+        f"PIL mean {p['host_mean_abs']:.4f} / p95 {p['host_p95_abs']:.4f}; "
+        f"merge_lora (r 256 into the 7B from disk) {m['merge_s']:.3f} s, "
+        f"max |merged - adapter| logit "
+        f"{m['max_abs_logit_merged_vs_adapter']:.4f} (limit "
+        f"{GAPS_MERGE_ABS}; the adapter moves them by "
+        f"{m['max_abs_logit_adapter_vs_base']:.4f}); profiled stage 4 "
+        f"({GAPS_LAYERS} layers) {pr['train_s']:.1f} s, trace "
+        f"{pr['trace_mb']:.1f} MB, #1-#5 in it {pr['trace_kernels']}; phase "
+        f"{res['seconds']:.1f} s; card: {card}")
+    log(f"[port-gaps] {json.dumps(res)}")
     return res
 
 
@@ -5793,6 +6046,8 @@ def main() -> int:
         mark("checkpoint")
         cli = phase_serve_cli(model, card, dirs, adapter, plain_answers)
         mark("serve_cli")
+        gaps = phase_port_gaps(model.cfg, card, dirs, adapter, root)
+        mark("port_gaps")
         del adapter
         gc.collect()
         torch.cuda.empty_cache()
@@ -5903,7 +6158,7 @@ def main() -> int:
     for entry in kernels:
         # the checkpoint paths' own runs, each counted from 0
         for label, res in (("stage4", stage4), ("stages12", stage12),
-                           ("stage3", stage3)):
+                           ("stage3", stage3), ("profiled_stage4", gaps)):
             if entry["name"] in res["launches"]:
                 entry[f"launches_{label}"] = res["launches"][entry["name"]]
         if entry["name"] in stage3["launches_per_micro_step"]:

@@ -25,10 +25,19 @@ class SamplingConfig:
     top_k: int = 0              # 0 = disabled
     top_p: float = 1.0          # 1.0 = disabled
     greedy: bool = False
+    # "sort" or "approx": the JAX package's lax.top_k or
+    # lax.approx_max_k(recall_target=1.0), the same exact top-k set on its
+    # TPU lowering; both run the exact torch.topk here
+    topk_impl: str = "sort"
     suppress_eos: bool = False  # reference suppress_tokens=[eos]
     eos_token_id: int = 2
     pad_token_id: int = 0
     max_new_tokens: int = 896
+
+    def __post_init__(self):
+        if self.topk_impl not in ("sort", "approx"):
+            raise ValueError(f"topk_impl={self.topk_impl!r} "
+                             "(expected 'sort' or 'approx')")
 
 
 def _draw(logits: torch.Tensor, generator: Optional[torch.Generator]):

@@ -34,11 +34,12 @@ def make_serving_sampling(
     top_k: int = SERVING_TOP_K,
     top_p: float = SERVING_TOP_P,
     greedy: bool = False,
+    topk_impl: str = "sort",
 ) -> SamplingConfig:
     return SamplingConfig(
         temperature=temperature, top_k=top_k, top_p=top_p, greedy=greedy,
-        eos_token_id=eos_token_id, pad_token_id=pad_token_id,
-        max_new_tokens=max_new_tokens)
+        topk_impl=topk_impl, eos_token_id=eos_token_id,
+        pad_token_id=pad_token_id, max_new_tokens=max_new_tokens)
 
 
 def make_continuous_engine(

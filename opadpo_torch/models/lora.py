@@ -13,6 +13,9 @@ and added to the base product in f32 before the cast back to x's dtype.
 The base may be a frozen int8 / int4 ``QuantLinear`` (the QLoRA
 configuration, ``ops/quant.py``): its product comes back in x's dtype and
 is widened the same way.
+
+``merge_lora`` folds an adapter into the base weights in place, for export
+or serving without the adapter.
 """
 
 from __future__ import annotations
@@ -119,3 +122,50 @@ def lora_dense(x: torch.Tensor, weight, entry: Optional[dict] = None,
     if delta is None:
         return y
     return (y.float() + delta).to(x.dtype)
+
+
+def _merge_targets(module: nn.Module, node, path: str, out: list) -> None:
+    """(linear, entry, path) for each adapter entry under ``node``, the
+    linear being the submodule of ``module`` at the entry's path."""
+    if isinstance(node, dict) and "a" in node and "b" in node:
+        out.append((module, node, path))
+        return
+    items = node.items() if isinstance(node, dict) else enumerate(node)
+    for key, sub in items:
+        child = module[key] if isinstance(key, int) else getattr(module, key)
+        _merge_targets(child, sub, f"{path}/{key}", out)
+
+
+@torch.no_grad()
+def merge_lora(model: nn.Module, lora, scaling: float) -> nn.Module:
+    """Fold the adapter into the base weights, in place (a copy of the 7B
+    would take another 14 GB; a caller that needs both clones first) ->
+    ``model``.
+
+    Each ``[out, in]`` weight with an entry becomes ``W + scaling (B A)``,
+    summed in f32 and cast back to W's dtype, as the JAX ``merge_lora``
+    does (its entries are ``[in, out]``, the transpose): the decoder, the
+    vision tower and the projector alike.  A quantized base
+    (``QuantLinear``) under an entry raises, where the JAX function
+    returns the quantized leaf unmerged; every entry is checked before any
+    weight changes."""
+    targets: list = []
+    _merge_targets(model, lora if lora is not None else {}, "", targets)
+    for lin, entry, path in targets:
+        if isinstance(lin, QuantLinear):
+            raise ValueError(f"merge_lora: the base at {path} is quantized "
+                             f"({lin.bits}-bit); merge into a bf16 or f32 "
+                             "base, not a QuantLinear")
+        if not isinstance(lin, nn.Linear):
+            raise ValueError(f"merge_lora: {path} is a "
+                             f"{type(lin).__name__}, not a linear")
+        shape = (entry["b"].shape[0], entry["a"].shape[1])
+        if tuple(lin.weight.shape) != shape:
+            raise ValueError(f"merge_lora: {path} weight "
+                             f"{tuple(lin.weight.shape)} against an adapter "
+                             f"of {shape}")
+    for lin, entry, _ in targets:
+        w = lin.weight
+        delta = (entry["b"].float() @ entry["a"].float()) * scaling
+        w.copy_((w.float() + delta.to(w.device)).to(w.dtype))
+    return model

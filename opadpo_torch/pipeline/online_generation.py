@@ -57,6 +57,7 @@ import torch
 from opadpo_torch.constants import LLAMA_NL_QMARK_TOKEN, LLAMA_QMARK_TOKEN
 from opadpo_torch.data.char_tokenizer import CharTokenizer
 from opadpo_torch.data.datasets import make_rollout_data_module
+from opadpo_torch.data.image_processing import set_pil_preprocess
 from opadpo_torch.data.loading import DataLoader, ShardedDataset
 from opadpo_torch.engine.sampler import Sampler, truncate_after_tokens
 from opadpo_torch.engine.serving_config import (
@@ -160,6 +161,11 @@ def run(cfg: Config, tokenizer=None,
     """Run stages 1-2 as ``cfg`` says -> the step timer (one ``sample``
     entry per step sampled; none when every step's shard exists)."""
     t = cfg.training if "training" in cfg else Config()
+    if bool(t.get("pil_preprocess", False)):
+        # strict HF-numerics image path (native C++ JPEG pipeline off)
+        set_pil_preprocess(True)
+    fused = bool(t.get("fused_attention", True))
+    runtime.check_fused_attention(fused, t.get("device", "cuda"))
     n_model = int(cfg.get_path("mesh.model", 1))
     output_dir = os.environ.get("OUTPUT_DIR", cfg.get_path(
         "training.output_dir", "./output"))
@@ -184,6 +190,7 @@ def run(cfg: Config, tokenizer=None,
         act_bits=int(t.get("act_bits", 16)),
         act_outlier_cols=int(t.get("act_outlier_cols", 0)),
         act_bwd_int8=bool(t.get("act_bwd_int8", False)),
+        fused_attention=fused,
         mesh=make_mesh(MeshConfig(model=n_model), t.get("device", "cuda"),
                        group=n_model > 1))
     dev, rank, world = mesh.device, mesh.data_rank, mesh.data
@@ -211,6 +218,7 @@ def run(cfg: Config, tokenizer=None,
         temperature=float(t.get("temperature", 1.0)),
         top_k=int(t.get("top_k", 30)),
         top_p=float(t.get("top_p", 0.95)),
+        topk_impl=str(t.get("topk_impl", "sort")),
         eos_token_id=tokenizer.eos_token_id,
         pad_token_id=tokenizer.pad_token_id,
         max_new_tokens=response_len)

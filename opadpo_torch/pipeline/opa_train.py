@@ -39,6 +39,7 @@ import torch
 
 from opadpo_torch.data.char_tokenizer import CharTokenizer
 from opadpo_torch.data.datasets import make_sft_data_module
+from opadpo_torch.data.image_processing import set_pil_preprocess
 from opadpo_torch.data.loading import DataLoader
 from opadpo_torch.engine.sft import SftConfig, sft_train_step
 from opadpo_torch.engine.train_state import AdamW, OptimizerConfig, TrainState
@@ -63,6 +64,11 @@ def train(cfg: Config, tokenizer=None,
           data_module: Optional[dict] = None) -> StepTimer:
     """Run stage 3 as ``cfg`` says -> the step timer."""
     t = cfg.training
+    if bool(t.get("pil_preprocess", False)):
+        # strict HF-numerics image path (native C++ JPEG pipeline off)
+        set_pil_preprocess(True)
+    fused = bool(t.get("fused_attention", True))
+    runtime.check_fused_attention(fused, t.get("device", "cuda"))
     output_dir = os.environ.get("OUTPUT_DIR", t.get("output_dir", "./output"))
     logging.basicConfig(level=logging.INFO)
 
@@ -79,6 +85,7 @@ def train(cfg: Config, tokenizer=None,
         act_bits=int(t.get("act_bits", 16)),
         act_outlier_cols=int(t.get("act_outlier_cols", 0)),
         act_bwd_int8=bool(t.get("act_bwd_int8", False)),
+        fused_attention=fused,
         mesh=make_mesh(MeshConfig(model=int(cfg.get_path("mesh.model", 1))),
                        t.get("device", "cuda")))
     dev, main = mesh.device, mesh.is_main

@@ -9,7 +9,9 @@ the cached rollouts, in a numpy permutation per (seed, step, epoch), the
 optimizer averaging ``grad_accum`` micro-steps; (c) every ``save_steps``
 a ``checkpoint-N`` (``pipeline/checkpoints``), and the ``completed``
 marker at the end.  A resumed run fast-forwards the data loader and
-restores the adapter and optimizer.
+restores the adapter and optimizer.  ``profile_start_step`` N > 0 traces
+steps N+1 ... N+3 to ``output_dir/profile/`` (``runtime.
+maybe_start_profiler``; a trace still open at the end is written then).
 
 The rollout's random draws (the CoPO masks) come from one
 ``torch.Generator`` per (seed, step, chunk), seeded from those three
@@ -51,6 +53,7 @@ import torch
 
 from opadpo_torch.data.char_tokenizer import CharTokenizer
 from opadpo_torch.data.datasets import make_dpo_data_module
+from opadpo_torch.data.image_processing import set_pil_preprocess
 from opadpo_torch.data.loading import DataLoader, InfiniteLoader
 from opadpo_torch.engine import dpo as dpo_engine
 from opadpo_torch.engine.dpo import DpoConfig
@@ -118,6 +121,11 @@ def train(cfg: Config, tokenizer=None, data_module: Optional[dict] = None
     """Run stage 4 as ``cfg`` says -> the step timer (None when the output
     directory already holds a completed run, which returns at once)."""
     t = cfg.training
+    if bool(t.get("pil_preprocess", False)):
+        # strict HF-numerics image path (native C++ JPEG pipeline off)
+        set_pil_preprocess(True)
+    fused = bool(t.get("fused_attention", True))
+    runtime.check_fused_attention(fused, t.get("device", "cuda"))
     output_dir = os.environ.get("OUTPUT_DIR", t.get("output_dir", "./output"))
     logging.basicConfig(level=logging.INFO)
     last_ckpt, completed = ckpt_lib.get_last_checkpoint(output_dir)
@@ -138,6 +146,7 @@ def train(cfg: Config, tokenizer=None, data_module: Optional[dict] = None
         act_bits=int(t.get("act_bits", 16)),
         act_outlier_cols=int(t.get("act_outlier_cols", 0)),
         act_bwd_int8=bool(t.get("act_bwd_int8", False)),
+        fused_attention=fused,
         mesh=make_mesh(MeshConfig(model=int(cfg.get_path("mesh.model", 1))),
                        t.get("device", "cuda")))
     dev, n_data, main = mesh.device, mesh.data, mesh.is_main
@@ -233,6 +242,8 @@ def train(cfg: Config, tokenizer=None, data_module: Optional[dict] = None
                             report_to=str(t.get("report_to", "jsonl"))) \
         if main else None
 
+    profile_at = int(t.get("profile_start_step", 0))
+
     for step_idx in range(1, total_steps + 1):
         if step_idx < start_step:
             for _ in range(rollout_accum):
@@ -296,6 +307,9 @@ def train(cfg: Config, tokenizer=None, data_module: Optional[dict] = None
                 logger.info("step %d loss=%.4f", step_idx,
                             line.get("loss/total", 0.0))
 
+        if profile_at:
+            runtime.maybe_start_profiler(output_dir, step_idx, profile_at)
+
         if step_idx % save_steps == 0 or step_idx == total_steps:
             ckpt_dir = os.path.join(output_dir, f"checkpoint-{step_idx}")
             ckpt_lib.save_train_state(ckpt_dir, state, lora_cfg,
@@ -303,6 +317,8 @@ def train(cfg: Config, tokenizer=None, data_module: Optional[dict] = None
                                              "timers": timer.summary()},
                                       mesh=mesh)
             logger.info("saved %s", ckpt_dir)
+    # a trace still open when the run ends is written, not lost
+    runtime.stop_profiler()
 
     if main:
         metrics.close()

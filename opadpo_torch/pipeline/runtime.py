@@ -1,7 +1,7 @@
 """Model set-up for the pipeline entry points: port of
 ``opadpo_tpu/pipeline/runtime.py`` (``llava_config_from_hf``,
-``load_tokenizer``, ``setup_model``, ``StepTimer``) and the host-batch
-move ``batch_to_device``.
+``load_tokenizer``, ``setup_model``, ``StepTimer``,
+``maybe_start_profiler``) and the host-batch move ``batch_to_device``.
 
 ``setup_model`` loads a checkpoint directory through ``models/loader`` or
 draws random weights (``tiny``, ``skip_loading_weights``), then applies
@@ -90,6 +90,7 @@ def setup_model(
     device: str = "cuda",
     mesh: Optional[Mesh] = None,
     visual_tokens: Optional[int] = None,
+    fused_attention: bool = True,
 ):
     """(cfg, model, mesh) on ``device``.  A ``model_dir``: the checkpoint there
     (``models/loader.load_llava_checkpoint``; its configuration from its
@@ -111,7 +112,11 @@ def setup_model(
     ``device``.
 
     ``visual_tokens`` K >= 1: training-free visual-token pruning (the
-    weights are unchanged; ``cfg.num_patches`` becomes min(K, 576))."""
+    weights are unchanged; ``cfg.num_patches`` becomes min(K, 576)).
+
+    ``fused_attention`` False: see ``check_fused_attention``."""
+    check_fused_attention(fused_attention,
+                          mesh.device if mesh is not None else device)
     if bits not in (16, 8, 4):
         raise ValueError(f"bits={bits} unsupported (16, 8 or 4)")
     if act_bits not in (16, 8):
@@ -159,6 +164,19 @@ def setup_model(
     return cfg, model, mesh
 
 
+def check_fused_attention(fused_attention: bool, device) -> None:
+    """The drivers' ``fused_attention`` key.  In the JAX package false
+    selects the unfused XLA attention; the port's attention on a CUDA
+    device is always its kernels (#1-#5), so false raises there rather
+    than run them all the same, and is accepted on the CPU, where the port
+    runs the plain attention anyway."""
+    if not fused_attention and torch.device(device).type == "cuda":
+        raise ValueError(
+            "fused_attention=false: the port's attention on a CUDA device "
+            "is always its kernels; set fused_attention: true, or run on "
+            "the CPU (device: cpu), which runs the plain attention")
+
+
 def _load_cut(model_dir, cfg, vision_dir, dev, bits, mode, tp) -> Llava:
     """A checkpoint whose decoder block linears and lm_head are read one
     at a time from the memory-mapped files, moved to ``dev``, quantized
@@ -204,3 +222,47 @@ class StepTimer:
             agg[e["name"]].append(e["seconds"])
         return {k: {"mean_s": float(np.mean(v)), "count": len(v)}
                 for k, v in agg.items()}
+
+
+_PROFILER: Optional[tuple] = None      # (profile, trace path) while open
+
+
+def maybe_start_profiler(output_dir: str, step: int, start_step: int = 5,
+                         num_steps: int = 3) -> bool:
+    """The trace hook, called after each step's work: a
+    ``torch.profiler.profile`` (CPU, and CUDA where there is a card)
+    started at ``start_step`` and stopped at ``start_step + num_steps``,
+    so the steps between are traced, written as a Chrome trace under
+    ``output_dir/profile/``.  -> whether it started one.  A run that ends
+    while the trace is open calls ``stop_profiler``, or the trace is
+    lost."""
+    global _PROFILER
+    if step == start_step:
+        stop_profiler()
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        path = os.path.join(output_dir, "profile", f"steps_{step + 1}-"
+                            f"{step + num_steps}_pid{os.getpid()}.json")
+        _PROFILER = (prof, path)
+        return True
+    if step == start_step + num_steps:
+        stop_profiler()
+    return False
+
+
+def stop_profiler() -> Optional[str]:
+    """Stop the open trace, if any, and write it -> its path (None when
+    none was open)."""
+    global _PROFILER
+    if _PROFILER is None:
+        return None
+    (prof, path), _PROFILER = _PROFILER, None
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    prof.stop()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    return path
