@@ -45,6 +45,7 @@ from opadpo_torch.models.lora import named_leaves, tree_get
 from opadpo_torch.ops import image_ops
 from opadpo_torch.ops.logprobs import chunked_logprobs
 from opadpo_torch.parallel import comm
+from opadpo_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,6 +215,11 @@ def rollout_score(model: Llava, dpo: DpoConfig, ref_lora, batch: dict,
     types' logprobs and entropies, and with CoPO the masked inputs (drawn
     from ``generator``) and the two masked-image logprobs.  Returns the
     tensors the policy step reads, under the JAX package's keys."""
+    with trace.span("dpo.score"):
+        return _rollout_score(model, dpo, ref_lora, batch, generator)
+
+
+def _rollout_score(model, dpo, ref_lora, batch, generator):
     queries, q_mask = batch["queries"], batch["queries_attention_mask"]
     images = batch["images"]
     resp, rmask = _responses(batch)
@@ -388,8 +394,10 @@ def loss_and_grads(state: TrainState, model: Llava, dpo: DpoConfig,
     """(loss, stats, gradients in ``named_leaves`` order) of the policy
     adapter ``state.params``."""
     leaves = [t for _, t in named_leaves(state.params)]
-    loss, stats = dpo_loss_and_stats(state.params, model, dpo, batch)
-    grads = torch.autograd.grad(loss, leaves)
+    with trace.span("dpo.forward"):
+        loss, stats = dpo_loss_and_stats(state.params, model, dpo, batch)
+    with trace.span("dpo.backward"):
+        grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), stats, list(grads)
 
 
@@ -397,9 +405,10 @@ def dpo_train_step(state: TrainState, model: Llava, batch: dict,
                    optimizer: AdamW, dpo: DpoConfig):
     """One gradient step over the policy adapter, updated in place ->
     (state, stats with "loss/total" and "loss/grad_norm")."""
-    loss, stats, grads = loss_and_grads(state, model, dpo, batch)
-    stats["loss/total"] = comm.global_stats({"l": _mean(loss)},
-                                       getattr(model, "mesh", None))["l"]
-    state = optimizer.apply_gradients(state, grads)
-    stats["loss/grad_norm"] = optimizer.last_grad_norm
+    with trace.span("dpo.step"):
+        loss, stats, grads = loss_and_grads(state, model, dpo, batch)
+        stats["loss/total"] = comm.global_stats(
+            {"l": _mean(loss)}, getattr(model, "mesh", None))["l"]
+        state = optimizer.apply_gradients(state, grads)
+        stats["loss/grad_norm"] = optimizer.last_grad_norm
     return state, stats

@@ -45,6 +45,7 @@ import torch
 from opadpo_torch.models.lora import named_leaves
 from opadpo_torch.parallel import comm
 from opadpo_torch.parallel.sharding import model_sharded_flags, zero1_slice
+from opadpo_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,6 +169,11 @@ class AdamW:
 
     @torch.no_grad()
     def apply_gradients(self, state: TrainState, grads: list) -> TrainState:
+        """The update, in place -> ``state``; the span ``adamw.apply``."""
+        with trace.span("adamw.apply"):
+            return self._apply(state, grads)
+
+    def _apply(self, state: TrainState, grads: list) -> TrainState:
         cfg = self.cfg
         named = named_leaves(state.params)
         params = [t for _, t in named]
@@ -191,6 +197,7 @@ class AdamW:
         if cfg.grad_accum_steps == 1:
             self.last_grad_norm = g_norm
         if cfg.max_grad_norm is not None:
+            trace.count("host_syncs")
             if not bool(g_norm < cfg.max_grad_norm):
                 grads = [g / g_norm.to(g.dtype) * cfg.max_grad_norm
                          for g in grads]

@@ -66,6 +66,7 @@ from opadpo_torch.ops.quant import QuantLinear, exact_div
 from opadpo_torch.ops.rope import apply_rope, rope_frequencies
 from opadpo_torch.parallel.comm import copy_to_model, gather, reduce_from_model
 from opadpo_torch.parallel.sharding import ROW, split_of
+from opadpo_torch.utils import trace
 
 NEG_INF = -1e30
 
@@ -301,9 +302,11 @@ def forward_prefill_unrolled(model: LlamaModel, input_embeds, key_mask,
 
 def maybe_remat(fn, remat: bool, *args):
     """``fn(*args)``, under ``torch.utils.checkpoint`` when ``remat`` is
-    set and grad is enabled (the decoder's layers and the CLIP blocks)."""
+    set and grad is enabled (the decoder's layers and the CLIP blocks);
+    its recompute in the backward is the span ``remat.layer``."""
     if remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(trace.rerun_span(fn, "remat.layer"), *args,
+                          use_reentrant=False)
     return fn(*args)
 
 

@@ -8,11 +8,12 @@
 holding ``[N, S, V]`` f32 logits: it walks the vocabulary in chunks, each
 chunk's body under ``torch.utils.checkpoint`` so that only four ``[N, S]``
 statistics per chunk are kept for the backward and the chunk's logits are
-recomputed there, and merges the chunks by their log-sum-exp.  Over a
-vocabulary split across a model group (``tp``) each rank walks its own
-slice; the running max is ``all_reduce``d (MAX) and the sums of
-exponentials, the entropy's sums and the target's logit (non-zero only on
-the rank that owns the label) are added by one ``all_reduce``.
+recomputed there (the span ``remat.head``), and merges the chunks by
+their log-sum-exp.  Over a vocabulary split across a model group (``tp``)
+each rank walks its own slice; the running max is ``all_reduce``d (MAX)
+and the sums of exponentials, the entropy's sums and the target's logit
+(non-zero only on the rank that owns the label) are added by one
+``all_reduce``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from opadpo_torch.parallel import comm
+from opadpo_torch.utils import trace
 
 
 def per_token_logprobs(logits: torch.Tensor, labels: torch.Tensor,
@@ -111,8 +113,9 @@ def chunked_logprobs(hidden: torch.Tensor, lm_head: torch.Tensor,
     for start in range(0, v, vc):
         b_c = head_lora["b"][start:start + vc] if head_lora is not None \
             else None
+        body = trace.rerun_span(_chunk_stats, "remat.head")
         stats.append(checkpoint(
-            _chunk_stats, h32, lm_head[start:start + vc], ha32, b_c, labels,
+            body, h32, lm_head[start:start + vc], ha32, b_c, labels,
             v0 + start, 1.0 / temperature, lora_scaling, with_entropy,
             use_reentrant=False))
     m_c, s_c, t_c, p_c = (torch.stack(x) for x in zip(*stats))

@@ -32,6 +32,7 @@ from opadpo_torch.models.loader import load_llava_checkpoint
 from opadpo_torch.ops import quant
 from opadpo_torch.parallel import sharding
 from opadpo_torch.parallel.mesh import Mesh, single_mesh
+from opadpo_torch.utils import trace
 
 
 def llava_config_from_hf(model_dir: str) -> LlavaConfig:
@@ -255,7 +256,8 @@ def maybe_start_profiler(output_dir: str, step: int, start_step: int = 5,
 
 def stop_profiler() -> Optional[str]:
     """Stop the open trace, if any, and write it -> its path (None when
-    none was open)."""
+    none was open).  The trace carries the steps' spans
+    (``utils/trace.py``); their store is emptied with it."""
     global _PROFILER
     if _PROFILER is None:
         return None
@@ -265,4 +267,5 @@ def stop_profiler() -> Optional[str]:
     prof.stop()
     os.makedirs(os.path.dirname(path), exist_ok=True)
     prof.export_chrome_trace(path)
+    trace.clear()
     return path

@@ -181,10 +181,14 @@ def activities(dev: torch.device) -> list:
 def device_kernels(prof) -> list:
     """[(name, start_us, end_us)] of a finished profile's device events,
     read from its raw Kineto events (building ``prof.events()``' operator
-    tree takes minutes for a decode segment's hundred thousand events)."""
+    tree takes minutes for a decode segment's hundred thousand events).
+    A ``record_function`` range's projection on the device (a user
+    annotation, such as the steps' spans) is not work of the device and is
+    left out."""
     return [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
             for e in prof.profiler.kineto_results.events()
-            if e.device_type() == DeviceType.CUDA]
+            if e.device_type() == DeviceType.CUDA
+            and not e.is_user_annotation()]
 
 
 def profile_phase(fn: Callable, dev: torch.device, plain_s: float,

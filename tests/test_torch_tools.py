@@ -32,12 +32,14 @@ import math
 import os
 import re
 import time
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
 
 from opadpo_torch import bridge
 from opadpo_torch.engine import dpo as t_dpo
@@ -337,6 +339,48 @@ def test_refusals():
         bench_decode.run(args)
     with pytest.raises(ValueError, match="--model tiny"):
         common.device_of(bench_decode.parse_args(["--device", "cpu"]))
+
+
+class _KinetoEvent:
+    """The part of a raw Kineto event that ``common.device_kernels``
+    reads."""
+
+    def __init__(self, name, device, annotation, start_ns, end_ns):
+        self._name, self._device, self._annotation = name, device, annotation
+        self._start, self._end = start_ns, end_ns
+
+    def name(self):
+        return self._name
+
+    def device_type(self):
+        return self._device
+
+    def is_user_annotation(self):
+        return self._annotation
+
+    def start_ns(self):
+        return self._start
+
+    def end_ns(self):
+        return self._end
+
+
+def test_device_kernels_leave_out_user_annotations():
+    """A ``record_function`` range (a step's span) appears on the device
+    as a user annotation: it is no work of the device, and only the
+    kernels and copies count as device busy."""
+    events = [
+        _KinetoEvent("dpo.step", DeviceType.CUDA, True, 0, 10_000),
+        _KinetoEvent("dpo.step", DeviceType.CPU, True, 0, 9_000),
+        _KinetoEvent("aten::mm", DeviceType.CPU, False, 1_000, 2_000),
+        _KinetoEvent("gemm_kernel", DeviceType.CUDA, False, 2_000, 5_000),
+        _KinetoEvent("Memcpy HtoD", DeviceType.CUDA, False, 6_000, 7_000),
+    ]
+    prof = SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: events)))
+    kernels = common.device_kernels(prof)
+    assert kernels == [("gemm_kernel", 2.0, 5.0), ("Memcpy HtoD", 6.0, 7.0)]
+    assert common.busy_us([(s, e) for _, s, e in kernels]) == 4.0
 
 
 def test_summarize_trace_reads_the_newest_torch_trace(tmp_path, capsys):
