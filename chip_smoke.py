@@ -1362,6 +1362,7 @@ def phase_train_reference(bits=16):
 
     counters = _counters()
     _reset(counters)
+    _head_routes(reset=True)
     roll = {dev: dpo_engine.rollout_score(
         model, dpo, to(ref, dev), to(batch, dev),
         torch.Generator(device=dev).manual_seed(3))
@@ -1410,8 +1411,12 @@ def phase_train_reference(bits=16):
     check(e_loss <= 2e-2, "tiny DPO loss disagrees with the CPU reference")
     check(e_grad <= 5e-2, "tiny LoRA grads disagree with the CPU reference")
     check(e_step <= 1e-2, "tiny AdamW step disagrees with the CPU reference")
+    # a chunk each: two scoring forwards, two policy forwards, their
+    # recomputes and backwards
+    heads = _check_head_routes(f"reference bits {bits}", 8 * -(
+        -cfg.llama.vocab_size // 2000))
     return {"rollout_rel": e_roll, "loss_rel": e_loss, "grad_rel": e_grad,
-            "step_rel": e_step}
+            "step_rel": e_step, "head_products": heads}
 
 
 def phase_sft_reference():
@@ -1469,6 +1474,7 @@ def phase_sft_reference():
 
     counters = _counters()
     out = {}
+    _head_routes(reset=True)
     for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
         _reset(counters)
         state = TrainState.create(make_trainable(to(lora, dev)), opt.cfg)
@@ -1524,8 +1530,12 @@ def phase_sft_reference():
     check(e_step <= 1e-2, "tiny SFT AdamW step disagrees with the CPU")
     check(min(moved.values()) > 0, f"vision / projector adapter did not "
           f"move: {moved}")
+    # a chunk each: the base and the masked readout, forward, recompute
+    # and backward
+    heads = _check_head_routes("sft-reference", 6 * -(
+        -cfg.llama.vocab_size // 2000))
     return {"stats_rel": e_stats, "grad_rel": e_grad, "step_rel": e_step,
-            "launches": launches}
+            "launches": launches, "head_products": heads}
 
 
 def _post(port, payload):
@@ -1944,6 +1954,28 @@ def _reset(counters):
 
 def _read(counters):
     return {k: fn.launches for k, fn in counters.items()}
+
+
+def _head_routes(reset: bool = False) -> dict:
+    """The head's chunk products by route (``ops/logprobs.head_products``:
+    ``tc`` the tensor cores, ``f32`` the upcast products)."""
+    from opadpo_torch.ops import logprobs
+
+    if reset:
+        for c in logprobs.head_products.values():
+            c.launches = 0
+    return {k: c.launches for k, c in logprobs.head_products.items()}
+
+
+def _check_head_routes(label: str, per_device: int) -> dict:
+    """The same calls on both devices: the card's bf16 head products all
+    on the tensor cores, the CPU's all upcast, ``per_device`` each."""
+    heads = _head_routes()
+    log(f"[{label}] head chunk products by route {heads}")
+    check(heads == {"tc": per_device, "f32": per_device},
+          f"{label}: head chunk products {heads}, expected {per_device} "
+          f"on each route")
+    return heads
 
 
 def _quant_layers(model):

@@ -14,6 +14,26 @@ each rank walks its own slice; the running max is ``all_reduce``d (MAX)
 and the sums of exponentials, the entropy's sums and the target's logit
 (non-zero only on the rank that owns the label) are added by one
 ``all_reduce``.
+
+A chunk's product takes one of two routes, chosen by what the operands are
+(``_tensor_core_route``):
+
+- a bf16 head and bf16 hidden states on CUDA with no head adapter (the
+  training configurations): bf16 tensor-core GEMMs with f32 accumulation
+  and f32 output, as the JAX package's ``preferred_element_type=f32``
+  product.  A product of two bf16 values is exact in f32, so the forward is
+  the f32 product of the same values up to the order of its sums.  The
+  backward's f32 cotangent is split exactly into three bf16 parts
+  (``split_bf16x3``) and dh is the f32 sum of their three exact products,
+  so it carries the f32 product's precision;
+- anything else (CPU tensors, an f32 or f16 head, a head adapter, whose
+  ``b`` is f32): both operands upcast and multiplied in f32.
+
+Either way each chunk's dh reaches the f32 copy of the hidden states, so
+the chunks' gradients add up in f32 and are cast to the hidden dtype once.
+``head_products`` counts the chunk products of each route, forward (its
+recompute included) and backward, one a chunk each, as do the trace
+counters ``head.tc_products`` and ``head.f32_products``.
 """
 
 from __future__ import annotations
@@ -24,8 +44,14 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from opadpo_torch.device import on_cuda
+from opadpo_torch.ops.quant import LaunchCount
 from opadpo_torch.parallel import comm
 from opadpo_torch.utils import trace
+
+# chunk products by route (``chip_smoke.py`` and the tests reset and read
+# ``launches``)
+head_products = {"tc": LaunchCount(), "f32": LaunchCount()}
 
 
 def per_token_logprobs(logits: torch.Tensor, labels: torch.Tensor,
@@ -55,12 +81,96 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None):
     return (x * mask).sum(dim) / torch.clamp(mask.sum(dim), min=1e-9)
 
 
-def _chunk_stats(h32, w_c, ha32, b_c, labels, start: int, inv_t: float,
+def _count(route: str) -> None:
+    head_products[route].launches += 1
+    trace.count(f"head.{route}_products")
+
+
+def _tensor_core_route(hidden: torch.Tensor, lm_head: torch.Tensor,
+                       head_lora: Optional[dict]) -> bool:
+    """Whether the head's chunk products run on tensor cores: bf16 hidden
+    states and head on CUDA, no head adapter.  An f16 head keeps the f32
+    products: an f32 cotangent does not split exactly into f16 parts,
+    whose exponents span only 2^-24 ... 2^15."""
+    return (head_lora is None and lm_head.dtype == torch.bfloat16
+            and hidden.dtype == torch.bfloat16 and on_cuda(lm_head))
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of bf16 operands on tensor cores, accumulated and returned
+    in f32 (``aten::mm.dtype``; its output being f32, so are any split-K
+    partial sums)."""
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+def split_bf16x3(d: torch.Tensor):
+    """``d`` (f32) as three bf16 tensors ``(d1, d2, d3)`` with ``d1 + d2 +
+    d3 == d`` exactly, ``d1`` the largest: ``d1 = bf16(d)``, ``d2 = bf16(d -
+    d1)``, ``d3 = d - d1 - d2``.  Each difference is exact in f32 (the error
+    of a round to nearest), and the last part needs at most 8 significant
+    bits, since 24 = 3 x 8, so it is exact in bf16.  Summed in f32 from the
+    smallest part up, the parts give ``d`` back bit for bit.  The one
+    inexactness, in use: a part below bf16's smallest normal (about
+    1.2e-38) may be flushed to zero by the tensor cores."""
+    d1 = d.to(torch.bfloat16)
+    r = d - d1                  # in f32: the bf16 operand widens exactly
+    d2 = r.to(torch.bfloat16)
+    return d1, d2, torch.sub(r, d2, out=torch.empty_like(d2))
+
+
+def dh_f32(d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``d @ w`` for an f32 ``d`` [M, V] and a bf16 ``w`` [V, D], in f32
+    on tensor cores: the sum of the three exact products of
+    ``split_bf16x3(d)``, the smallest part's first."""
+    d1, d2, d3 = split_bf16x3(d)
+    dh = _mm_f32(d3, w)
+    dh += _mm_f32(d2, w)
+    dh += _mm_f32(d1, w)
+    return dh
+
+
+class _HeadProduct(torch.autograd.Function):
+    """One chunk's logits ``h @ w^T`` in f32 on tensor cores.  ``h32`` (the
+    f32 hidden states) takes the f32 dh; ``h16`` (the same values in bf16,
+    detached) feeds the forward's product; ``w`` is the chunk's rows of the
+    frozen bf16 head."""
+
+    @staticmethod
+    def forward(ctx, h32, h16, w):
+        if ctx.needs_input_grad[2]:
+            raise ValueError("the tensor-core head product takes a frozen "
+                             "lm_head (no dW); this one requires grad")
+        ctx.save_for_backward(w)
+        _count("tc")
+        logits = _mm_f32(h16.reshape(-1, h16.shape[-1]), w.t())
+        return logits.view(*h16.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, d):
+        (w,) = ctx.saved_tensors
+        _count("tc")
+        dh = dh_f32(d.reshape(-1, d.shape[-1]), w)
+        return dh.view(*d.shape[:-1], w.shape[1]), None, None
+
+
+def _f32_product(h32, w_c):
+    _count("f32")
+    logits = F.linear(h32, w_c.float())
+    if logits.requires_grad:
+        logits.register_hook(lambda _: _count("f32"))
+    return logits
+
+
+def _chunk_stats(h32, h16, w_c, ha32, b_c, labels, start: int, inv_t: float,
                  lora_scaling: float, with_entropy: bool):
     """One vocabulary chunk: (max, sum exp(l - max), sum exp(l - max) * l,
     the label's logit where the label falls in the chunk, else 0), each
-    [N, S] f32."""
-    logits = F.linear(h32, w_c.float())
+    [N, S] f32.  ``h16``: the hidden states in bf16 on the tensor-core
+    route, else None."""
+    if h16 is not None:
+        logits = _HeadProduct.apply(h32, h16, w_c)
+    else:
+        logits = _f32_product(h32, w_c)
     if ha32 is not None:
         logits = logits + F.linear(ha32, b_c.float()) * lora_scaling
     logits = logits * inv_t
@@ -84,7 +194,8 @@ def chunked_logprobs(hidden: torch.Tensor, lm_head: torch.Tensor,
                      tp=None):
     """Per-token ``log p(label)`` (and optionally the entropy, in nats) of
     ``softmax(hidden @ lm_head^T / temperature)``, computed in f32 from the
-    model-dtype hidden states and weights.
+    model-dtype hidden states and weights (on CUDA with a bf16 head, by
+    tensor-core products with f32 accumulation: the module docstring).
 
     hidden [N, S, D]; lm_head [V, D] (``Linear`` layout); labels [N, S];
     head_lora ``{"a": [r, D], "b": [V, r]}`` or None.  Returns ``(logprobs
@@ -105,6 +216,8 @@ def chunked_logprobs(hidden: torch.Tensor, lm_head: torch.Tensor,
         if a is not None:
             a = comm.copy_to_model(a, tp)
     h32 = hidden.float()
+    h16 = hidden.detach() if _tensor_core_route(hidden, lm_head, head_lora) \
+        else None
     ha32 = None
     if head_lora is not None:
         ha32 = F.linear(h32, a.float()).to(head_lora["b"].dtype).float()
@@ -115,7 +228,7 @@ def chunked_logprobs(hidden: torch.Tensor, lm_head: torch.Tensor,
             else None
         body = trace.rerun_span(_chunk_stats, "remat.head")
         stats.append(checkpoint(
-            body, h32, lm_head[start:start + vc], ha32, b_c, labels,
+            body, h32, h16, lm_head[start:start + vc], ha32, b_c, labels,
             v0 + start, 1.0 / temperature, lora_scaling, with_entropy,
             use_reentrant=False))
     m_c, s_c, t_c, p_c = (torch.stack(x) for x in zip(*stats))

@@ -25,6 +25,26 @@ def _gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+def f32_grad_of(outputs, hidden):
+    """A list that receives the f32 gradient reaching ``hidden.float()``
+    (the sum over the readout's chunks, before its cast back to bf16) in
+    the backward of ``outputs``."""
+    seen, todo = set(), [o.grad_fn for o in outputs]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        for nxt, _ in node.next_functions:
+            if getattr(nxt, "variable", None) is hidden:
+                assert node.name().startswith("ToCopyBackward"), node.name()
+                got = []
+                node.register_prehook(lambda g: got.append(g[0].clone()))
+                return got
+            todo.append(nxt)
+    raise AssertionError("no cast of the hidden states in the graph")
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_on_gpu():
     """On the card: the flash forward kernel and the int8 decode kernel
@@ -656,3 +676,60 @@ def test_sft_step_matches_cpu_on_gpu(method):
     assert abs(lg - lc) <= 2e-2 * abs(lc), (lg, lc)
     assert (gg - gc).norm() <= 5e-2 * gc.norm(), ((gg - gc).norm(),
                                                   gc.norm())
+
+
+@pytest.mark.gpu
+def test_head_products_on_tensor_cores_match_f32_on_gpu():
+    """The head's tensor-core route against its f32 route at the DPO
+    cells' shapes (8,960 rows of 4,096, bf16): one 2,000-row chunk's
+    logits and its backward's f32 d hidden, then the whole 102,400-row
+    head through ``chunked_logprobs`` with the entropy and the backward
+    (the f32 route taken by handing it an f32 copy of the head), each
+    within 1e-5 of its largest entry (the f32 sums' reordering at K
+    4,096); the counters show a chunk's forward, recompute and backward on
+    one route and none on the other."""
+    from opadpo_torch.ops import logprobs as t_logprobs
+
+    g = _gen()
+    n, s, d, v, vc = 10, 896, 4096, 102400, 2000
+    hidden = torch.randn(n, s, d, generator=g, device="cuda").to(
+        torch.bfloat16)
+    head = (torch.randn(v, d, generator=g, device="cuda") * 0.02).to(
+        torch.bfloat16)
+    labels = torch.randint(0, v, (n, s), generator=g, device="cuda")
+    labels[:, -7:] = -100
+    wl = torch.randn(n, s, generator=g, device="cuda")
+
+    def close(got, ref, what):
+        err = (got - ref).abs().max().item()
+        top = ref.abs().max().item()
+        assert err <= 1e-5 * top, (what, err, top)
+
+    h16, w_c = hidden.view(-1, d), head[:vc]
+    h32 = h16.float().requires_grad_()
+    cot = torch.randn(n * s, vc, generator=g, device="cuda") * 1e-4
+    logits = t_logprobs._HeadProduct.apply(h32, h16, w_c)
+    close(logits, h16.float() @ w_c.float().t(), "chunk logits")
+    (dh,) = torch.autograd.grad(logits, h32, cot)
+    close(dh, cot @ w_c.float(), "chunk d hidden")
+
+    def run(w):
+        for c in t_logprobs.head_products.values():
+            c.launches = 0
+        x = hidden.detach().requires_grad_()
+        lp, ent = t_logprobs.chunked_logprobs(x, w, labels, -100,
+                                              with_entropy=True)
+        got = f32_grad_of([lp, ent], x)
+        torch.autograd.grad((lp * wl).sum() + (ent * wl.flip(0)).sum(), x)
+        counts = {k: c.launches for k, c in t_logprobs.head_products.items()}
+        return lp.detach(), ent.detach(), got[0], counts
+
+    chunks = -(-v // vc)
+    lp, ent, dh, counts = run(head)
+    assert counts == {"tc": 3 * chunks, "f32": 0}, counts
+    lp_r, ent_r, dh_r, counts = run(head.float())
+    assert counts == {"tc": 0, "f32": 3 * chunks}, counts
+    close(lp, lp_r, "logprobs")
+    close(ent, ent_r, "entropies")
+    close(dh, dh_r, "d hidden")
+    assert (lp[:, -7:] == 0).all()

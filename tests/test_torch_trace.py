@@ -125,7 +125,11 @@ def test_one_step_gives_the_span_tree(traced_step):
         assert bwd["t0_ns"] <= s["t0_ns"] <= s["t1_ns"] <= bwd["t1_ns"]
     assert all(ids[s["root"]]["name"] != "dpo.score"
                for s in snap["spans"] if s["name"].startswith("remat."))
-    assert snap["counters"] == {"host_syncs": 1}
+    # the f32 config's head products on the CPU: a chunk each in the two
+    # scoring forwards, the two policy forwards, their recomputes and
+    # their backwards
+    assert snap["counters"] == {"host_syncs": 1,
+                                "head.f32_products": 8 * CHUNKS}
     assert {s["name"] for s in snap["spans"]} == {
         "dpo.score", "dpo.step", "dpo.forward", "dpo.backward",
         "remat.layer", "remat.head", "adamw.apply"}
